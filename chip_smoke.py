@@ -1,0 +1,459 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero:
+
+1. preflight — torch/CUDA versions and the card's name and power limit; no
+   card, no run;
+2. build — compiles ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a;
+3. kernels — each kernel against its plain PyTorch version on the card, at
+   the main path's shapes and at the reference tests' shapes, with times;
+4. serving — full-width qwen3-1.7b under the duty-cycle controller with the
+   On-Off and Idle-Waiting strategies, through ``launch.serve.build_demo``;
+   the launch counts show that bring-up went through the dequant kernel and
+   prefill through the flash-attention kernel; the output is checked
+   against the plain path;
+5. the ``kernels`` JSON line, the card line, and the last line
+   ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import shutil
+import subprocess
+import sys
+import time
+from pathlib import Path
+from unittest import mock
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
+
+# H100 SXM published peaks (dense): HBM bytes/s, and operations/s by type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
+
+ARCH = "qwen3-1.7b"
+REQUESTS = 3
+PERIOD_S = 0.5
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the reference tests' own
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, target_ms: float = 40.0) -> float:
+    """Mean device time of ``fn`` over a run of launches (CUDA events)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    n = max(3, min(200, int(target_ms / max(start.elapsed_time(end), 1e-3))))
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def bound_ms(n_bytes: float, n_ops: float, dtype_name: str) -> tuple[float, str]:
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_OPS[dtype_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+def dequant_phase(card: str) -> dict:
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.dequant import ops as dq
+    from repro_torch.kernels.dequant.ref import dequantize_blocked_reference
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.checkpoint.serializer import _should_quantize, flatten
+
+    gen = torch.Generator("cuda").manual_seed(0)
+
+    def make(r, c, group=128):
+        q = torch.randint(-127, 128, (r, c), generator=gen, device="cuda", dtype=torch.int8)
+        s = torch.rand((r, c // group), generator=gen, device="cuda") * 1e-2 + 1e-4
+        return q, s
+
+    for (r, c) in [(256, 1024), (151936, 2048), (57344, 6144)]:
+        q, s = make(r, c)
+        for dtype in (torch.bfloat16, torch.float32):
+            out = dq.dequantize(q, s, dtype=dtype)
+            ref = dequantize_blocked_reference(q, s, dtype=dtype)
+            torch.cuda.synchronize()
+            err = float((out.float() - ref.float()).abs().max())
+            check(torch.equal(out, ref), f"dequant ({r},{c}) {dtype} is not bit-exact")
+            print(f"  dequant ({r},{c}) {str(dtype)[6:]}: bit-exact, max_abs_err {err}")
+        del q, s, out, ref
+
+    # one bring-up's launches: every leaf the checkpoint quantizes, in bf16
+    shapes = []
+    for path, meta in flatten(zoo.param_shapes(get_config(ARCH))):
+        if _should_quantize(meta):
+            shapes.append((path, meta.numel() // meta.shape[-1], meta.shape[-1]))
+    ms = plain = n_bytes = n_ops = max_err = 0.0
+    for path, r, c in shapes:
+        q, s = make(r, c)
+        out = dq.dequantize(q, s)
+        ref = dequantize_blocked_reference(q, s)
+        max_err = max(max_err, float((out.float() - ref.float()).abs().max()))
+        check(torch.equal(out, ref), f"dequant {path} ({r},{c}) is not bit-exact")
+        k_ms = time_ms(lambda: dq.dequantize(q, s))
+        p_ms = time_ms(lambda: dequantize_blocked_reference(q, s))
+        ms += k_ms
+        plain += p_ms
+        n_bytes += q.numel() + s.numel() * 4 + out.numel() * 2
+        n_ops += q.numel()
+        print(f"  dequant {path} ({r},{c}) bf16: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms [{card}]")
+        del q, s, out, ref
+    b_ms, b_by = bound_ms(n_bytes, n_ops, "float32")
+    print(
+        f"dequantize_blocked per bring-up ({len(shapes)} launches): max_abs_err {max_err} "
+        f"(bit-exact), kernel {ms:.4f} ms, plain {plain:.4f} ms, library n/a, "
+        f"bound {b_ms:.4f} ms by {b_by} ({n_bytes / 1e9:.3f} GB) [{card}]"
+    )
+    return {
+        "name": "dequantize_blocked",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/dequant.cu",
+        "replaces": "src/repro/kernels/dequant/kernel.py:25",
+        "launches": 0,
+        "max_abs_err": max_err,
+        "ms": ms,
+        "plain_ms": plain,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
+        "per": f"bring-up ({len(shapes)} launches, one per quantized leaf, bf16 out)",
+    }
+
+
+def _attention_pairs(sq, sk, causal, window, q_offset) -> int:
+    """(query, key) pairs the mask lets through, for one batch row and head."""
+    import torch
+
+    qpos = torch.arange(sq)[:, None] + q_offset
+    kpos = torch.arange(sk)[None, :]
+    ok = torch.ones(sq, sk, dtype=torch.bool)
+    if causal:
+        ok &= kpos <= qpos
+    if window:
+        ok &= kpos > qpos - window
+    return int(ok.sum())
+
+
+def flash_phase(card: str) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import attention_reference
+
+    gen = torch.Generator("cuda").manual_seed(0)
+
+    def make(b, sq, sk, h, kvh, d, dtype):
+        shape_q, shape_kv = (b, sq, h, d), (b, sk, kvh, d)
+        return tuple(
+            torch.randn(s, generator=gen, device="cuda").to(dtype)
+            for s in (shape_q, shape_kv, shape_kv)
+        )
+
+    # (b, sq, sk, h, kvh, d, causal, window, q_offset, label)
+    cases = [
+        (2, 256, 256, 4, 2, 64, True, 0, 0, "test table"),
+        (1, 128, 128, 4, 4, 32, False, 0, 0, "test table: MHA, bidirectional"),
+        (2, 256, 256, 8, 2, 64, True, 64, 0, "test table: GQA + window"),
+        (1, 100, 100, 2, 1, 48, True, 0, 0, "test table: non-block sizes"),
+        (1, 64, 192, 2, 2, 32, True, 0, 0, "test table: Sq != Sk"),
+        (1, 32, 128, 4, 2, 32, True, 0, 96, "q_offset"),
+        (1, 64, 32, 2, 1, 16, True, 0, -40, "fully masked rows"),
+        (2, 32, 32, 16, 8, 128, True, 0, 0, "demo prefill (main path)"),
+        (1, 2048, 2048, 16, 8, 128, True, 0, 0, "long prefill"),
+    ]
+    entry = None
+    for (b, sq, sk, h, kvh, d, causal, window, q_offset, label) in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype)[6:]
+            q, k, v = make(b, sq, sk, h, kvh, d, dtype)
+            kw = dict(causal=causal, window=window, q_offset=q_offset)
+            out = fa.attention(q, k, v, **kw)
+            ref = attention_reference(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = float((out.float() - ref.float()).abs().max())
+            check(bool(torch.isfinite(out).all()), f"flash {label} {dname}: non-finite output")
+            check(err <= TOL[dname], f"flash {label} {dname}: max err {err:.3g} > {TOL[dname]}")
+            if label == "fully masked rows":
+                check(bool((out[:, :40] == 0).all()), "fully masked rows are not 0")
+            line = f"  flash {label} {(b, sq, sk, h, kvh, d)} {dname}: max_abs_err {err:.3g}"
+            if "prefill" in label:
+                k_ms = time_ms(lambda: fa.attention(q, k, v, **kw))
+                p_ms = time_ms(lambda: attention_reference(q, k, v, **kw))
+                qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+                l_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=True))
+                pairs = _attention_pairs(sq, sk, causal, window, q_offset)
+                n_ops = 4.0 * b * h * d * pairs
+                n_bytes = (q.numel() + k.numel() + v.numel() + out.numel()) * q.element_size()
+                b_ms, b_by = bound_ms(n_bytes, n_ops, dname)
+                line += (
+                    f", kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library (sdpa) "
+                    f"{l_ms:.4f} ms, bound {b_ms:.5f} ms by {b_by} [{card}]"
+                )
+                if label.startswith("demo") and dtype == torch.bfloat16:
+                    entry = {
+                        "name": "flash_attention",
+                        "route": "cuda",
+                        "source": "src/repro_torch/csrc/flash_attention.cu",
+                        "replaces": "src/repro/kernels/flash_attention/kernel.py:93",
+                        "launches": 0,
+                        "max_abs_err": err,
+                        "ms": k_ms,
+                        "plain_ms": p_ms,
+                        "bound_ms": b_ms,
+                        "bound_by": b_by,
+                        "library_ms": l_ms,
+                        "per": "launch (B=2, S=32, H=16, KVH=8, D=128, causal, bf16)",
+                    }
+            print(line)
+    return entry
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: serving
+# ---------------------------------------------------------------------------
+def output_check() -> None:
+    """The kernel path against the plain path on the same weights: a small
+    fp32 model, and the full-width model in fp32 and in bf16.  The plain
+    path is the same prefill with the flash-attention wrapper swapped for
+    its plain version inside this function only.  fp32 is held to 1e-4 of
+    the largest logit; bf16, whose roundings of the two paths drift apart
+    over 28 layers of random weights, to equal argmax and 3e-2 of the
+    largest logit (the readings are in PERF.md)."""
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.serializer import flatten, unflatten_like
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ref import attention_reference
+    from repro_torch.models import attention
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.serving.engine import bring_up_from_checkpoint
+
+    def plain_prefill(*args):
+        with mock.patch.object(attention.attn_ops, "attention", attention_reference):
+            return zoo.prefill_fn(*args)
+
+    small = get_config(ARCH, reduced=True)
+    params = zoo.init_params(small, torch.Generator("cuda").manual_seed(1), torch.float32)
+    tokens = torch.randint(0, small.vocab_size, (2, 32), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(2))
+    with torch.inference_mode():
+        a, _ = zoo.prefill_fn(params, {"tokens": tokens}, small, 48)
+        b, _ = plain_prefill(params, {"tokens": tokens}, small, 48)
+    err = float((a - b).abs().max())
+    check(err <= 1e-4, f"reduced fp32 prefill logits: kernel vs plain differ by {err:.3g}")
+    print(f"  reduced fp32 prefill logits, kernel vs plain path: max_abs_err {err:.3g}")
+
+    # full width: the restored bf16 weights, and the same weights in fp32,
+    # where the two paths differ only by the kernel's fp32 rounding
+    cfg = get_config(ARCH)
+    engine = bring_up_from_checkpoint(cfg, CheckpointManager(str(CKPT_DIR)), 96)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 32), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(3))
+    p32 = unflatten_like(engine.params, [t.float() for _, t in flatten(engine.params)])
+    for name, params in (("bf16", engine.params), ("fp32", p32)):
+        with torch.inference_mode():
+            a, _ = zoo.prefill_fn(params, {"tokens": tokens}, cfg, 96)
+            b, _ = plain_prefill(params, {"tokens": tokens}, cfg, 96)
+        check(a.shape == (2, cfg.vocab_size) and bool(torch.isfinite(a).all()),
+              f"full-width {name} logits: shape {tuple(a.shape)} or non-finite")
+        err = float((a - b).abs().max())
+        rel = err / float(b.abs().max())
+        same = int((a.argmax(-1) == b.argmax(-1)).sum())
+        print(f"  full-width {name} prefill logits, kernel vs plain path: max_abs_err "
+              f"{err:.3g} (relative to max |logit| {rel:.3g}), argmax equal in {same} of 2")
+        limit = 1e-4 if name == "fp32" else 3e-2
+        check(rel <= limit, f"full-width {name} prefill logits: kernel vs plain differ by "
+                            f"{rel:.3g} of the largest logit, limit {limit}")
+        check(same == 2, f"full-width {name} prefill: argmax differs in {2 - same} of 2 rows")
+    del p32
+    engine.release()
+
+
+def configuration_split(card: str) -> None:
+    """Where one bring-up's time goes: file read, msgpack unpack, zlib
+    inflate, and the rest of a restore onto the card (host-to-device copies
+    and the dequant kernels)."""
+    import torch
+    import zlib
+
+    from repro_torch.checkpoint import _msgpack, serializer
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_zoo as zoo
+
+    path = sorted(CKPT_DIR.glob("step_*.ckpt"))[-1]
+    t0 = time.perf_counter()
+    data = path.read_bytes()
+    t1 = time.perf_counter()
+    payload = _msgpack.unpackb(data)
+    t2 = time.perf_counter()
+    n_raw = 0
+    for record in payload["leaves"]:
+        blobs = [record["quant"]["q"], record["quant"]["scales"]] if "quant" in record else [record["data"]]
+        n_raw += sum(len(zlib.decompress(b)) for b in blobs)
+    t3 = time.perf_counter()
+    del payload
+    params = serializer.deserialize(data, zoo.param_shapes(get_config(ARCH)), device="cuda")
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    del params
+    torch.cuda.empty_cache()
+    rest = (t4 - t3) - (t2 - t1) - (t3 - t2)
+    print(f"  configuration split ({len(data) / 1e9:.3f} GB file, {n_raw / 1e9:.3f} GB inflated): "
+          f"read {t1 - t0:.3f} s, msgpack unpack {t2 - t1:.3f} s, zlib inflate {t3 - t2:.3f} s, "
+          f"restore onto the card {t4 - t3:.3f} s of which copies + dequant + other "
+          f"{rest:.3f} s [{card}]")
+
+
+def serving_phase(card: str) -> tuple[int, int]:
+    import torch
+
+    from repro_torch.core.phases import CONFIGURATION, INFERENCE
+    from repro_torch.kernels.dequant import ops as dq
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch.serve import build_demo
+    from repro_torch.serving.scheduler import run_schedule
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    cfg_layers = 28
+    results = {}
+    launches = {"dequant": 0, "flash": 0}
+    for strategy in ("on_off", "idle_waiting"):
+        t0 = time.perf_counter()
+        controller, make_request = build_demo(
+            ARCH, reduced=False, device="cuda", ckpt_dir=str(CKPT_DIR), strategy=strategy
+        )
+        print(f"  {strategy}: build_demo {time.perf_counter() - t0:.3f} s "
+              f"(writes the checkpoint on first use: "
+              f"{sum(f.stat().st_size for f in CKPT_DIR.iterdir()) / 1e9:.3f} GB)")
+        requests = [make_request() for _ in range(REQUESTS)]
+        torch.cuda.reset_peak_memory_stats()
+        dq.launches = 0
+        fa.launches = 0
+        res = run_schedule(controller, iter(requests), period_s=PERIOD_S)
+        n_dq, n_fa = dq.launches, fa.launches
+        if controller.handle is not None:     # idle-waiting keeps it resident
+            controller.release_fn(controller.handle)
+            controller.handle = None
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        after = torch.cuda.memory_allocated()
+        launches["dequant"] += n_dq
+        launches["flash"] += n_fa
+        prefills = res.n_requests + res.n_configurations   # + bring-up warm-ups
+        check(n_dq == 8 * res.n_configurations,
+              f"{strategy}: {n_dq} dequant launches for {res.n_configurations} bring-ups")
+        check(n_fa == cfg_layers * prefills,
+              f"{strategy}: {n_fa} flash launches for {prefills} prefills")
+        check(res.n_requests == REQUESTS, f"{strategy}: served {res.n_requests} requests")
+        cfg_s = [r.wall_s for r in controller.records if r.name == CONFIGURATION]
+        inf_s = [r.wall_s for r in controller.records if r.name == INFERENCE]
+        print(f"  {strategy}: {res.n_requests} requests, {res.n_configurations} configurations, "
+              f"energy {res.energy_mj:.1f} mJ, by phase "
+              f"{ {k: round(v, 1) for k, v in res.energy_by_phase_mj.items()} }, "
+              f"measured crossover {res.crossover_ms} ms")
+        print(f"  {strategy}: configuration s {cfg_s}, inference s {inf_s}, wall {res.wall_s:.3f} s")
+        print(f"  {strategy}: dequant launches {n_dq} (8 per bring-up), flash launches "
+              f"{n_fa} (28 per prefill, {prefills} prefills)")
+        print(f"  {strategy}: max_memory_allocated {peak / 1e9:.3f} GB, "
+              f"memory_allocated after release {after / 1e9:.6f} GB [{card}]")
+        check(after < 1e8, f"{strategy}: {after} bytes still allocated after release")
+        results[strategy] = res
+    oo, iw = results["on_off"], results["idle_waiting"]
+    print(f"  energy ratio On-Off / Idle-Waiting: {oo.energy_mj / iw.energy_mj:.4f}")
+    check(iw.energy_mj < oo.energy_mj, "Idle-Waiting must use less energy than On-Off at 0.5 s")
+    configuration_split(card)
+    output_check()
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    return launches["dequant"], launches["flash"]
+
+
+def main() -> None:
+    if not (SRC / "repro_torch" / "csrc").is_dir():
+        fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the repository")
+    sys.path.insert(0, str(SRC))
+    sys.stdout.reconfigure(line_buffering=True)
+    import torch
+
+    print("== preflight")
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script runs only on the card")
+    card = card_line()
+    print(f"card: {card}, devices: {torch.cuda.device_count()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    print("== build")
+    from repro_torch.kernels import _lib
+
+    t0 = time.perf_counter()
+    _lib.library()
+    print(f"kernel library built in {time.perf_counter() - t0:.2f} s "
+          f"(cached: {_lib.last_build['cached']})")
+    for line in _lib.last_build["log"].splitlines():
+        if "registers" in line or "==" in line or "spill" in line:
+            print(f"  {line.strip()}")
+
+    print("== kernels vs plain versions")
+    dq_entry = dequant_phase(card)
+    fa_entry = flash_phase(card)
+
+    print("== serving")
+    n_dq, n_fa = serving_phase(card)
+    dq_entry["launches"], fa_entry["launches"] = n_dq, n_fa
+    check(n_dq > 0 and n_fa > 0, "a kernel of the main path was never launched")
+
+    print(card)
+    print(json.dumps({"kernels": [dq_entry, fa_entry]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+
+
+if __name__ == "__main__":
+    main()

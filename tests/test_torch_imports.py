@@ -1,0 +1,117 @@
+"""The port stands alone: no module of ``repro_torch`` imports ``jax`` or
+``repro``, and its entry points refuse to fall back to the CPU silently."""
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import repro_torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_)|from\s+repro(\.|\s))",
+    re.MULTILINE,
+)
+
+
+def _modules() -> list[str]:
+    return sorted(
+        m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")
+    )
+
+
+def test_every_module_imports_with_jax_and_repro_blocked():
+    code = f"""
+import importlib, sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        top = name.split(".")[0]
+        if top in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"blocked import of {{name}}")
+        return None
+
+sys.meta_path.insert(0, Block())
+for name in {_modules()!r}:
+    importlib.import_module(name)
+assert not any(m.split(".")[0] in ("jax", "repro") for m in sys.modules)
+print("imported", len({_modules()!r}))
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env,
+        timeout=300, cwd=str(ROOT),
+    )
+    assert out.returncode == 0, out.stderr
+    assert f"imported {len(_modules())}" in out.stdout
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")) + ["chip_smoke.py"],
+)
+def test_no_jax_or_repro_import_statement(path):
+    text = (ROOT / path).read_text()
+    assert not _FORBIDDEN.search(text), f"{path} imports jax or repro"
+
+
+def test_module_list_covers_the_slice():
+    mods = set(_modules())
+    for name in (
+        "repro_torch.configs.qwen3_1_7b",
+        "repro_torch.models.decoder",
+        "repro_torch.kernels.dequant.ops",
+        "repro_torch.kernels.flash_attention.ops",
+        "repro_torch.checkpoint._msgpack",
+        "repro_torch.core.duty_cycle",
+        "repro_torch.serving.scheduler",
+        "repro_torch.launch.serve",
+    ):
+        assert name in mods
+
+
+def test_cuda_sources_ship_beside_the_package():
+    assert {p.name for p in (PKG / "csrc").glob("*.cu")} == {
+        "dequant.cu", "flash_attention.cu"
+    }
+
+
+def test_build_demo_defaults_to_cuda_and_raises_without_it(monkeypatch, tmp_path):
+    from repro_torch.launch.serve import build_demo
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_demo("qwen3-1.7b", ckpt_dir=str(tmp_path))
+
+
+def test_cli_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    from repro_torch.launch import serve
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--requests", "1"])
+
+
+def test_later_slice_configs_raise_with_their_slice():
+    from repro_torch.configs import LATER_SLICES, get_config, list_archs
+    from repro_torch.configs.base import register
+
+    assert list_archs() == ["qwen3-1.7b"]
+    with pytest.raises(NotImplementedError, match="LSTM"):
+        get_config("paper-lstm-h20")
+    with pytest.raises(NotImplementedError, match="Mamba-2"):
+        get_config("mamba2-370m")
+    assert "mixtral-8x7b" in LATER_SLICES
+    cfg = get_config("qwen3-1.7b")
+
+    import dataclasses
+
+    with pytest.raises(NotImplementedError, match="remaining-model-families"):
+        register(lambda: dataclasses.replace(cfg, name="yi-6b"), lambda: cfg)
