@@ -10,17 +10,27 @@ Phases, in order; any failure exits non-zero:
 2. build — compiles ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a;
 3. kernels — each kernel against its plain PyTorch version on the card, at
    the main path's shapes and at the reference tests' shapes, with times;
-4. serving — full-width qwen3-1.7b under the duty-cycle controller with the
+4. lstm — the LSTM kernel against its plain version (fp32 and bf16, with
+   and without an initial state) and its gradient against plain autograd;
+   then the quickstart (``repro_torch.examples.quickstart``): Experiments
+   1–3 against the reference's lines, and the paper's LSTM trained for 300
+   steps and timed through the kernel, with the launch count checked and
+   the first losses held against a plain-trained run; then the kernel,
+   its plain version and cuDNN's ``nn.LSTM`` timed at batch 32 and 1;
+5. serving — full-width qwen3-1.7b under the duty-cycle controller with the
    On-Off and Idle-Waiting strategies, through ``launch.serve.build_demo``;
    the launch counts show that bring-up went through the dequant kernel and
    prefill through the flash-attention kernel; the output is checked
    against the plain path;
-5. the ``kernels`` JSON line, the card line, and the last line
+6. the ``kernels`` JSON line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -40,6 +50,26 @@ ARCH = "qwen3-1.7b"
 REQUESTS = 3
 PERIOD_S = 0.5
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the reference tests' own
+LSTM_ATOL = 1e-5                            # tests/kernels/test_lstm.py
+TRAIN_STEPS = 300                           # examples/quickstart.py
+# Experiments 1-3 as the reference quickstart prints them
+EXPERIMENT_LINES = [
+    "== Experiment 1: configuration-phase parameter optimization ==",
+    "  worst (single SPI, 3 MHz, raw):     475.56 mJ",
+    "  best  ConfigParams(buswidth=4, clock_mhz=66, compression=True):    11.85 mJ",
+    "  reduction: 40.12×   (paper: 40.13×)",
+    "",
+    "== Experiment 2: Idle-Waiting vs On-Off ==",
+    "  cross point: 89.22 ms   (paper: 89.21 ms)",
+    "  T_req= 40.0 ms: IW   771,805 items vs OnOff   346,073 → idle-waiting",
+    "  T_req= 89.0 ms: IW   346,918 items vs OnOff   346,073 → idle-waiting",
+    "  T_req=120.0 ms: IW   257,304 items vs OnOff   346,073 → on-off",
+    "",
+    "== Experiment 3: idle power-saving methods ==",
+    "  baseline    :   771,805 items,   8.58 h  (2.23× vs On-Off)",
+    "  method 1    : 3,020,121 items,  33.56 h  (8.73× vs On-Off)",
+    "  method 1+2  : 4,295,042 items,  47.72 h  (12.41× vs On-Off)",
+]
 
 
 def fail(msg: str) -> None:
@@ -251,7 +281,202 @@ def flash_phase(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: serving
+# Phase 4: the LSTM kernel and the quickstart
+# ---------------------------------------------------------------------------
+def _lstm_inputs(b, s, i, h, seed=0):
+    """The reference test's input scales: x, w_ih, w_hh, b, h0, c0."""
+    import torch
+
+    g = torch.Generator("cuda").manual_seed(seed)
+    shapes = ((b, s, i), (i, 4 * h), (h, 4 * h), (4 * h,), (b, h), (b, h))
+    scales = (1.0, 0.3, 0.3, 0.1, 0.5, 0.5)
+    return [torch.randn(sh, generator=g, device="cuda") * sc for sh, sc in zip(shapes, scales)]
+
+
+def graph_ms(fn, reps: int = 50) -> float:
+    """Device time of one call of ``fn``: ``reps`` calls captured in one
+    CUDA graph and replayed, so no host enqueue time is counted."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return time_ms(graph.replay) / reps
+
+
+def lstm_kernel_checks() -> float:
+    """The kernel against its plain version, and its gradient against
+    plain autograd; returns the largest fp32 error at the path's shapes."""
+    import torch
+
+    from repro_torch.kernels.lstm import ops as lo
+    from repro_torch.kernels.lstm.ref import lstm_reference
+
+    path_err = 0.0
+    shapes = [(4, 32, 6, 20), (1, 16, 3, 7), (8, 64, 12, 20),   # the reference test's
+              (32, 64, 6, 20), (1, 64, 6, 20),                  # the path's
+              (3, 24, 4, 5), (2, 24, 5, 33),                    # h in {5, 33}
+              (530, 8, 3, 7), (1101, 8, 6, 20)]                 # 2 and 4 rows a block
+    for shape in shapes:
+        for with_state in (False, True):
+            args = _lstm_inputs(*shape, seed=int(with_state))
+            if not with_state:
+                args = args[:4]
+            hs, h, c = lo.lstm_cuda(*args)
+            rhs, (rh, rc) = lstm_reference(*args)
+            torch.cuda.synchronize()
+            err = max(float((a - r).abs().max()) for a, r in ((hs, rhs), (h, rh), (c, rc)))
+            check(err <= LSTM_ATOL, f"lstm {shape} h0/c0={with_state} fp32: max err {err:.3g} > {LSTM_ATOL}")
+            if shape in ((32, 64, 6, 20), (1, 64, 6, 20)):
+                path_err = max(path_err, err)
+            # bf16 in and out, fp32 inside: one rounding at the output, so
+            # within half a bf16 ulp (2**-8 relative) of the fp32 plain
+            # version on the same bf16 inputs, plus the fp32 atol
+            bargs = [t.to(torch.bfloat16) for t in args]
+            bhs, bh, bc = lo.lstm_cuda(*bargs)
+            fhs, (fh, fc) = lstm_reference(*(t.float() for t in bargs))
+            torch.cuda.synchronize()
+            berr = max(float((a.float() - r).abs().max()) for a, r in ((bhs, fhs), (bh, fh), (bc, fc)))
+            ok = all(bool(((a.float() - r).abs() <= 2.0 ** -8 * r.abs() + LSTM_ATOL).all())
+                     for a, r in ((bhs, fhs), (bh, fh), (bc, fc)))
+            check(ok, f"lstm {shape} h0/c0={with_state} bf16: beyond half an ulp (max err {berr:.3g})")
+            print(f"  lstm {shape} h0/c0={with_state}: max_abs_err fp32 {err:.3g}, "
+                  f"bf16 {berr:.3g} (vs fp32 plain on the bf16 inputs)")
+
+    for with_state in (False, True):
+        args = _lstm_inputs(32, 64, 6, 20, seed=9)
+        if not with_state:
+            args = args[:4]
+        g = torch.Generator("cuda").manual_seed(10)
+        ws = [torch.randn(sh, generator=g, device="cuda") for sh in ((32, 64, 20), (32, 20), (32, 20))]
+
+        def grads(fn):
+            leaves = [t.clone().requires_grad_(True) for t in args]
+            hs, (h, c) = fn(*leaves)
+            loss = sum((w * t).sum() for w, t in zip(ws, (hs, h, c)))
+            return torch.autograd.grad(loss, leaves)
+
+        gerr = max(float((a - b).abs().max()) for a, b in zip(grads(lo.lstm), grads(lstm_reference)))
+        check(gerr <= LSTM_ATOL, f"lstm gradient h0/c0={with_state}: max err {gerr:.3g} > {LSTM_ATOL}")
+        print(f"  lstm gradient (32,64,6,20) h0/c0={with_state}, autograd.Function vs plain "
+              f"autograd: max_abs_err {gerr:.3g}")
+    return path_err
+
+
+def quickstart_path(card: str) -> int:
+    """The quickstart on the card: Experiments 1-3, then 300 training steps
+    and one timed inference through the kernel.  Returns the launches."""
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels.lstm import ops as lo
+    from repro_torch.kernels.lstm.ref import lstm_reference
+    from repro_torch.models import lstm as lstm_model
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        quickstart.exp1()
+        quickstart.exp2()
+        quickstart.exp3()
+    lines = buf.getvalue().splitlines()
+    print("\n".join(lines))
+    check(lines == EXPERIMENT_LINES, "Experiments 1-3 differ from the reference quickstart's lines")
+
+    lo.launches = 0
+    t0 = time.perf_counter()
+    out = quickstart.train_accelerator(device="cuda", steps=TRAIN_STEPS)
+    wall = time.perf_counter() - t0
+    n = lo.launches
+    want = TRAIN_STEPS + 3       # a forward per step, the evaluation, a warm-up, the timed one
+    print(f"  train_accelerator: {wall:.3f} s for {TRAIN_STEPS} steps, lstm launches {n} "
+          f"(expected {want}), single inference {out['inference_ms']:.4f} ms [{card}]")
+    check(n == want, f"lstm launches {n} != {want}")
+    losses = out["losses"]
+    check(all(math.isfinite(v) for v in losses), "non-finite training loss")
+    check(losses[-1] < losses[0], f"final loss {losses[-1]:.4f} is not below the first {losses[0]:.4f}")
+
+    # the same 10 steps through the plain version, on the card
+    with mock.patch.object(lstm_model.lstm_ops, "lstm", lstm_reference), \
+            contextlib.redirect_stdout(io.StringIO()):
+        plain = quickstart.train_accelerator(device="cuda", steps=10)
+    check(lo.launches == n, "the plain-trained run launched the kernel")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses[:10], plain["losses"]))
+    print(f"  first 10 losses, kernel vs plain training on the card: max relative difference {rel:.3g}")
+    check(rel <= 1e-4, f"kernel-trained and plain-trained losses differ by {rel:.3g} (limit 1e-4)")
+    return n
+
+
+def lstm_times(card: str) -> dict:
+    """Kernel, plain version and cuDNN nn.LSTM at the path's two shapes."""
+    import torch
+
+    from repro_torch.kernels.lstm import ops as lo
+    from repro_torch.kernels.lstm.ref import lstm_reference
+
+    print(f"  cuDNN {torch.backends.cudnn.version()}, enabled {torch.backends.cudnn.enabled}")
+    rows = {}
+    for bsz in (32, 1):
+        s, i, h = 64, 6, 20
+        x, w_ih, w_hh, b, _, _ = _lstm_inputs(bsz, s, i, h, seed=11)
+        net = torch.nn.LSTM(i, h, batch_first=True).cuda()
+        with torch.no_grad():       # same weights; PyTorch's gate order is i, f, g, o too
+            net.weight_ih_l0.copy_(w_ih.t())
+            net.weight_hh_l0.copy_(w_hh.t())
+            net.bias_ih_l0.copy_(b)
+            net.bias_hh_l0.zero_()
+            lib_hs, _ = net(x)
+            rhs, _ = lstm_reference(x, w_ih, w_hh, b)
+            hs, _, _ = lo.lstm_cuda(x, w_ih, w_hh, b)
+            torch.cuda.synchronize()
+            lib_err = float((lib_hs - rhs).abs().max())
+            err = float((hs - rhs).abs().max())
+            check(lib_err <= LSTM_ATOL, f"nn.LSTM does not compute the same function ({lib_err:.3g})")
+            k_ms = time_ms(lambda: lo.lstm_cuda(x, w_ih, w_hh, b))
+            k_dev = graph_ms(lambda: lo.lstm_cuda(x, w_ih, w_hh, b))
+            p_ms = time_ms(lambda: lstm_reference(x, w_ih, w_hh, b))
+            l_ms = time_ms(lambda: net(x))
+        n_ops = bsz * s * (8 * h * (i + h) + 4 * h + 10 * h)
+        n_bytes = 4 * (x.numel() + w_ih.numel() + w_hh.numel() + b.numel() + hs.numel() + 2 * bsz * h)
+        b_ms, b_by = bound_ms(n_bytes, n_ops, "float32")
+        print(f"  lstm B={bsz} S={s} I={i} H={h} fp32: kernel {k_ms:.4f} ms per call "
+              f"({k_dev:.4f} ms of device time, CUDA graph), plain {p_ms:.4f} ms, library "
+              f"(nn.LSTM, cuDNN) {l_ms:.4f} ms, bound {b_ms:.6f} ms by {b_by} "
+              f"({n_ops / 1e6:.3f} MFLOP, {n_bytes / 1e6:.4f} MB); max_abs_err kernel {err:.3g}, "
+              f"nn.LSTM {lib_err:.3g} [{card}]")
+        rows[bsz] = dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=l_ms,
+                         bound_ms=b_ms, bound_by=b_by)
+    return rows
+
+
+def lstm_phase(card: str) -> dict:
+    path_err = lstm_kernel_checks()
+    n = quickstart_path(card)
+    rows = lstm_times(card)
+    r = rows[32]
+    return {
+        "name": "lstm_pallas",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/lstm.cu",
+        "replaces": "src/repro/kernels/lstm/kernel.py:67",
+        "launches": n,
+        "max_abs_err": path_err,
+        "ms": r["ms"],
+        "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"],
+        "device_ms": r["device_ms"],
+        "at_batch_1": rows[1],
+        "per": "launch (training forward: B=32, S=64, I=6, H=20, fp32)",
+    }
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: serving
 # ---------------------------------------------------------------------------
 def output_check() -> None:
     """The kernel path against the plain path on the same weights: a small
@@ -441,13 +666,17 @@ def main() -> None:
     dq_entry = dequant_phase(card)
     fa_entry = flash_phase(card)
 
+    print("== lstm")
+    lstm_entry = lstm_phase(card)
+    check(lstm_entry["launches"] > 0, "the LSTM kernel was never launched on the quickstart path")
+
     print("== serving")
     n_dq, n_fa = serving_phase(card)
     dq_entry["launches"], fa_entry["launches"] = n_dq, n_fa
     check(n_dq > 0 and n_fa > 0, "a kernel of the main path was never launched")
 
     print(card)
-    print(json.dumps({"kernels": [dq_entry, fa_entry]}))
+    print(json.dumps({"kernels": [dq_entry, fa_entry, lstm_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

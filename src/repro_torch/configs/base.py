@@ -183,7 +183,6 @@ _REDUCED: dict[str, Callable[[], ArchConfig]] = {}
 
 #: Architectures of the reference that a later slice of the port brings.
 LATER_SLICES: dict[str, str] = {
-    "paper-lstm-h20": "the paper-LSTM slice (lstm kernel; the next slice)",
     "mamba2-370m": "the Mamba-2/Jamba slice (ssd kernel)",
     "jamba-1.5-large-398b": "the Mamba-2/Jamba slice (ssd kernel)",
     "mixtral-8x7b": "the remaining-model-families slice (MoE)",

@@ -1,6 +1,5 @@
 """Duty-cycle strategies + idle power-saving methods (paper §4.2, Exp. 2–3);
-a copy of ``repro.core.strategies`` for the port (``Strategy.sweep`` comes
-with ``core/config_phase`` in a later slice).
+a copy of ``repro.core.strategies`` for the port.
 
 Two strategies for the gap between periodic inference requests:
 
@@ -52,6 +51,8 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+from typing import Iterable
+
 from repro_torch.core import energy_model as em
 from repro_torch.core.phases import WorkloadItem
 
@@ -92,6 +93,15 @@ class Strategy:
 
     def evaluate(self, request_period_ms: float, e_budget_mj: float) -> em.StrategyResult:
         raise NotImplementedError
+
+    def sweep(
+        self, request_periods_ms: Iterable[float], e_budget_mj: float
+    ) -> list[em.StrategyResult]:
+        from repro_torch.core.config_phase import _validate_grid_axis
+
+        periods = list(request_periods_ms)
+        _validate_grid_axis("request_periods_ms", periods, caller=f"{self.name}.sweep")
+        return [self.evaluate(t, e_budget_mj) for t in periods]
 
     def min_request_period_ms(self) -> float:
         raise NotImplementedError

@@ -23,7 +23,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("dequant.cu", "flash_attention.cu")
+SOURCES = ("dequant.cu", "flash_attention.cu", "lstm.cu")
 _CHECKOUT = Path(__file__).resolve().parents[3]
 
 
@@ -118,6 +118,8 @@ def library() -> ctypes.CDLL:
             ctypes.POINTER(ll), i32, i32, i32, ctypes.c_float, vp,
         ]
         lib.repro_flash_attention.restype = i32
+        lib.repro_lstm.argtypes = [vp] * 9 + [i32] * 5 + [ll] * 3 + [vp]
+        lib.repro_lstm.restype = i32
         _lib = lib
     return _lib
 

@@ -73,13 +73,24 @@ def test_module_list_covers_the_slice():
         "repro_torch.core.duty_cycle",
         "repro_torch.serving.scheduler",
         "repro_torch.launch.serve",
+        "repro_torch.configs.paper_lstm",
+        "repro_torch.data.pipeline",
+        "repro_torch.kernels.lstm.ops",
+        "repro_torch.kernels.lstm.ref",
+        "repro_torch.models.lstm",
+        "repro_torch.optim.adamw",
+        "repro_torch.core.config_phase",
+        "repro_torch.core.workload",
+        "repro_torch.core.simulator",
+        "repro_torch.obs.ledger",
+        "repro_torch.examples.quickstart",
     ):
         assert name in mods
 
 
 def test_cuda_sources_ship_beside_the_package():
     assert {p.name for p in (PKG / "csrc").glob("*.cu")} == {
-        "dequant.cu", "flash_attention.cu"
+        "dequant.cu", "flash_attention.cu", "lstm.cu"
     }
 
 
@@ -99,12 +110,41 @@ def test_cli_defaults_to_cuda_and_raises_without_it(monkeypatch):
         serve.main(["--requests", "1"])
 
 
+def test_quickstart_defaults_to_cuda_and_raises_without_it(monkeypatch, capsys):
+    from repro_torch.examples import quickstart
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        quickstart.main([])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        quickstart.train_accelerator(steps=1)
+    assert capsys.readouterr().out == ""      # nothing ran on the CPU
+
+
+def test_workload_imports_yaml_only_for_the_round_trip():
+    code = """
+import sys
+sys.modules["yaml"] = None      # as on a host without PyYAML
+from repro_torch.core import paper_experiment, simulate
+from repro_torch.examples import quickstart
+quickstart.exp1(); quickstart.exp2(); quickstart.exp3()
+print("ran", simulate(paper_experiment()).n_items)
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, timeout=300, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr
+    assert "ran 771805" in out.stdout
+
+
 def test_later_slice_configs_raise_with_their_slice():
     from repro_torch.configs import LATER_SLICES, get_config, list_archs
     from repro_torch.configs.base import register
 
     assert list_archs() == ["qwen3-1.7b"]
-    with pytest.raises(NotImplementedError, match="LSTM"):
+    # the paper's LSTM is not an arch of the registry, as in the reference
+    assert "paper-lstm-h20" not in LATER_SLICES
+    with pytest.raises(KeyError, match="unknown arch"):
         get_config("paper-lstm-h20")
     with pytest.raises(NotImplementedError, match="Mamba-2"):
         get_config("mamba2-370m")

@@ -13,6 +13,8 @@ from repro_torch.kernels.dequant import ops as dq
 from repro_torch.kernels.dequant.ref import dequantize_blocked_reference
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.flash_attention.ref import attention_reference
+from repro_torch.kernels.lstm import ops as lstm_ops
+from repro_torch.kernels.lstm.ref import lstm_reference
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # the reference tests' own
 TABLE = [
@@ -24,6 +26,12 @@ TABLE = [
     (1, 32, 128, 4, 2, 32, True, 0, 96),      # q_offset
     (1, 64, 32, 2, 1, 16, True, 0, -40),      # fully masked rows
     (2, 32, 32, 16, 8, 128, True, 0, 0),      # the demo's full-width prefill
+]
+LSTM_TABLE = [
+    (4, 32, 6, 20), (1, 16, 3, 7), (8, 64, 12, 20),   # tests/kernels/test_lstm.py
+    (32, 64, 6, 20), (1, 64, 6, 20),                  # the quickstart: training, inference
+    (3, 24, 4, 5), (2, 24, 5, 33),                    # h in {5, 33}
+    (530, 8, 3, 7), (1101, 8, 6, 20),                 # 2 and 4 rows a block, ragged
 ]
 
 
@@ -87,3 +95,91 @@ def test_flash_wrapper_rejects_unsupported_head_dim(cuda):
     x = torch.zeros((1, 8, 2, 24), device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         fa.attention(x, x, x)
+
+
+def _lstm_inputs(device, b, s, i, h, seed=0):
+    """The reference test's input scales: x, w_ih, w_hh, b, h0, c0."""
+    g = torch.Generator(device).manual_seed(seed)
+    shapes = ((b, s, i), (i, 4 * h), (h, 4 * h), (4 * h,), (b, h), (b, h))
+    scales = (1.0, 0.3, 0.3, 0.1, 0.5, 0.5)
+    return [torch.randn(sh, generator=g, device=device) * sc for sh, sc in zip(shapes, scales)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("b,s,i,h", LSTM_TABLE)
+def test_lstm_kernel_matches_plain_version_fp32(cuda, b, s, i, h, with_state):
+    args = _lstm_inputs(cuda, b, s, i, h)
+    if not with_state:
+        args = args[:4]
+    before = lstm_ops.launches
+    hs, (hn, cn) = lstm_ops.lstm(*args)
+    assert lstm_ops.launches == before + 1
+    rhs, (rh, rc) = lstm_reference(*args)
+    for out, ref in ((hs, rhs), (hn, rh), (cn, rc)):
+        assert out.dtype == torch.float32 and out.shape == ref.shape
+        assert float((out - ref).abs().max()) <= 1e-5    # the reference test's atol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("b,s,i,h", [(32, 64, 6, 20), (1, 64, 6, 20), (2, 24, 5, 33)])
+def test_lstm_kernel_bf16_within_half_an_ulp(cuda, b, s, i, h, with_state):
+    """bf16 in and out, fp32 inside: the kernel rounds once, at the output,
+    so it is within half a bf16 ulp (2**-8 relative) of the fp32 plain
+    version on the same bf16-rounded inputs, plus the fp32 atol."""
+    args = [t.to(torch.bfloat16) for t in _lstm_inputs(cuda, b, s, i, h, seed=1)]
+    if not with_state:
+        args = args[:4]
+    hs, (hn, cn) = lstm_ops.lstm(*args)
+    rhs, (rh, rc) = lstm_reference(*(t.float() for t in args))
+    for out, ref in ((hs, rhs), (hn, rh), (cn, rc)):
+        assert out.dtype == torch.bfloat16
+        assert bool(((out.float() - ref).abs() <= 2.0 ** -8 * ref.abs() + 1e-5).all())
+
+
+@pytest.mark.cuda
+def test_lstm_kernel_reads_strided_x(cuda):
+    x, w_ih, w_hh, b, _, _ = _lstm_inputs(cuda, 4, 64, 6, 20, seed=2)
+    wide = torch.randn((64, 4, 10), device=cuda)
+    wide[:, :, 2:8] = x.transpose(0, 1)
+    xs = wide[:, :, 2:8].transpose(0, 1)             # (B, S, I), not contiguous
+    assert not xs.is_contiguous()
+    hs, _ = lstm_ops.lstm(xs, w_ih, w_hh, b)
+    rhs, _ = lstm_reference(x, w_ih, w_hh, b)
+    assert float((hs - rhs).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_state", [False, True])
+def test_lstm_gradient_equals_plain_autograd(cuda, with_state):
+    args = _lstm_inputs(cuda, 32, 64, 6, 20, seed=3)
+    if not with_state:
+        args = args[:4]
+    g = torch.Generator(cuda).manual_seed(4)
+    ws = [torch.randn(sh, generator=g, device=cuda) for sh in ((32, 64, 20), (32, 20), (32, 20))]
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_(True) for t in args]
+        hs, (h, c) = fn(*leaves)
+        loss = sum((w * t).sum() for w, t in zip(ws, (hs, h, c)))
+        return torch.autograd.grad(loss, leaves)
+
+    before = lstm_ops.launches
+    ours = grads(lstm_ops.lstm)
+    assert lstm_ops.launches == before + 1          # the forward only
+    for a, b in zip(ours, grads(lstm_reference)):
+        assert float((a - b).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_lstm_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x, w_ih, w_hh, b, h0, c0 = _lstm_inputs(cuda, 2, 8, 6, 20)
+    with pytest.raises(TypeError, match="one dtype"):
+        lstm_ops.lstm(x, w_ih.to(torch.bfloat16), w_hh, b)
+    with pytest.raises(ValueError, match="shape"):
+        lstm_ops.lstm(x, w_ih[:5], w_hh, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        lstm_ops.lstm(x, w_ih, w_hh, b, h0.t().contiguous().t(), c0)
+    with pytest.raises(ValueError, match="CUDA device"):
+        lstm_ops.lstm(x, w_ih.cpu(), w_hh, b)
