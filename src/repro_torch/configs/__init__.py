@@ -1,5 +1,6 @@
 """Architecture configs — importing this package registers the ported archs
-(qwen3-1.7b only so far; see ``base.LATER_SLICES`` for the rest)."""
+(qwen3-1.7b and mamba2-370m so far; see ``base.LATER_SLICES`` for the
+rest)."""
 from repro_torch.configs.base import (
     LATER_SLICES,
     LM_SHAPES,
@@ -9,7 +10,7 @@ from repro_torch.configs.base import (
     get_config,
     list_archs,
 )
-from repro_torch.configs import qwen3_1_7b  # noqa: F401  (registration)
+from repro_torch.configs import mamba2_370m, qwen3_1_7b  # noqa: F401  (registration)
 
 __all__ = [
     "LATER_SLICES",

@@ -183,8 +183,7 @@ _REDUCED: dict[str, Callable[[], ArchConfig]] = {}
 
 #: Architectures of the reference that a later slice of the port brings.
 LATER_SLICES: dict[str, str] = {
-    "mamba2-370m": "the Mamba-2/Jamba slice (ssd kernel)",
-    "jamba-1.5-large-398b": "the Mamba-2/Jamba slice (ssd kernel)",
+    "jamba-1.5-large-398b": "the remaining-model-families slice (MoE and hybrid layers)",
     "mixtral-8x7b": "the remaining-model-families slice (MoE)",
     "qwen3-moe-235b-a22b": "the remaining-model-families slice (MoE)",
     "hubert-xlarge": "the remaining-model-families slice (audio frontend)",

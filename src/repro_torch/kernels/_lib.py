@@ -23,7 +23,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("dequant.cu", "flash_attention.cu", "lstm.cu")
+SOURCES = ("dequant.cu", "flash_attention.cu", "lstm.cu", "ssd.cu")
 _CHECKOUT = Path(__file__).resolve().parents[3]
 
 
@@ -120,6 +120,8 @@ def library() -> ctypes.CDLL:
         lib.repro_flash_attention.restype = i32
         lib.repro_lstm.argtypes = [vp] * 9 + [i32] * 5 + [ll] * 3 + [vp]
         lib.repro_lstm.restype = i32
+        lib.repro_ssd.argtypes = [vp] * 9 + [i32] * 10 + [ctypes.POINTER(ll), vp]
+        lib.repro_ssd.restype = i32
         _lib = lib
     return _lib
 

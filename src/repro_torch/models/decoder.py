@@ -1,10 +1,11 @@
 """Decoder-LM assembly for serving: specs → prefill / decode (port of the
-attention and dense-MLP path of ``repro.models.decoder``).
+attention, Mamba-2 and dense-MLP paths of ``repro.models.decoder``).
 
 Per-layer parameters are stacked on a leading layer axis, as in the
 reference (``periods/pos0/...``); the reference's ``lax.scan`` over that
-axis is a Python loop here.  Mamba-2 and MoE layers raise: they come with
-later slices of the port.
+axis is a Python loop here.  A layer is attention (``attn``) or Mamba-2
+(``ssm``) as ``cfg.layer_kind`` says; hybrid periods (``attn_every``) and
+MoE layers raise: they come with a later slice of the port.
 """
 from __future__ import annotations
 
@@ -14,14 +15,16 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba2 as m2
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import Spec, rms_norm, stack_specs
 
 
 def _unported(cfg: ArchConfig) -> None:
-    if cfg.family == "ssm" or cfg.attn_every or cfg.ssm_state:
+    if cfg.attn_every:
         raise NotImplementedError(
-            f"{cfg.name}: Mamba-2 layers come with the Mamba-2/Jamba slice of the port"
+            f"{cfg.name}: hybrid attention/Mamba-2 periods (attn_every) come with "
+            "the remaining-model-families slice of the port"
         )
     if cfg.num_experts:
         raise NotImplementedError(
@@ -38,10 +41,11 @@ def _unported(cfg: ArchConfig) -> None:
 # Specs
 # ---------------------------------------------------------------------------
 def _block_specs(cfg: ArchConfig) -> dict:
-    specs: dict[str, Any] = {
-        "ln1": Spec((cfg.d_model,), ("norm",), init="ones"),
-        "attn": attn.attention_specs(cfg),
-    }
+    specs: dict[str, Any] = {"ln1": Spec((cfg.d_model,), ("norm",), init="ones")}
+    if cfg.layer_kind(0) == "attn":
+        specs["attn"] = attn.attention_specs(cfg)
+    else:
+        specs["ssm"] = m2.mamba2_specs(cfg)
     if cfg.d_ff:
         specs["ln2"] = Spec((cfg.d_model,), ("norm",), init="ones")
         specs["mlp"] = mlp_mod.mlp_specs(cfg)
@@ -95,7 +99,7 @@ def logits_at(params: dict, hidden: torch.Tensor, cfg: ArchConfig) -> torch.Tens
 # Serving: prefill + decode
 # ---------------------------------------------------------------------------
 class DecodeState(NamedTuple):
-    caches: list           # per layer: {"pos0": KVCache}
+    caches: list           # per layer: {"pos0": KVCache or SSMCache}
 
 
 def _mlp_residual(lp: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -118,7 +122,10 @@ def prefill(
     for i in range(cfg.num_layers):
         lp = _layer(params["periods"], i)["pos0"]
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        mix, cache = attn.prefill_cache(lp["attn"], h, cfg, max_len)
+        if "attn" in lp:
+            mix, cache = attn.prefill_cache(lp["attn"], h, cfg, max_len)
+        else:
+            mix, cache = m2.mamba2_block(lp["ssm"], h, cfg, return_state=True)
         caches.append({"pos0": cache})
         x = _mlp_residual(lp, x + mix, cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -138,7 +145,10 @@ def decode_step(
     for i in range(cfg.num_layers):
         lp = _layer(params["periods"], i)["pos0"]
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        mix, cache = attn.attention_decode(lp["attn"], h, state.caches[i]["pos0"], cfg)
+        if "attn" in lp:
+            mix, cache = attn.attention_decode(lp["attn"], h, state.caches[i]["pos0"], cfg)
+        else:
+            mix, cache = m2.mamba2_decode(lp["ssm"], h, state.caches[i]["pos0"], cfg)
         new_caches.append({"pos0": cache})
         x = _mlp_residual(lp, x + mix, cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -84,13 +84,17 @@ def test_module_list_covers_the_slice():
         "repro_torch.core.simulator",
         "repro_torch.obs.ledger",
         "repro_torch.examples.quickstart",
+        "repro_torch.configs.mamba2_370m",
+        "repro_torch.kernels.ssd.ops",
+        "repro_torch.kernels.ssd.ref",
+        "repro_torch.models.mamba2",
     ):
         assert name in mods
 
 
 def test_cuda_sources_ship_beside_the_package():
     assert {p.name for p in (PKG / "csrc").glob("*.cu")} == {
-        "dequant.cu", "flash_attention.cu", "lstm.cu"
+        "dequant.cu", "flash_attention.cu", "lstm.cu", "ssd.cu"
     }
 
 
@@ -141,13 +145,13 @@ def test_later_slice_configs_raise_with_their_slice():
     from repro_torch.configs import LATER_SLICES, get_config, list_archs
     from repro_torch.configs.base import register
 
-    assert list_archs() == ["qwen3-1.7b"]
+    assert list_archs() == ["mamba2-370m", "qwen3-1.7b"]
     # the paper's LSTM is not an arch of the registry, as in the reference
     assert "paper-lstm-h20" not in LATER_SLICES
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("paper-lstm-h20")
-    with pytest.raises(NotImplementedError, match="Mamba-2"):
-        get_config("mamba2-370m")
+    with pytest.raises(NotImplementedError, match="MoE and hybrid"):
+        get_config("jamba-1.5-large-398b")
     assert "mixtral-8x7b" in LATER_SLICES
     cfg = get_config("qwen3-1.7b")
 

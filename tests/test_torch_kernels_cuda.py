@@ -15,6 +15,8 @@ from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.flash_attention.ref import attention_reference
 from repro_torch.kernels.lstm import ops as lstm_ops
 from repro_torch.kernels.lstm.ref import lstm_reference
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd.ref import ssd_recurrent_reference
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # the reference tests' own
 TABLE = [
@@ -183,3 +185,111 @@ def test_lstm_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         lstm_ops.lstm(x, w_ih, w_hh, b, h0.t().contiguous().t(), c0)
     with pytest.raises(ValueError, match="CUDA device"):
         lstm_ops.lstm(x, w_ih.cpu(), w_hh, b)
+
+
+SSD_TABLE = [   # b, s, h, p, g, n, chunk, a = -1
+    # tests/kernels/test_ssd.py's, with its a = -exp(normal)
+    (2, 256, 4, 16, 2, 32, 64, False), (1, 128, 2, 8, 1, 16, 128, False),
+    (2, 512, 8, 32, 2, 64, 128, False), (1, 256, 4, 64, 1, 128, 64, False),
+    # the model's, with its init's a = -1: a = -exp(normal) at chunk 128 takes
+    # the in-chunk cumsum into the thousands, where the chunked form's fp32
+    # exp(cs_i - cs_j) can stray past 5e-4 from the recurrence (PERF.md)
+    (2, 256, 32, 64, 1, 128, 128, True),                       # the served prefill
+    (1, 256, 8, 64, 2, 128, 128, True),                        # two groups under eight heads
+    (1, 2048, 32, 64, 1, 128, 128, True),                      # a long prefill: P split in 4
+]
+SSD_Y, SSD_STATE = 5e-4, 5e-5      # tests/kernels/test_ssd.py:49-50
+
+
+def _ssd_inputs(dev, b, s, h, p, g, n, seed=0, a_one=False):
+    """The reference test's scales: x, dt, a, B, C, d and an initial state."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    r = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    a = -torch.exp(r(h))
+    args = [r(b, s, h, p), torch.nn.functional.softplus(r(b, s, h)),
+            -torch.ones_like(a) if a_one else a, r(b, s, g, n) * 0.5, r(b, s, g, n) * 0.5, r(h)]
+    return args, r(b, h, p, n) * 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_state", [True, False])
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,a_one", SSD_TABLE)
+def test_ssd_kernel_matches_plain_version_fp32(cuda, b, s, h, p, g, n, chunk, a_one, with_state):
+    args, init = _ssd_inputs(cuda, b, s, h, p, g, n, a_one=a_one)
+    init = init if with_state else None
+    before = ssd_ops.launches
+    y, st = ssd_ops.ssd(*args, chunk=chunk, init_state=init)
+    assert ssd_ops.launches == before + 1
+    assert y.dtype == torch.float32 and y.shape == (b, s, h, p) and st.shape == (b, h, p, n)
+    ry, rst = ssd_recurrent_reference(*args, init_state=init)
+    assert float((y - ry).abs().max()) <= SSD_Y
+    assert float((st - rst).abs().max()) <= SSD_STATE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,a_one", SSD_TABLE)
+def test_ssd_kernel_bf16_within_one_ulp(cuda, b, s, h, p, g, n, chunk, a_one):
+    """bf16 x, B, C and d with fp32 dt and a: fp32 inside, one rounding of
+    y at the output, so y is within one bf16 ulp (plus the fp32 tolerance)
+    of the recurrent oracle in fp32 on the same bf16 values.  (Against the
+    plain chunked version the margin is thinner: its own fp32 error and the
+    kernel's, each within 5e-4 of the oracle, can add up past it.)"""
+    args, _ = _ssd_inputs(cuda, b, s, h, p, g, n, seed=1, a_one=a_one)
+    for i in (0, 3, 4, 5):
+        args[i] = args[i].to(torch.bfloat16)
+    y, st = ssd_ops.ssd(*args, chunk=chunk)
+    ry, rst = ssd_recurrent_reference(*(t.float() for t in args))
+    _, exp = torch.frexp(ry)
+    ulp = torch.ldexp(torch.ones_like(ry), exp - 8)
+    assert y.dtype == torch.bfloat16 and st.dtype == torch.float32
+    assert bool(((y.float() - ry).abs() <= ulp + SSD_Y).all())
+    assert float((st - rst).abs().max()) <= SSD_STATE
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_hands_the_state_across_calls(cuda):
+    args, _ = _ssd_inputs(cuda, 1, 256, 2, 8, 1, 16, seed=2)
+    first = [t[:, :128] if t.dim() > 1 else t for t in args]
+    second = [t[:, 128:] if t.dim() > 1 else t for t in args]
+    y1, s1 = ssd_ops.ssd(*first, chunk=64)
+    y2, s2 = ssd_ops.ssd(*second, chunk=64, init_state=s1)
+    ry, rs = ssd_recurrent_reference(*args)
+    assert float((torch.cat([y1, y2], 1) - ry).abs().max()) <= SSD_Y
+    assert float((s2 - rs).abs().max()) <= SSD_STATE
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_reads_the_models_strided_views(cuda):
+    """x, B and C as the model hands them: reshaped slices of one
+    (B, S, d_inner + 2·N) tensor, read through their strides."""
+    b, s, h, p, n = 2, 256, 4, 16, 32
+    gen = torch.Generator(cuda).manual_seed(3)
+    xbc = torch.randn((b, s, h * p + 2 * n), generator=gen, device=cuda)
+    x, bm, cm = torch.split(xbc, [h * p, n, n], dim=-1)
+    args, _ = _ssd_inputs(cuda, b, s, h, p, 1, n, seed=4)
+    args[0], args[3], args[4] = x.reshape(b, s, h, p), bm.reshape(b, s, 1, n), cm.reshape(b, s, 1, n)
+    assert not args[0].is_contiguous()
+    y, st = ssd_ops.ssd(*args, chunk=64)
+    ry, rst = ssd_recurrent_reference(*args)
+    assert float((y - ry).abs().max()) <= SSD_Y
+    assert float((st - rst).abs().max()) <= SSD_STATE
+
+
+@pytest.mark.cuda
+def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    args, init = _ssd_inputs(cuda, 1, 128, 2, 16, 1, 32)
+    x, dt, a, bm, cm, d = args
+    with pytest.raises(TypeError, match="one of fp32 or bf16"):
+        ssd_ops.ssd(x.to(torch.bfloat16), dt, a, bm, cm, d)
+    with pytest.raises(TypeError, match="dt and a in fp32"):
+        ssd_ops.ssd(x, dt.to(torch.bfloat16), a, bm, cm, d)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        ssd_ops.ssd(x[:, :96], dt[:, :96], a, bm[:, :96], cm[:, :96], d, chunk=64)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        ssd_ops.ssd(x, dt, a, bm, cm, d, chunk=48)
+    with pytest.raises(ValueError, match="power of two"):
+        ssd_ops.ssd(x, dt, a, bm[..., :24], cm[..., :24], d)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ssd_ops.ssd(x, dt, a, bm.cpu(), cm, d)
+    with pytest.raises(ValueError, match="shape"):
+        ssd_ops.ssd(x, dt, a, bm, cm, d, init_state=init[:, :1])

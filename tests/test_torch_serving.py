@@ -185,8 +185,8 @@ def test_bring_up_defaults_to_cuda(jref, tmp_path, monkeypatch):
 
 def test_unported_layer_kinds_raise(jref):
     _, cfg = _configs(jref)
-    with pytest.raises(NotImplementedError, match="Mamba-2"):
-        zoo.specs(dataclasses.replace(cfg, family="ssm", ssm_state=16))
+    with pytest.raises(NotImplementedError, match="hybrid"):
+        zoo.specs(dataclasses.replace(cfg, family="hybrid", ssm_state=16, attn_every=2))
     with pytest.raises(NotImplementedError, match="MoE"):
         zoo.specs(dataclasses.replace(cfg, family="moe", num_experts=4, experts_per_token=2))
     with pytest.raises(NotImplementedError, match="GELU"):
