@@ -9,7 +9,10 @@ Phases, in order; any failure exits non-zero:
    card, no run;
 2. build — compiles ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a;
 3. kernels — each kernel against its plain PyTorch version on the card, at
-   the main path's shapes and at the reference tests' shapes, with times;
+   the main path's shapes and at the reference tests' shapes, with times
+   (flash attention: bf16 through both tensor-core kernels, wgmma and
+   mma.sync, and fp32 through the CUDA-core kernel, timed at the served
+   prefill and at S 2048 beside SDPA);
 4. lstm — the LSTM kernel against its plain version (fp32 and bf16, with
    and without an initial state) and its gradient against plain autograd;
    then the quickstart (``repro_torch.examples.quickstart``): Experiments
@@ -256,54 +259,86 @@ def flash_phase(card: str) -> dict:
         (1, 64, 192, 2, 2, 32, True, 0, 0, "test table: Sq != Sk"),
         (1, 32, 128, 4, 2, 32, True, 0, 96, "q_offset"),
         (1, 64, 32, 2, 1, 16, True, 0, -40, "fully masked rows"),
+        (1, 1000, 1000, 8, 2, 128, True, 256, 0, "ragged long window"),
+        (1, 200, 700, 4, 2, 80, True, 0, 500, "Sq != Sk, q_offset, many key tiles"),
         (2, 32, 32, 16, 8, 128, True, 0, 0, "demo prefill (main path)"),
         (1, 2048, 2048, 16, 8, 128, True, 0, 0, "long prefill"),
     ]
-    entry = None
+    entry, long_bf16 = None, None
     for (b, sq, sk, h, kvh, d, causal, window, q_offset, label) in cases:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype)[6:]
+            bf16 = dtype == torch.bfloat16
             q, k, v = make(b, sq, sk, h, kvh, d, dtype)
             kw = dict(causal=causal, window=window, q_offset=q_offset)
-            out = fa.attention(q, k, v, **kw)
             ref = attention_reference(q, k, v, **kw)
+
+            def mma():   # the bf16 mma.sync kernel, at every head dim
+                return fa.flash_attention_cuda(q, k, v, mma_only=True, **kw)
+
+            # bf16: the kernel the wrapper picks (wgmma at head dim 64 and
+            # 128), then the mma.sync kernel that takes the other head dims
+            outs = [fa.attention(q, k, v, **kw)] + ([mma()] if bf16 else [])
             torch.cuda.synchronize()
-            err = float((out.float() - ref.float()).abs().max())
-            check(bool(torch.isfinite(out).all()), f"flash {label} {dname}: non-finite output")
-            check(err <= TOL[dname], f"flash {label} {dname}: max err {err:.3g} > {TOL[dname]}")
-            if label == "fully masked rows":
-                check(bool((out[:, :40] == 0).all()), "fully masked rows are not 0")
-            line = f"  flash {label} {(b, sq, sk, h, kvh, d)} {dname}: max_abs_err {err:.3g}"
+            errs = [float((o.float() - ref.float()).abs().max()) for o in outs]
+            out, err = outs[0], max(errs)
+            for o, e in zip(outs, errs):
+                check(bool(torch.isfinite(o).all()), f"flash {label} {dname}: non-finite output")
+                check(e <= TOL[dname], f"flash {label} {dname}: max err {e:.3g} > {TOL[dname]}")
+                if label == "fully masked rows":
+                    check(bool((o[:, :40] == 0).all()), "fully masked rows are not 0")
+            kernel = ("wgmma" if d in (64, 128) else "mma.sync") if bf16 else "CUDA-core fp32"
+            line = f"  flash {label} {(b, sq, sk, h, kvh, d)} {dname}: max_abs_err {errs[0]:.3g} ({kernel})"
+            if bf16:
+                line += f", mma.sync {errs[1]:.3g}"
             if "prefill" in label:
                 k_ms = time_ms(lambda: fa.attention(q, k, v, **kw))
                 p_ms = time_ms(lambda: attention_reference(q, k, v, **kw))
                 qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-                l_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=causal, enable_gqa=True))
+
+                def sdpa():
+                    return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
+
+                l_ms = time_ms(sdpa)
                 pairs = _attention_pairs(sq, sk, causal, window, q_offset)
                 n_ops = 4.0 * b * h * d * pairs
                 n_bytes = (q.numel() + k.numel() + v.numel() + out.numel()) * q.element_size()
                 b_ms, b_by = bound_ms(n_bytes, n_ops, dname)
                 line += (
-                    f", kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library (sdpa) "
-                    f"{l_ms:.4f} ms, bound {b_ms:.5f} ms by {b_by} [{card}]"
+                    f"; {kernel} kernel {k_ms:.4f} ms a call, plain {p_ms:.4f} ms, library (sdpa) "
+                    f"{l_ms:.4f} ms a call, bound {b_ms:.5f} ms by {b_by}; kernel at "
+                    f"{n_ops / k_ms / 1e9:.1f} TFLOP/s, {b_ms / k_ms:.2%} of its bound, "
+                    f"{k_ms / l_ms:.3f}x sdpa's time a call"
                 )
-                if label.startswith("demo") and dtype == torch.bfloat16:
-                    entry = {
-                        "name": "flash_attention",
-                        "route": "cuda",
-                        "source": "src/repro_torch/csrc/flash_attention.cu",
-                        "replaces": "src/repro/kernels/flash_attention/kernel.py:93",
-                        "launches": 0,
-                        "max_abs_err": err,
-                        "ms": k_ms,
-                        "plain_ms": p_ms,
-                        "bound_ms": b_ms,
-                        "bound_by": b_by,
-                        "library_ms": l_ms,
-                        "per": "launch (B=2, S=32, H=16, KVH=8, D=128, causal, bf16)",
+                if bf16:   # fp32 sdpa runs cuBLAS, which keeps a workspace per capture stream
+                    m_ms = time_ms(mma)
+                    k_dev, m_dev, l_dev = (graph_ms(f) for f in (lambda: fa.attention(q, k, v, **kw), mma, sdpa))
+                    line += (
+                        f"; mma.sync kernel {m_ms:.4f} ms a call ({n_ops / m_ms / 1e9:.1f} TFLOP/s); "
+                        f"on the device (CUDA graph) wgmma {k_dev:.4f} ms, mma.sync {m_dev:.4f} ms, "
+                        f"sdpa {l_dev:.4f} ms, wgmma {k_dev / l_dev:.3f}x sdpa"
+                    )
+                    row = {
+                        "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                        "bound_by": b_by, "library_ms": l_ms, "device_ms": k_dev,
+                        "library_device_ms": l_dev, "mma_sync_ms": m_ms, "mma_sync_device_ms": m_dev,
                     }
+                    if label.startswith("long"):
+                        long_bf16 = {"shape": "B=1, S=2048, H=16, KVH=8, D=128, causal, bf16",
+                                     "tflops": n_ops / k_ms / 1e9, **row}
+                    else:
+                        entry = {
+                            "name": "flash_attention",
+                            "route": "cuda",
+                            "source": "src/repro_torch/csrc/flash_attention.cu",
+                            "replaces": "src/repro/kernels/flash_attention/kernel.py:93",
+                            "launches": 0,
+                            **row,
+                            "per": "launch (B=2, S=32, H=16, KVH=8, D=128, causal, bf16)",
+                        }
+                line += f" [{card}]"
             print(line)
+    entry["long_prefill"] = long_bf16
     return entry
 
 

@@ -113,11 +113,11 @@ def library() -> ctypes.CDLL:
         vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.repro_dequant.argtypes = [vp, vp, vp, ll, ll, i32, i32, vp]
         lib.repro_dequant.restype = i32
-        lib.repro_flash_attention.argtypes = [
-            vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32,
-            ctypes.POINTER(ll), i32, i32, i32, ctypes.c_float, vp,
-        ]
-        lib.repro_flash_attention.restype = i32
+        flash = [vp, vp, vp, vp] + [i32] * 6 + [ctypes.POINTER(ll)] + [i32] * 3 + [ctypes.c_float]
+        lib.repro_flash_attention_fp32.argtypes = flash + [vp]
+        lib.repro_flash_attention_fp32.restype = i32
+        lib.repro_flash_attention_bf16.argtypes = flash + [i32, vp]
+        lib.repro_flash_attention_bf16.restype = i32
         lib.repro_lstm.argtypes = [vp] * 9 + [i32] * 5 + [ll] * 3 + [vp]
         lib.repro_lstm.restype = i32
         lib.repro_ssd.argtypes = [vp] * 9 + [i32] * 10 + [ctypes.POINTER(ll), vp]

@@ -13,10 +13,9 @@ import torch
 from repro_torch.kernels import _lib
 from repro_torch.kernels.flash_attention.ref import attention_reference
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
 #: kernel launches since the count was last set to 0
 launches = 0
+_STRIDES = ctypes.c_longlong * 9
 
 
 def attention(
@@ -30,7 +29,7 @@ def attention(
 ) -> torch.Tensor:
     """Multi-head attention (GQA aware). Shapes:
     q (B,Sq,H,D), k/v (B,Sk,KVH,D) → (B,Sq,H,D) in q.dtype."""
-    if q.device.type == "cpu":
+    if q.is_cpu:
         return attention_reference(q, k, v, causal=causal, window=window, q_offset=q_offset)
     return flash_attention_cuda(q, k, v, causal=causal, window=window, q_offset=q_offset)
 
@@ -43,42 +42,57 @@ def flash_attention_cuda(
     causal: bool = True,
     window: int = 0,
     q_offset: int = 0,
+    mma_only: bool = False,
 ) -> torch.Tensor:
-    """Launch ``csrc/flash_attention.cu`` on the current stream; raises on
-    any input the kernel does not take."""
+    """Launch ``csrc/flash_attention.cu`` on the current stream.  bf16 goes
+    to the tensor cores: the wgmma kernel at head dim 64 and 128, the
+    mma.sync kernel at the other head dims (or at all of them with
+    ``mma_only``, which exists to time and test the two side by side).
+    fp32 goes to the CUDA-core kernel.  Raises on any input the kernel does
+    not take.  The served prefill's attention takes a few µs on the card, so
+    the checks read each tensor attribute once."""
     global launches
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+    if not (q.is_cuda and k.is_cuda and v.is_cuda) or not q.get_device() == k.get_device() == v.get_device():
         raise ValueError(f"flash kernel needs q, k, v on one CUDA device, got {q.device}, {k.device}, {v.device}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash kernel takes fp32 or bf16 q, k, v of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"need q (B,Sq,H,D) and k, v (B,Sk,KVH,D), got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    b, sq, h, d = q.shape
-    kb, sk, kvh, kd = k.shape
+    dtype = q.dtype
+    if dtype not in (torch.bfloat16, torch.float32) or k.dtype != dtype or v.dtype != dtype:
+        raise TypeError(f"flash kernel takes fp32 or bf16 q, k, v of one dtype, got {dtype}, {k.dtype}, {v.dtype}")
+    shape, kshape = q.shape, k.shape
+    if len(shape) != 4 or len(kshape) != 4 or kshape != v.shape:
+        raise ValueError(f"need q (B,Sq,H,D) and k, v (B,Sk,KVH,D), got {tuple(shape)}, {tuple(kshape)}, {tuple(v.shape)}")
+    b, sq, h, d = shape
+    kb, sk, kvh, kd = kshape
     if kb != b or kd != d:
-        raise ValueError(f"batch or head dim of k {tuple(k.shape)} differs from q {tuple(q.shape)}")
+        raise ValueError(f"batch or head dim of k {tuple(kshape)} differs from q {tuple(shape)}")
     if kvh == 0 or h % kvh:
         raise ValueError(f"query heads {h} are not a multiple of kv heads {kvh}")
     if d % 16 or not 16 <= d <= 128:
         raise ValueError(f"flash kernel takes a head dim that is a multiple of 16 up to 128, got {d}")
-    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
+    qs, ks, vs = q.stride(), k.stride(), v.stride()
+    if qs[3] != 1 or ks[3] != 1 or vs[3] != 1:
         raise ValueError("flash kernel needs the head dim of q, k, v contiguous")
-    if b > 65535 or h > 65535:
-        raise ValueError(f"batch {b} or heads {h} exceed the grid's 65535")
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
+    if b > 65535 or h > 65535 or -(-sq * (h // kvh) // 64) > 65535:
+        raise ValueError(f"batch {b}, heads {h} or Sq·H/KVH/64 ({sq} queries) exceed the grid's 65535")
+    strides = qs[:3] + ks[:3] + vs[:3]
+    ptrs = q.data_ptr(), k.data_ptr(), v.data_ptr()
+    bf16 = dtype is torch.bfloat16
+    if bf16 and ((ptrs[0] | ptrs[1] | ptrs[2]) % 16 or any(s % 8 for s in strides)):
+        raise ValueError(
+            "bf16 flash kernel copies 16 bytes at a time: q, k, v must start on "
+            f"16-byte boundaries and have strides that are multiples of 8, got "
+            f"addresses mod 16 {tuple(p % 16 for p in ptrs)}, strides {strides}")
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    if sq == 0 or h == 0 or b == 0:
         return out
-    strides = (ctypes.c_longlong * 9)(
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-    )
     lib = _lib.library()
-    err = lib.repro_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
-        b, sq, sk, h, kvh, d, strides, int(causal), int(window), int(q_offset),
-        d ** -0.5, torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    args = (*ptrs, out.data_ptr(), b, sq, sk, h, kvh, d, _STRIDES(*strides),
+            causal, window, q_offset, d ** -0.5)
+    # torch.cuda.current_stream builds a Stream object: several µs a call
+    stream = torch._C._cuda_getCurrentRawStream(q.get_device())
+    if bf16:
+        err = lib.repro_flash_attention_bf16(*args, mma_only, stream)
+    else:
+        err = lib.repro_flash_attention_fp32(*args, stream)
     _lib.check(err, "flash_attention")
     launches += 1
     return out

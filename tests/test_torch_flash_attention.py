@@ -112,3 +112,87 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
     _, (q, k, v) = make_qkv(6, 1, 16, 16, 2, 1, 16, "float32")
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention_cuda(q, k, v)
+
+
+# ---------------------------------------------------------------------------
+# The bf16 tensor-core kernels' numerics, emulated on the CPU
+# ---------------------------------------------------------------------------
+def emulate_bf16_kernel(q, k, v, *, causal, window, q_offset, bq, bk=64):
+    """What ``csrc/flash_attention.cu``'s bf16 kernels compute, step by step:
+    blocks of ``bq`` rows that pack the H/KVH query heads of one kv head
+    (row r = position r // group, head r % group), the block's key tiles of
+    ``bk`` from its first to its last unmasked tile, S in fp32 from bf16
+    inputs, the online softmax in fp32 in base 2, P rounded to bf16 before
+    P·V, the denominator summed over the rounded P, fp32 sums, and l == 0
+    giving 0.  q, k, v are bf16 tensors; returns bf16."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    group = h // kvh
+    rows = sq * group
+    scale_log2 = d ** -0.5 * 1.4426950408889634
+    out = torch.zeros((b, sq, h, d), dtype=torch.float32)
+    for bi in range(b):
+        for g in range(kvh):
+            qp = q[bi, :, g * group:(g + 1) * group].float().reshape(rows, d)
+            kg, vg = k[bi, :, g].float(), v[bi, :, g].float()
+            for r0 in range(0, rows, bq):
+                qt = qp[r0:r0 + bq]
+                n = qt.shape[0]
+                qpos = torch.arange(r0, r0 + n) // group + q_offset
+                pos_first, pos_last = r0 // group, (min(r0 + bq, rows) - 1) // group
+                k_hi = min(sk, pos_last + q_offset + 1) if causal else sk
+                k_lo = max(0, pos_first + q_offset - window + 1) if window else 0
+                t_end = -(-k_hi // bk) if k_hi > k_lo else k_lo // bk
+                m = torch.full((n,), float("-inf"))
+                l = torch.zeros(n)
+                acc = torch.zeros((n, d))
+                for t in range(k_lo // bk, t_end):
+                    kj = torch.arange(t * bk, (t + 1) * bk)
+                    valid = kj < sk
+                    kt = torch.where(valid[:, None], kg[kj.clamp(max=sk - 1)], 0.0)
+                    vt = torch.where(valid[:, None], vg[kj.clamp(max=sk - 1)], 0.0)
+                    s = (qt @ kt.T) * scale_log2
+                    ok = valid[None, :].expand(n, bk)
+                    if causal:
+                        ok = ok & (kj[None, :] <= qpos[:, None])
+                    if window:
+                        ok = ok & (kj[None, :] > qpos[:, None] - window)
+                    s = torch.where(ok, s, float("-inf"))
+                    mx = torch.maximum(m, s.max(dim=1).values)
+                    mu = torch.where(mx == float("-inf"), 0.0, mx)
+                    alpha = torch.exp2(m - mu)
+                    p = torch.exp2(s - mu[:, None]).to(torch.bfloat16).float()
+                    l = l * alpha + p.sum(dim=1)
+                    acc = acc * alpha[:, None] + p @ vt
+                    m = mx
+                o = acc * torch.where(l == 0, 0.0, 1.0 / l)[:, None]
+                pr = torch.arange(r0, r0 + n)
+                out[bi, pr // group, g * group + pr % group] = o
+    return out.to(torch.bfloat16)
+
+
+EMULATED = [
+    # (b, sq, sk, h, kvh, d, causal, window, q_offset)
+    *[(*row, 0) for row in TABLE],
+    (1, 32, 128, 4, 2, 32, True, 0, 96),      # q_offset
+    (1, 64, 32, 2, 1, 16, True, 0, -40),      # fully masked rows
+    (2, 32, 32, 16, 8, 128, True, 0, 0),      # the served prefill
+    (1, 300, 300, 4, 2, 64, True, 96, 0),     # ragged, windowed, several tiles
+]
+
+
+@pytest.mark.parametrize("bq", [64, 128])   # the wgmma and the mma.sync kernel's blocks
+@pytest.mark.parametrize("b,sq,sk,h,kvh,d,causal,window,q_offset", EMULATED)
+def test_bf16_kernel_numerics_match_jax_reference(jref, bq, b, sq, sk, h, kvh, d, causal, window, q_offset):
+    """bf16 P before P·V, fp32 everywhere else, stays within the reference
+    tests' bf16 limit of the JAX package's plain attention."""
+    _, ref = jref
+    (jq, jk, jv), (q, k, v) = make_qkv(7, b, sq, sk, h, kvh, d, "bfloat16")
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    ours = emulate_bf16_kernel(q, k, v, bq=bq, **kw)
+    theirs = ref.attention_reference(jq, jk, jv, **kw)
+    assert bool(torch.isfinite(ours.float()).all())
+    np.testing.assert_allclose(_np(ours), _np(theirs), atol=TOL["bfloat16"], rtol=0)
+    if q_offset < 0:
+        assert torch.all(ours[:, :-q_offset] == 0)
+

@@ -28,6 +28,9 @@ TABLE = [
     (1, 32, 128, 4, 2, 32, True, 0, 96),      # q_offset
     (1, 64, 32, 2, 1, 16, True, 0, -40),      # fully masked rows
     (2, 32, 32, 16, 8, 128, True, 0, 0),      # the demo's full-width prefill
+    (1, 2048, 2048, 16, 8, 128, True, 0, 0),  # a long full-width prefill
+    (1, 1000, 1000, 8, 2, 128, True, 256, 0), # ragged, long, windowed
+    (1, 200, 700, 4, 2, 80, True, 0, 500),    # Sq != Sk, q_offset, many key tiles
 ]
 LSTM_TABLE = [
     (4, 32, 6, 20), (1, 16, 3, 7), (8, 64, 12, 20),   # tests/kernels/test_lstm.py
@@ -83,6 +86,22 @@ def test_flash_kernel_matches_plain_version(cuda, dtype, b, sq, sk, h, kvh, d, c
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,h,kvh,d,causal,window,q_offset", TABLE)
+def test_flash_bf16_mma_sync_kernel_matches_plain_version(cuda, b, sq, sk, h, kvh, d, causal, window, q_offset):
+    # the wrapper sends head dims 64 and 128 to the wgmma kernel; this holds
+    # the mma.sync kernel, which takes the other head dims, at those too
+    g = torch.Generator(cuda).manual_seed(1)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+               for s in ((b, sq, h, d), (b, sk, kvh, d), (b, sk, kvh, d)))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = fa.launches
+    out = fa.flash_attention_cuda(q, k, v, mma_only=True, **kw)
+    assert fa.launches == before + 1
+    ref = attention_reference(q, k, v, **kw)
+    assert float((out.float() - ref.float()).abs().max()) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
 def test_flash_kernel_reads_strided_inputs(cuda):
     g = torch.Generator(cuda).manual_seed(2)
     qkv = torch.randn((2, 40, 8 + 4 + 4, 64), generator=g, device=cuda)
@@ -90,6 +109,30 @@ def test_flash_kernel_reads_strided_inputs(cuda):
     out = fa.attention(q, k, v, causal=True)
     ref = attention_reference(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
     assert float((out - ref).abs().max()) <= TOL[torch.float32]
+
+
+@pytest.mark.cuda
+def test_flash_bf16_kernel_reads_strided_inputs(cuda):
+    g = torch.Generator(cuda).manual_seed(2)
+    qkv = torch.randn((2, 40, 8 + 4 + 4, 64), generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:12], qkv[:, :, 12:]
+    out = fa.attention(q, k, v, causal=True)
+    ref = attention_reference(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+    assert out.dtype == torch.bfloat16
+    assert float((out.float() - ref.float()).abs().max()) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+def test_flash_bf16_wrapper_rejects_unaligned_views(cuda):
+    flat = torch.zeros(1 + 8 * 2 * 64, dtype=torch.bfloat16, device=cuda)
+    x = flat[1:].view(1, 8, 2, 64)          # starts 2 bytes past a 16-byte boundary
+    before = fa.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.attention(x, x, x)
+    y = torch.zeros((1, 8, 2, 68), dtype=torch.bfloat16, device=cuda)[..., :64]
+    with pytest.raises(ValueError, match="multiples of 8"):   # head stride 68
+        fa.attention(y, y, y)
+    assert fa.launches == before
 
 
 @pytest.mark.cuda
