@@ -10,9 +10,9 @@ Phases, in order; any failure exits non-zero:
 2. build — compiles ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a;
 3. kernels — each kernel against its plain PyTorch version on the card, at
    the main path's shapes and at the reference tests' shapes, with times
-   (flash attention: bf16 through both tensor-core kernels, wgmma and
-   mma.sync, and fp32 through the CUDA-core kernel, timed at the served
-   prefill and at S 2048 beside SDPA);
+   (flash attention: bf16 through the tensor-core (wgmma) kernel and fp32
+   through the CUDA-core kernel, timed at the served prefill, at the
+   reduced qwen3's prefill and at S 2048 beside SDPA);
 4. lstm — the LSTM kernel against its plain version (fp32 and bf16, with
    and without an initial state) and its gradient against plain autograd;
    then the quickstart (``repro_torch.examples.quickstart``): Experiments
@@ -261,10 +261,14 @@ def flash_phase(card: str) -> dict:
         (1, 64, 32, 2, 1, 16, True, 0, -40, "fully masked rows"),
         (1, 1000, 1000, 8, 2, 128, True, 256, 0, "ragged long window"),
         (1, 200, 700, 4, 2, 80, True, 0, 500, "Sq != Sk, q_offset, many key tiles"),
+        (1, 100, 100, 6, 2, 128, True, 0, 0, "GQA group 3 (heads straddle blocks)"),
+        (2, 130, 130, 12, 4, 64, True, 48, 0, "GQA group 3 + window"),
+        (1, 77, 150, 6, 2, 96, True, 0, 73, "GQA group 3, q_offset, head dim 96"),
         (2, 32, 32, 16, 8, 128, True, 0, 0, "demo prefill (main path)"),
+        (2, 32, 32, 4, 2, 16, True, 0, 0, "reduced qwen3 prefill"),
         (1, 2048, 2048, 16, 8, 128, True, 0, 0, "long prefill"),
     ]
-    entry, long_bf16 = None, None
+    entry, timed = None, {}
     for (b, sq, sk, h, kvh, d, causal, window, q_offset, label) in cases:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype)[6:]
@@ -272,25 +276,15 @@ def flash_phase(card: str) -> dict:
             q, k, v = make(b, sq, sk, h, kvh, d, dtype)
             kw = dict(causal=causal, window=window, q_offset=q_offset)
             ref = attention_reference(q, k, v, **kw)
-
-            def mma():   # the bf16 mma.sync kernel, at every head dim
-                return fa.flash_attention_cuda(q, k, v, mma_only=True, **kw)
-
-            # bf16: the kernel the wrapper picks (wgmma at head dim 64 and
-            # 128), then the mma.sync kernel that takes the other head dims
-            outs = [fa.attention(q, k, v, **kw)] + ([mma()] if bf16 else [])
+            out = fa.attention(q, k, v, **kw)
             torch.cuda.synchronize()
-            errs = [float((o.float() - ref.float()).abs().max()) for o in outs]
-            out, err = outs[0], max(errs)
-            for o, e in zip(outs, errs):
-                check(bool(torch.isfinite(o).all()), f"flash {label} {dname}: non-finite output")
-                check(e <= TOL[dname], f"flash {label} {dname}: max err {e:.3g} > {TOL[dname]}")
-                if label == "fully masked rows":
-                    check(bool((o[:, :40] == 0).all()), "fully masked rows are not 0")
-            kernel = ("wgmma" if d in (64, 128) else "mma.sync") if bf16 else "CUDA-core fp32"
-            line = f"  flash {label} {(b, sq, sk, h, kvh, d)} {dname}: max_abs_err {errs[0]:.3g} ({kernel})"
-            if bf16:
-                line += f", mma.sync {errs[1]:.3g}"
+            err = float((out.float() - ref.float()).abs().max())
+            check(bool(torch.isfinite(out).all()), f"flash {label} {dname}: non-finite output")
+            check(err <= TOL[dname], f"flash {label} {dname}: max err {err:.3g} > {TOL[dname]}")
+            if label == "fully masked rows":
+                check(bool((out[:, :40] == 0).all()), "fully masked rows are not 0")
+            kernel = "wgmma" if bf16 else "CUDA-core fp32"
+            line = f"  flash {label} {(b, sq, sk, h, kvh, d)} {dname}: max_abs_err {err:.3g} ({kernel})"
             if "prefill" in label:
                 k_ms = time_ms(lambda: fa.attention(q, k, v, **kw))
                 p_ms = time_ms(lambda: attention_reference(q, k, v, **kw))
@@ -311,22 +305,17 @@ def flash_phase(card: str) -> dict:
                     f"{k_ms / l_ms:.3f}x sdpa's time a call"
                 )
                 if bf16:   # fp32 sdpa runs cuBLAS, which keeps a workspace per capture stream
-                    m_ms = time_ms(mma)
-                    k_dev, m_dev, l_dev = (graph_ms(f) for f in (lambda: fa.attention(q, k, v, **kw), mma, sdpa))
+                    k_dev, l_dev = (graph_ms(f) for f in (lambda: fa.attention(q, k, v, **kw), sdpa))
                     line += (
-                        f"; mma.sync kernel {m_ms:.4f} ms a call ({n_ops / m_ms / 1e9:.1f} TFLOP/s); "
-                        f"on the device (CUDA graph) wgmma {k_dev:.4f} ms, mma.sync {m_dev:.4f} ms, "
+                        f"; on the device (CUDA graph) wgmma {k_dev:.4f} ms, "
                         f"sdpa {l_dev:.4f} ms, wgmma {k_dev / l_dev:.3f}x sdpa"
                     )
                     row = {
                         "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                         "bound_by": b_by, "library_ms": l_ms, "device_ms": k_dev,
-                        "library_device_ms": l_dev, "mma_sync_ms": m_ms, "mma_sync_device_ms": m_dev,
+                        "library_device_ms": l_dev,
                     }
-                    if label.startswith("long"):
-                        long_bf16 = {"shape": "B=1, S=2048, H=16, KVH=8, D=128, causal, bf16",
-                                     "tflops": n_ops / k_ms / 1e9, **row}
-                    else:
+                    if label.startswith("demo"):
                         entry = {
                             "name": "flash_attention",
                             "route": "cuda",
@@ -336,9 +325,13 @@ def flash_phase(card: str) -> dict:
                             **row,
                             "per": "launch (B=2, S=32, H=16, KVH=8, D=128, causal, bf16)",
                         }
+                    else:
+                        timed[label] = {"shape": f"B={b}, S={sq}, H={h}, KVH={kvh}, D={d}, causal, bf16",
+                                        "tflops": n_ops / k_ms / 1e9, **row}
                 line += f" [{card}]"
             print(line)
-    entry["long_prefill"] = long_bf16
+    entry["long_prefill"] = timed["long prefill"]
+    entry["reduced_prefill"] = timed["reduced qwen3 prefill"]
     return entry
 
 

@@ -1,16 +1,14 @@
 // Blocked online-softmax attention (forward), GQA, causal / sliding-window /
-// q_offset masks, for the prefill path.  Three kernels:
+// q_offset masks, for the prefill path.  Two kernels:
 //
-//  * `flash_wg_kernel` takes bf16 q, k, v at head dim 64 or 128 and runs
-//    both products as Hopper's warpgroup MMAs (wgmma);
-//  * `flash_mma_kernel` takes bf16 q, k, v at any head dim the wrapper
-//    accepts (16, 32, ..., 128) and runs both products on the tensor cores
-//    by warp-level mma.sync;
+//  * `flash_wg_kernel` takes bf16 q, k, v at any head dim the wrapper
+//    accepts (16, 32, ..., 128) and runs both products as Hopper's
+//    warpgroup MMAs (wgmma);
 //  * `flash_fp32_kernel` takes fp32 q, k, v and computes in fp32 on the
 //    CUDA cores, so it meets the reference tests' 2e-5 fp32 limit, which
 //    TF32 tensor cores would not.
 //
-// All replace the TPU kernel `flash_attention` (body `_flash_kernel`) in
+// Both replace the TPU kernel `flash_attention` (body `_flash_kernel`) in
 // src/repro/kernels/flash_attention/kernel.py:93, and compute what it
 // computes: scale D**-0.5, GQA, causal and window masks from absolute
 // positions (query i sits at i + q_offset), Sq != Sk, ragged lengths, and a
@@ -39,9 +37,10 @@
 //    other's products.  The tensor cores read Q, K and V straight from
 //    shared memory through 128-byte-swizzled descriptors (V as the
 //    transposed operand), so no thread loads an operand fragment.
-//  * mma.sync: a block is 8 warps of 16 rows (128); Q's fragments are
-//    loaded once into registers, K's by ldmatrix and V's by ldmatrix.trans
-//    from rows padded by 16 bytes (no bank conflicts).
+//  * Head dims: the tiles are 64 or 128 columns wide.  A head dim below
+//    that (16-48, 80-112) fills the rest of each row with zeros (cp.async
+//    of no bytes), which add exactly nothing to S and give output columns
+//    that are not stored.
 //  * Asynchronous copies: K and V tiles come in by 16-byte cp.async into a
 //    3-stage ring in shared memory, so tiles j+1 and j+2 are in flight
 //    while the products run on tile j, and one barrier a tile suffices (it
@@ -51,7 +50,7 @@
 //    r % group), so each K/V tile is read once per group instead of once
 //    per head, and a short prefill (S 32, group 2) fills 64 rows.
 //  * Masks: tiles wholly above the causal diagonal or left of the window
-//    are skipped by the block (and by each mma.sync warp for its own rows);
+//    are skipped by the block;
 //    the element mask runs only on tiles that straddle a boundary.  A row
 //    that has seen no key yet (running max still -inf) subtracts 0, never
 //    -inf - (-inf), and l == 0 gives 0.
@@ -71,10 +70,9 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// What both bf16 kernels share
+// bf16 on warpgroup MMAs (wgmma)
 // ---------------------------------------------------------------------------
-constexpr int kTcBQ = 128;    // query rows per mma.sync block (8 warps)
-constexpr int kWgBQ = 64;     // query rows per wgmma block (one warpgroup)
+constexpr int kWgBQ = 64;     // query rows per block (one warpgroup)
 constexpr int kTcBK = 64;     // keys per K/V tile
 constexpr int kStages = 3;    // K/V tiles in flight
 constexpr int kNT = kTcBK / 8;   // n tiles of 8 keys in S
@@ -116,10 +114,10 @@ struct BlockRows {
   int r0, rows, t_begin, t_end;
 };
 
-template <int BQ>
 __device__ __forceinline__ BlockRows block_rows(int sq, int sk, int group,
                                                 int causal, int window,
                                                 int q_offset) {
+  constexpr int BQ = kWgBQ;
   BlockRows br;
   br.rows = sq * group;
   br.r0 = (gridDim.z - 1 - blockIdx.z) * BQ;   // late rows first
@@ -134,12 +132,7 @@ __device__ __forceinline__ BlockRows block_rows(int sq, int sk, int group,
   return br;
 }
 
-// Does the key tile at k0 hold any key that a query in [qmin, qmax] may
-// see (`live`), and is any key in it masked for one of them (`straddles`)?
-__device__ __forceinline__ bool tile_live(int k0, int qmin, int qmax,
-                                          int causal, int window) {
-  return !(causal && k0 > qmax) && !(window && k0 + kTcBK - 1 <= qmin - window);
-}
+// Is any key of the tile at k0 masked for a query in [qmin, qmax]?
 __device__ __forceinline__ bool tile_straddles(int k0, int qmin, int qmax,
                                                int sk, int causal, int window) {
   return k0 + kTcBK > sk || (causal && k0 + kTcBK - 1 > qmin) ||
@@ -225,9 +218,6 @@ __device__ __forceinline__ float inv_row_sum(float l) {
   return l == 0.f ? 0.f : 1.f / l;
 }
 
-// ---------------------------------------------------------------------------
-// bf16 on warpgroup MMAs (wgmma), head dim 64 or 128
-// ---------------------------------------------------------------------------
 // Shared-memory tiles are 128-byte-swizzled: a tile of R rows by D columns
 // is D / 64 column blocks of R rows of 128 bytes, the 16-byte chunks of row
 // r permuted by r % 8.  Offset, in elements, of chunk c of row r:
@@ -307,13 +297,16 @@ __device__ __forceinline__ void wgmma_o<128>(float (&d)[16][4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
 }
 
-// shared memory: Q, then kStages stages of K and V (112 KB at D 128, so
-// two blocks share an SM and one's softmax overlaps the other's products)
-template <int D>
+// shared memory: Q, then kStages stages of K and V, rows of DP columns
+// (112 KB at DP 128, so two blocks share an SM and one's softmax overlaps
+// the other's products)
+template <int DP>
 constexpr int wg_smem_bytes() {
-  return (kWgBQ + 2 * kStages * kTcBK) * D * 2;
+  return (kWgBQ + 2 * kStages * kTcBK) * DP * 2;
 }
 
+// head dim D in tiles of DP = 64 columns (D <= 64) or 128 (D > 64);
+// columns D .. DP - 1 of each tile are zeros
 template <int D>
 __global__ void __launch_bounds__(kWgBQ * 2)
 flash_wg_kernel(const __nv_bfloat16* __restrict__ q,
@@ -324,16 +317,18 @@ flash_wg_kernel(const __nv_bfloat16* __restrict__ q,
                 long long ksb, long long kss, long long ksh, long long vsb,
                 long long vss, long long vsh, int causal, int window,
                 int q_offset, float scale_log2) {
+  constexpr int DP = D <= 64 ? 64 : 128;
   constexpr int BQ = kWgBQ;
   constexpr int kThreads = BQ * 2;     // one warpgroup, 16 rows a warp
-  constexpr int kChunks = D / 8;       // 16-byte chunks in a row
-  constexpr int kDT = D / 8;           // n tiles of O
-  constexpr int kTile = kTcBK * D;     // elements of a K or V tile
+  constexpr int kChunks = DP / 8;      // 16-byte chunks in a tile row
+  constexpr int kDT = DP / 8;          // n tiles of O
+  constexpr int kTile = kTcBK * DP;    // elements of a K or V tile
+  constexpr int kDataChunks = D / 8;   // chunks that hold data
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // the swizzle is a function of address bits 4-9: tiles start 1024-aligned
   if (smem_addr(smem_raw) & 1023) __trap();
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + BQ * D;
+  __nv_bfloat16* sK = sQ + BQ * DP;
   __nv_bfloat16* sV = sK + kStages * kTile;
 
   const int tid = threadIdx.x;
@@ -341,7 +336,7 @@ flash_wg_kernel(const __nv_bfloat16* __restrict__ q,
   const int lane = tid & 31;
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
-  const BlockRows br = block_rows<BQ>(sq, sk, group, causal, window, q_offset);
+  const BlockRows br = block_rows(sq, sk, group, causal, window, q_offset);
   const __nv_bfloat16* qb = q + b * qsb + kvh * group * qsh;
   const __nv_bfloat16* kb = k + b * ksb + kvh * ksh;
   const __nv_bfloat16* vb = v + b * vsb + kvh * vsh;
@@ -352,10 +347,10 @@ flash_wg_kernel(const __nv_bfloat16* __restrict__ q,
     const int r = idx / kChunks;
     const int c = idx - r * kChunks;
     const int pr = br.r0 + r;
-    const bool ok = pr < br.rows;
-    const int pos = ok ? pr / group : 0;
-    const int hg = ok ? pr - pos * group : 0;
-    cp_async16(sQ + sw128(r, c, BQ), qb + pos * qss + hg * qsh + c * 8, ok);
+    const bool ok = pr < br.rows && (D == DP || c < kDataChunks);
+    const int pos = pr / group;
+    cp_async16(sQ + sw128(r, c, BQ),
+               ok ? qb + pos * qss + (pr - pos * group) * qsh + c * 8 : qb, ok);
   }
   cp_async_commit();
 
@@ -365,16 +360,17 @@ flash_wg_kernel(const __nv_bfloat16* __restrict__ q,
   const int lc = tid % kChunks;
   const int lr0 = tid / kChunks;
   const int ldst = sw128(lr0, lc, kTcBK);
+  const bool l_data = D == DP || lc < kDataChunks;
   auto load_kv = [&](int t, int stage) {
     const int kr = t * kTcBK + lr0;      // the key of this thread's first row
-    const bool full = t * kTcBK + kTcBK <= sk;
+    const bool full = l_data && t * kTcBK + kTcBK <= sk;
     const __nv_bfloat16* ks = kb + kr * kss + lc * 8;
     const __nv_bfloat16* vs = vb + kr * vss + lc * 8;
     __nv_bfloat16* dk = sK + stage * kTile + ldst;
     __nv_bfloat16* dv = sV + stage * kTile + ldst;
 #pragma unroll
     for (int i = 0; i < kTcBK / kRowStep; ++i) {
-      const bool ok = full || kr + i * kRowStep < sk;
+      const bool ok = full || (l_data && kr + i * kRowStep < sk);
       cp_async16(dk + i * kRowStep * 64, ok ? ks + i * kRowStep * kss : kb, ok);
       cp_async16(dv + i * kRowStep * 64, ok ? vs + i * kRowStep * vss : vb, ok);
     }
@@ -424,7 +420,7 @@ flash_wg_kernel(const __nv_bfloat16* __restrict__ q,
     for (int j = 0; j < kNT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DP / 16; ++kk) {
       wgmma_s(s, sw128_desc(sQ + (kk >> 2) * BQ * 64 + (kk & 3) * 16, 0),
               sw128_desc(tk + (kk >> 2) * kTcBK * 64 + (kk & 3) * 16, 0));
     }
@@ -440,7 +436,7 @@ flash_wg_kernel(const __nv_bfloat16* __restrict__ q,
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < kNT / 2; ++kk) {
-      wgmma_o<D>(acc, pf[kk], sw128_desc(tv + kk * 16 * 64, kTcBK * 128));
+      wgmma_o<DP>(acc, pf[kk], sw128_desc(tv + kk * 16 * 64, kTcBK * 128));
     }
     wg_commit();
     wg_wait<0>();
@@ -459,252 +455,35 @@ flash_wg_kernel(const __nv_bfloat16* __restrict__ q,
           o + ((static_cast<long long>(b) * sq + pos) * heads + h) * D + 2 * tq;
 #pragma unroll
       for (int j = 0; j < kDT; ++j) {
-        *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) = __floats2bfloat162_rn(
-            acc[j][2 * i] * inv[i], acc[j][2 * i + 1] * inv[i]);
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bf16 on warp-level mma.sync, any head dim
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c += a (16x16, row) * b (16x8, col), bf16 in, fp32 sums
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// shared memory: Q, then kStages stages of K and V, rows of D + 8 bf16
-template <int D>
-constexpr int mma_smem_bytes() {
-  return (kTcBQ + 2 * kStages * kTcBK) * (D + 8) * 2;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kTcBQ * 2)
-flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ o, int sq, int sk, int heads,
-                 int group, long long qsb, long long qss, long long qsh,
-                 long long ksb, long long kss, long long ksh, long long vsb,
-                 long long vss, long long vsh, int causal, int window,
-                 int q_offset, float scale_log2) {
-  constexpr int BQ = kTcBQ;
-  constexpr int kThreads = BQ * 2;     // one warp per 16 rows
-  constexpr int kS = D + 8;            // smem row, in bf16 elements
-  constexpr int kChunks = D / 8;       // 16-byte chunks in a row
-  constexpr int kDT = D / 8;           // n tiles of O
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + BQ * kS;                // kStages x kTcBK x kS
-  __nv_bfloat16* sV = sK + kStages * kTcBK * kS;   // kStages x kTcBK x kS
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
-  const BlockRows br = block_rows<BQ>(sq, sk, group, causal, window, q_offset);
-  const __nv_bfloat16* qb = q + b * qsb + kvh * group * qsh;
-  const __nv_bfloat16* kb = k + b * ksb + kvh * ksh;
-  const __nv_bfloat16* vb = v + b * vsb + kvh * vsh;
-
-#pragma unroll
-  for (int i = 0; i < kChunks / 2; ++i) {   // BQ * kChunks chunks, kThreads at a time
-    const int idx = tid + i * kThreads;
-    const int r = idx / kChunks;
-    const int c = idx - r * kChunks;
-    const int pr = br.r0 + r;
-    const bool ok = pr < br.rows;
-    const int pos = ok ? pr / group : 0;
-    const int hg = ok ? pr - pos * group : 0;
-    cp_async16(sQ + r * kS + c * 8, qb + pos * qss + hg * qsh + c * 8, ok);
-  }
-  cp_async_commit();
-
-  auto load_kv = [&](int t, int stage) {
-    const int k0 = t * kTcBK;
-    __nv_bfloat16* dk = sK + stage * kTcBK * kS;
-    __nv_bfloat16* dv = sV + stage * kTcBK * kS;
-    constexpr int kIters = (kTcBK * kChunks + kThreads - 1) / kThreads;
-#pragma unroll
-    for (int i = 0; i < kIters; ++i) {
-      const int idx = tid + i * kThreads;
-      if (kIters * kThreads > kTcBK * kChunks && idx >= kTcBK * kChunks) break;
-      const int r = idx / kChunks;
-      const int c = idx - r * kChunks;
-      const bool ok = k0 + r < sk;
-      const long long kj = ok ? k0 + r : 0;
-      cp_async16(dk + r * kS + c * 8, kb + kj * kss + c * 8, ok);
-      cp_async16(dv + r * kS + c * 8, vb + kj * vss + c * 8, ok);
-    }
-  };
-
-  // this thread's two rows (g and g + 8 of the warp's 16) and the warp's
-  // range of query positions
-  const int wr0 = warp * 16;
-  const int g = lane >> 2;
-  const int tq = lane & 3;
-  const int qpos[2] = {(br.r0 + wr0 + g) / group + q_offset,
-                       (br.r0 + wr0 + g + 8) / group + q_offset};
-  const bool warp_valid = br.r0 + wr0 < br.rows;
-  const int wmin = (br.r0 + wr0) / group + q_offset;
-  const int wmax = min(br.r0 + wr0 + 15, br.rows - 1) / group + q_offset;
-
-  float acc[kDT][4];
-#pragma unroll
-  for (int j = 0; j < kDT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};   // running max of the raw scores
-  float l[2] = {0.f, 0.f};               // this thread's partial sums
-  uint32_t qf[D / 16][4];
-
-  // one commit group per tile, empty past the last, so that before tile t
-  // the only group that may still be in flight is tile t + 1's
-#pragma unroll
-  for (int i = 0; i < kStages - 1; ++i) {
-    if (br.t_begin + i < br.t_end) load_kv(br.t_begin + i, i);
-    cp_async_commit();
-  }
-  for (int t = br.t_begin; t < br.t_end; ++t) {
-    const int stage = (t - br.t_begin) % kStages;
-    cp_async_wait<kStages - 2>();
-    // tile t has landed for every thread, and every warp is done with tile
-    // t - 1, whose stage the next copy refills
-    __syncthreads();
-    if (t + kStages - 1 < br.t_end) {
-      load_kv(t + kStages - 1, (t - br.t_begin + kStages - 1) % kStages);
-    }
-    cp_async_commit();
-    if (t == br.t_begin) {
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        ldsm_x4(qf[kk], sQ + (wr0 + (lane & 15)) * kS + kk * 16 + (lane >> 4) * 8);
-      }
-    }
-    const int k0 = t * kTcBK;
-    if (warp_valid && tile_live(k0, wmin, wmax, causal, window)) {
-      const __nv_bfloat16* tk = sK + stage * kTcBK * kS;
-      const __nv_bfloat16* tv = sV + stage * kTcBK * kS;
-      float s[kNT][4];
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-        for (int np = 0; np < kNT / 2; ++np) {
-          uint32_t bf[4];
-          ldsm_x4(bf, tk + (np * 16 + (lane & 7) + (lane >> 4) * 8) * kS +
-                          kk * 16 + ((lane >> 3) & 1) * 8);
-          mma_bf16(s[2 * np], qf[kk], bf[0], bf[1]);
-          mma_bf16(s[2 * np + 1], qf[kk], bf[2], bf[3]);
-        }
-      }
-      uint32_t pf[kNT / 2][4];
-      float alpha[2];
-      softmax_tile(s, pf, alpha, m, l, qpos,
-                   tile_straddles(k0, wmin, wmax, sk, causal, window), k0, sk,
-                   causal, window, tq, scale_log2);
-      rescale(acc, alpha);
-#pragma unroll
-      for (int kk = 0; kk < kNT / 2; ++kk) {
-#pragma unroll
-        for (int dp = 0; dp < kDT / 2; ++dp) {
-          uint32_t bf[4];
-          ldsm_x4_trans(bf, tv + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kS +
-                                dp * 16 + (lane >> 4) * 8);
-          mma_bf16(acc[2 * dp], pf[kk], bf[0], bf[1]);
-          mma_bf16(acc[2 * dp + 1], pf[kk], bf[2], bf[3]);
+        if (j < kDataChunks) {   // known at compile time
+          *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) = __floats2bfloat162_rn(
+              acc[j][2 * i] * inv[i], acc[j][2 * i + 1] * inv[i]);
         }
       }
     }
   }
-  cp_async_wait<0>();  // every thread's Q copies, where the block had no
-  __syncthreads();     // key tile, land before a warp reuses its Q rows
-
-  const float inv[2] = {inv_row_sum(l[0]), inv_row_sum(l[1])};
-  // the warp's own Q rows hold its output tile, then 16-byte stores
-  __nv_bfloat16* so = sQ + wr0 * kS;
-#pragma unroll
-  for (int j = 0; j < kDT; ++j) {
-    *reinterpret_cast<__nv_bfloat162*>(so + g * kS + j * 8 + 2 * tq) =
-        __floats2bfloat162_rn(acc[j][0] * inv[0], acc[j][1] * inv[0]);
-    *reinterpret_cast<__nv_bfloat162*>(so + (g + 8) * kS + j * 8 + 2 * tq) =
-        __floats2bfloat162_rn(acc[j][2] * inv[1], acc[j][3] * inv[1]);
-  }
-  __syncwarp();
-#pragma unroll
-  for (int i = 0; i < kChunks / 2; ++i) {   // 16 * kChunks chunks, 32 at a time
-    const int idx = lane + i * 32;
-    const int r = idx / kChunks;
-    const int c = idx - r * kChunks;
-    const int pr = br.r0 + wr0 + r;
-    if (pr < br.rows) {
-      const int pos = pr / group;
-      const int h = kvh * group + pr - pos * group;
-      *reinterpret_cast<uint4*>(
-          o + ((static_cast<long long>(b) * sq + pos) * heads + h) * D + c * 8) =
-          *reinterpret_cast<const uint4*>(so + r * kS + c * 8);
-    }
-  }
 }
 
-// Launch one of the bf16 kernels: grid (kv heads, batch, row blocks), so
-// that the blocks go out row block by row block, the longest first.
-template <int BQ, typename Kernel>
-int launch_bf16(Kernel kernel, int smem, const void* q, const void* k,
-                const void* v, void* o, int batch, int sq, int sk, int heads,
-                int kv_heads, const long long* st, int causal, int window,
-                int q_offset, float scale, cudaStream_t stream) {
+// Launch the bf16 kernel: grid (kv heads, batch, row blocks), so that the
+// blocks go out row block by row block, the longest first.
+template <int D>
+int launch_wg(const void* q, const void* k, const void* v, void* o, int batch,
+              int sq, int sk, int heads, int kv_heads, const long long* st,
+              int causal, int window, int q_offset, float scale,
+              cudaStream_t stream) {
+  constexpr int smem = wg_smem_bytes<D <= 64 ? 64 : 128>();
   const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_wg_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int group = heads / kv_heads;
   const long long rows = static_cast<long long>(sq) * group;
-  dim3 grid(kv_heads, batch, static_cast<unsigned>((rows + BQ - 1) / BQ));
-  kernel<<<grid, BQ * 2, smem, stream>>>(
+  dim3 grid(kv_heads, batch, static_cast<unsigned>((rows + kWgBQ - 1) / kWgBQ));
+  flash_wg_kernel<D><<<grid, kWgBQ * 2, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), sq,
       sk, heads, group, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
       st[8], causal, window, q_offset, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
-}
-
-// wgmma where the head dim allows it (and `mma_only` is 0), else mma.sync
-template <int D>
-int launch_tc(int mma_only, const void* q, const void* k, const void* v,
-              void* o, int batch, int sq, int sk, int heads, int kv_heads,
-              const long long* st, int causal, int window, int q_offset,
-              float scale, cudaStream_t stream) {
-  if constexpr (D == 64 || D == 128) {
-    if (!mma_only) {
-      return launch_bf16<kWgBQ>(flash_wg_kernel<D>, wg_smem_bytes<D>(), q, k, v,
-                                o, batch, sq, sk, heads, kv_heads, st, causal,
-                                window, q_offset, scale, stream);
-    }
-  }
-  return launch_bf16<kTcBQ>(flash_mma_kernel<D>, mma_smem_bytes<D>(), q, k, v, o,
-                            batch, sq, sk, heads, kv_heads, st, causal, window,
-                            q_offset, scale, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -899,21 +678,20 @@ extern "C" int repro_flash_attention_fp32(const void* q, const void* k,
 #undef REPRO_FLASH_FP32
 }
 
-// bf16 q, k, v, o: the wgmma kernel at head dim 64 and 128, the mma.sync
-// kernel at the others, or at every head dim where `mma_only` is not 0.
-// q, k and v are 16-byte aligned and their strides are multiples of 8
-// elements (for cp.async; the wrapper checks).
+// bf16 q, k, v, o: the wgmma kernel.  q, k and v are 16-byte aligned and
+// their strides are multiples of 8 elements (for cp.async; the wrapper
+// checks).
 extern "C" int repro_flash_attention_bf16(const void* q, const void* k,
                                           const void* v, void* o, int batch,
                                           int sq, int sk, int heads,
                                           int kv_heads, int d,
                                           const long long* strides, int causal,
                                           int window, int q_offset, float scale,
-                                          int mma_only, void* stream) {
+                                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_FLASH_BF16(DIM)                                                 \
-  launch_tc<DIM>(mma_only, q, k, v, o, batch, sq, sk, heads, kv_heads,        \
-                 strides, causal, window, q_offset, scale, s)
+  launch_wg<DIM>(q, k, v, o, batch, sq, sk, heads, kv_heads, strides, causal, \
+                 window, q_offset, scale, s)
   REPRO_FLASH_SWITCH_D(REPRO_FLASH_BF16)
 #undef REPRO_FLASH_BF16
 }

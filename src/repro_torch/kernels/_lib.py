@@ -116,7 +116,7 @@ def library() -> ctypes.CDLL:
         flash = [vp, vp, vp, vp] + [i32] * 6 + [ctypes.POINTER(ll)] + [i32] * 3 + [ctypes.c_float]
         lib.repro_flash_attention_fp32.argtypes = flash + [vp]
         lib.repro_flash_attention_fp32.restype = i32
-        lib.repro_flash_attention_bf16.argtypes = flash + [i32, vp]
+        lib.repro_flash_attention_bf16.argtypes = flash + [vp]
         lib.repro_flash_attention_bf16.restype = i32
         lib.repro_lstm.argtypes = [vp] * 9 + [i32] * 5 + [ll] * 3 + [vp]
         lib.repro_lstm.restype = i32

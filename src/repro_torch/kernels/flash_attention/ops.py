@@ -42,15 +42,11 @@ def flash_attention_cuda(
     causal: bool = True,
     window: int = 0,
     q_offset: int = 0,
-    mma_only: bool = False,
 ) -> torch.Tensor:
-    """Launch ``csrc/flash_attention.cu`` on the current stream.  bf16 goes
-    to the tensor cores: the wgmma kernel at head dim 64 and 128, the
-    mma.sync kernel at the other head dims (or at all of them with
-    ``mma_only``, which exists to time and test the two side by side).
-    fp32 goes to the CUDA-core kernel.  Raises on any input the kernel does
-    not take.  The served prefill's attention takes a few µs on the card, so
-    the checks read each tensor attribute once."""
+    """Launch ``csrc/flash_attention.cu`` on the current stream: bf16 to the
+    tensor-core (wgmma) kernel, fp32 to the CUDA-core kernel.  Raises on any
+    input the kernel does not take.  The served prefill's attention takes a
+    few µs on the card, so the checks read each tensor attribute once."""
     global launches
     if not (q.is_cuda and k.is_cuda and v.is_cuda) or not q.get_device() == k.get_device() == v.get_device():
         raise ValueError(f"flash kernel needs q, k, v on one CUDA device, got {q.device}, {k.device}, {v.device}")
@@ -87,10 +83,12 @@ def flash_attention_cuda(
     lib = _lib.library()
     args = (*ptrs, out.data_ptr(), b, sq, sk, h, kvh, d, _STRIDES(*strides),
             causal, window, q_offset, d ** -0.5)
-    # torch.cuda.current_stream builds a Stream object: several µs a call
+    # the current stream's handle: torch.cuda.current_stream(...).cuda_stream
+    # builds a Stream object, several µs of a call that takes about 20.  The
+    # private binding (torch 2.11) is held equal to it by the card tests.
     stream = torch._C._cuda_getCurrentRawStream(q.get_device())
     if bf16:
-        err = lib.repro_flash_attention_bf16(*args, mma_only, stream)
+        err = lib.repro_flash_attention_bf16(*args, stream)
     else:
         err = lib.repro_flash_attention_fp32(*args, stream)
     _lib.check(err, "flash_attention")

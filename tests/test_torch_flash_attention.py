@@ -115,10 +115,10 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
 
 
 # ---------------------------------------------------------------------------
-# The bf16 tensor-core kernels' numerics, emulated on the CPU
+# The bf16 tensor-core kernel's numerics, emulated on the CPU
 # ---------------------------------------------------------------------------
-def emulate_bf16_kernel(q, k, v, *, causal, window, q_offset, bq, bk=64):
-    """What ``csrc/flash_attention.cu``'s bf16 kernels compute, step by step:
+def emulate_bf16_kernel(q, k, v, *, causal, window, q_offset, bq=64, bk=64):
+    """What ``csrc/flash_attention.cu``'s bf16 kernel computes, step by step:
     blocks of ``bq`` rows that pack the H/KVH query heads of one kv head
     (row r = position r // group, head r % group), the block's key tiles of
     ``bk`` from its first to its last unmasked tile, S in fp32 from bf16
@@ -178,18 +178,31 @@ EMULATED = [
     (1, 64, 32, 2, 1, 16, True, 0, -40),      # fully masked rows
     (2, 32, 32, 16, 8, 128, True, 0, 0),      # the served prefill
     (1, 300, 300, 4, 2, 64, True, 96, 0),     # ragged, windowed, several tiles
+    (1, 1000, 1000, 8, 2, 128, True, 256, 0), # ragged, long, windowed
+    (1, 200, 700, 4, 2, 80, True, 0, 500),    # Sq != Sk, q_offset, many key tiles
+    (2, 32, 32, 4, 2, 16, True, 0, 0),        # the reduced qwen3's prefill
+    # GQA groups that do not divide a block's 64 rows: a position's heads
+    # straddle two blocks
+    (1, 100, 100, 6, 2, 128, True, 0, 0),     # group 3
+    (2, 130, 130, 12, 4, 64, True, 48, 0),    # group 3, window
+    (1, 70, 70, 7, 1, 64, True, 0, 0),        # group 7
+    (1, 77, 150, 6, 2, 96, True, 0, 73),      # group 3, q_offset
+    (1, 50, 50, 10, 2, 16, True, 20, 0),      # group 5, window
+    (3, 33, 33, 9, 3, 32, True, 0, 0),        # group 3, three batch rows
+    (1, 40, 100, 6, 2, 48, True, 30, 60),     # group 3, window and q_offset
+    (1, 60, 20, 6, 2, 64, True, 0, -30),      # group 3, fully masked rows
+    (2, 64, 64, 4, 1, 112, False, 0, 0),      # group 4, bidirectional
 ]
 
 
-@pytest.mark.parametrize("bq", [64, 128])   # the wgmma and the mma.sync kernel's blocks
 @pytest.mark.parametrize("b,sq,sk,h,kvh,d,causal,window,q_offset", EMULATED)
-def test_bf16_kernel_numerics_match_jax_reference(jref, bq, b, sq, sk, h, kvh, d, causal, window, q_offset):
+def test_bf16_kernel_numerics_match_jax_reference(jref, b, sq, sk, h, kvh, d, causal, window, q_offset):
     """bf16 P before P·V, fp32 everywhere else, stays within the reference
     tests' bf16 limit of the JAX package's plain attention."""
     _, ref = jref
     (jq, jk, jv), (q, k, v) = make_qkv(7, b, sq, sk, h, kvh, d, "bfloat16")
     kw = dict(causal=causal, window=window, q_offset=q_offset)
-    ours = emulate_bf16_kernel(q, k, v, bq=bq, **kw)
+    ours = emulate_bf16_kernel(q, k, v, **kw)
     theirs = ref.attention_reference(jq, jk, jv, **kw)
     assert bool(torch.isfinite(ours.float()).all())
     np.testing.assert_allclose(_np(ours), _np(theirs), atol=TOL["bfloat16"], rtol=0)

@@ -31,6 +31,14 @@ TABLE = [
     (1, 2048, 2048, 16, 8, 128, True, 0, 0),  # a long full-width prefill
     (1, 1000, 1000, 8, 2, 128, True, 256, 0), # ragged, long, windowed
     (1, 200, 700, 4, 2, 80, True, 0, 500),    # Sq != Sk, q_offset, many key tiles
+    # GQA groups that do not divide a block's 64 rows: a position's heads
+    # straddle two blocks
+    (1, 100, 100, 6, 2, 128, True, 0, 0),     # group 3
+    (2, 130, 130, 12, 4, 64, True, 48, 0),    # group 3, window
+    (1, 70, 70, 7, 1, 64, True, 0, 0),        # group 7
+    (1, 77, 150, 6, 2, 96, True, 0, 73),      # group 3, q_offset, head dim 96
+    (1, 50, 50, 10, 2, 16, True, 20, 0),      # group 5, window, head dim 16
+    (2, 64, 64, 4, 1, 112, False, 0, 0),      # head dim 112, bidirectional
 ]
 LSTM_TABLE = [
     (4, 32, 6, 20), (1, 16, 3, 7), (8, 64, 12, 20),   # tests/kernels/test_lstm.py
@@ -86,19 +94,20 @@ def test_flash_kernel_matches_plain_version(cuda, dtype, b, sq, sk, h, kvh, d, c
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,sq,sk,h,kvh,d,causal,window,q_offset", TABLE)
-def test_flash_bf16_mma_sync_kernel_matches_plain_version(cuda, b, sq, sk, h, kvh, d, causal, window, q_offset):
-    # the wrapper sends head dims 64 and 128 to the wgmma kernel; this holds
-    # the mma.sync kernel, which takes the other head dims, at those too
-    g = torch.Generator(cuda).manual_seed(1)
-    q, k, v = (torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
-               for s in ((b, sq, h, d), (b, sk, kvh, d), (b, sk, kvh, d)))
-    kw = dict(causal=causal, window=window, q_offset=q_offset)
-    before = fa.launches
-    out = fa.flash_attention_cuda(q, k, v, mma_only=True, **kw)
-    assert fa.launches == before + 1
-    ref = attention_reference(q, k, v, **kw)
-    assert float((out.float() - ref.float()).abs().max()) <= TOL[torch.bfloat16]
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_runs_on_the_current_stream(cuda, dtype):
+    g = torch.Generator(cuda).manual_seed(3)
+    q, k, v = (torch.randn((2, 96, 4, 64), generator=g, device=cuda).to(dtype) for _ in range(3))
+    ref = attention_reference(q, k, v)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        # the wrapper takes the stream from this private binding
+        assert torch._C._cuda_getCurrentRawStream(q.get_device()) == side.cuda_stream
+        out = fa.attention(q, k, v)
+    side.synchronize()
+    assert torch._C._cuda_getCurrentRawStream(q.get_device()) == torch.cuda.current_stream().cuda_stream
+    assert float((out.float() - ref.float()).abs().max()) <= TOL[dtype]
 
 
 @pytest.mark.cuda
