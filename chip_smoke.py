@@ -10,25 +10,34 @@ Phases, in order; any failure exits non-zero:
 2. build — compiles ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a;
 3. kernels — each kernel against its plain PyTorch version on the card, at
    the main path's shapes and at the reference tests' shapes, with times
-   (flash attention: bf16 through the tensor-core (wgmma) kernel and fp32
-   through the CUDA-core kernel, timed at the served prefill, at the
-   reduced qwen3's prefill and at S 2048 beside SDPA);
-4. lstm — the LSTM kernel against its plain version (fp32 and bf16, with
-   and without an initial state) and its gradient against plain autograd;
-   then the quickstart (``repro_torch.examples.quickstart``): Experiments
-   1–3 against the reference's lines, and the paper's LSTM trained for 300
-   steps and timed through the kernel, with the launch count checked and
-   the first losses held against a plain-trained run; then the kernel,
-   its plain version and cuDNN's ``nn.LSTM`` timed at batch 32 and 1;
+   (dequant; flash attention: bf16 through the tensor-core (wgmma) kernel
+   and fp32 through the CUDA-core kernel, timed at the served prefill, at
+   the reduced qwen3's prefill and at S 2048 beside SDPA);
+4. lstm — the LSTM kernel (one warp a batch row, the weights in registers
+   where they fit, no block barrier in the step loop) against its plain
+   version (fp32 and bf16, with and without an initial state, H from 1 to
+   100 and the reference test's shapes) and its gradient against plain
+   autograd; then the quickstart (``repro_torch.examples.quickstart``):
+   Experiments 1–3 against the reference's lines, and the paper's LSTM
+   trained for 300 steps and timed through the kernel, with the launch
+   count checked and the first losses held against a plain-trained run;
+   then the kernel (device time, call time and µs a step), its plain
+   version and cuDNN's ``nn.LSTM`` timed at batch 32 and 1;
 5. serving — full-width qwen3-1.7b under the duty-cycle controller with the
    On-Off and Idle-Waiting strategies, through ``launch.serve.build_demo``;
    the launch counts show that bring-up went through the dequant kernel and
    prefill through the flash-attention kernel; the output is checked
    against the plain path;
-6. ssd — the SSD kernel against the plain recurrent version at the
-   reference test's shapes (with and without an initial state), across two
-   calls, at the served prefill's shape and with two groups, in fp32 and
-   bf16; timed at the served shape and at a 2048-step prefill;
+6. ssd — the SSD kernel (four launches a call, chunks in parallel: the
+   score tile C·Bᵀ once per group on the tensor cores, with the in-chunk
+   cumsums; each chunk's own state; the states passed between chunks; the
+   output; for bf16 the chunk states and the output on warpgroup MMAs with
+   their fp32 operand in bf16 parts) against the plain recurrent version
+   at the reference test's shapes (with and without an initial state),
+   across two calls, with many chunks, at the served prefill's shape and
+   with two and four groups, in fp32 and bf16; timed at the served shape
+   and at a 2048-step prefill, with the device time split over the four
+   kernels;
 7. mamba2 serving — full-width mamba2-370m through ``build_demo`` under
    On-Off and Idle-Waiting (prompt 200: two chunks, the second ragged);
    the launch counts show 9 dequant launches per bring-up and 48 SSD
@@ -64,6 +73,7 @@ PERIOD_S = 0.5
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the reference tests' own
 LSTM_ATOL = 1e-5                            # tests/kernels/test_lstm.py
 SSD_TOL = {"y": 5e-4, "state": 5e-5}        # tests/kernels/test_ssd.py:49-50
+SSD_STAGES = ("scores and cumsums", "chunk states", "state passing", "output")   # csrc/ssd.cu
 MAMBA = "mamba2-370m"
 MAMBA_PROMPT, MAMBA_MAX_LEN = 200, 208      # two chunks of 128, the second ragged
 CKPT_DIR_MAMBA = ROOT / "build" / "chip_smoke_ckpt_mamba2"
@@ -377,7 +387,9 @@ def lstm_kernel_checks() -> float:
     shapes = [(4, 32, 6, 20), (1, 16, 3, 7), (8, 64, 12, 20),   # the reference test's
               (32, 64, 6, 20), (1, 64, 6, 20),                  # the path's
               (3, 24, 4, 5), (2, 24, 5, 33),                    # h in {5, 33}
-              (530, 8, 3, 7), (1101, 8, 6, 20)]                 # 2 and 4 rows a block
+              (530, 8, 3, 7), (1101, 8, 6, 20),                 # many rows, ragged blocks
+              (4, 16, 6, 32), (4, 16, 6, 64), (4, 16, 6, 1),    # a full warp, two units a lane, H 1
+              (1, 1, 6, 20), (2, 8, 40, 100)]                   # one step; I > 32
     for shape in shapes:
         for with_state in (False, True):
             args = _lstm_inputs(*shape, seed=int(with_state))
@@ -498,12 +510,13 @@ def lstm_times(card: str) -> dict:
         n_bytes = 4 * (x.numel() + w_ih.numel() + w_hh.numel() + b.numel() + hs.numel() + 2 * bsz * h)
         b_ms, b_by = bound_ms(n_bytes, n_ops, "float32")
         print(f"  lstm B={bsz} S={s} I={i} H={h} fp32: kernel {k_ms:.4f} ms per call "
-              f"({k_dev:.4f} ms of device time, CUDA graph), plain {p_ms:.4f} ms, library "
+              f"({k_dev:.4f} ms of device time, CUDA graph; {k_dev / s * 1e3:.4f} us a step on "
+              f"the device, {k_ms / s * 1e3:.4f} us a step a call), plain {p_ms:.4f} ms, library "
               f"(nn.LSTM, cuDNN) {l_ms:.4f} ms, bound {b_ms:.6f} ms by {b_by} "
               f"({n_ops / 1e6:.3f} MFLOP, {n_bytes / 1e6:.4f} MB); max_abs_err kernel {err:.3g}, "
               f"nn.LSTM {lib_err:.3g} [{card}]")
         rows[bsz] = dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=l_ms,
-                         bound_ms=b_ms, bound_by=b_by)
+                         bound_ms=b_ms, bound_by=b_by, device_us_per_step=k_dev / s * 1e3)
     return rows
 
 
@@ -525,6 +538,7 @@ def lstm_phase(card: str) -> dict:
         "bound_by": r["bound_by"],
         "library_ms": r["library_ms"],
         "device_ms": r["device_ms"],
+        "device_us_per_step": r["device_us_per_step"],
         "at_batch_1": rows[1],
         "per": "launch (training forward: B=32, S=64, I=6, H=20, fp32)",
     }
@@ -789,6 +803,11 @@ def _ssd_timed(label, b, s, h, p, g, n, q, card) -> dict:
           f"ssd {label} bf16: y err {ey:.3g}, state err {es:.3g}")
     k_ms = time_ms(lambda: so.ssd_cuda(*bargs, chunk=q))
     k_dev = graph_ms(lambda: so.ssd_cuda(*bargs, chunk=q))
+    # each of the four kernels alone, on the scratch of one whole call
+    call = so.prepare(*bargs, chunk=q)
+    so.launch_stages(call, so.ALL_STAGES)
+    stages = {name: graph_ms(lambda: so.launch_stages(call, 1 << k))
+              for k, name in enumerate(SSD_STAGES)}
     p_ms = time_ms(lambda: ssd_chunked(*bargs, chunk=q))
     n_bytes, n_ops = _ssd_work(b, s, h, p, g, n, q, 2, False)
     b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
@@ -799,8 +818,12 @@ def _ssd_timed(label, b, s, h, p, g, n, q, card) -> dict:
           f"exists, bound {b_ms:.5f} ms by {b_by} ({n_ops / 1e9:.4f} GFLOP at bf16's 989 TFLOP/s, "
           f"{n_bytes / 1e6:.3f} MB at 3.35 TB/s); fp32 CUDA-core floor {floor:.5f} ms "
           f"(at 67 TFLOP/s) [{card}]")
+    print(f"  ssd {label} device time by kernel (each alone, CUDA graph): "
+          + ", ".join(f"{name} {t:.4f} ms" for name, t in stages.items())
+          + f"; sum {sum(stages.values()):.4f} ms against {k_dev:.4f} ms for the four together")
     return dict(max_abs_err=ey, max_abs_err_state=es, ms=k_ms, device_ms=k_dev, plain_ms=p_ms,
-                bound_ms=b_ms, bound_by=b_by, fp32_cuda_core_floor_ms=floor)
+                bound_ms=b_ms, bound_by=b_by, fp32_cuda_core_floor_ms=floor,
+                stage_device_ms=stages)
 
 
 def ssd_phase(card: str) -> dict:
@@ -826,6 +849,17 @@ def ssd_phase(card: str) -> dict:
     # recurrence past the test's 5e-5 on the state
     args, init = _ssd_inputs(1, 256, 8, 64, 2, 128, seed=8, a_minus_one=True)
     _ssd_case("groups G 2 < H 8 (1, 256, 8, 64, 2, 128) chunk 128, a = -1", args, init, 128)
+    args, init = _ssd_inputs(1, 256, 8, 64, 4, 128, seed=10, a_minus_one=True)
+    _ssd_case("groups G 4 < H 8 (1, 256, 8, 64, 4, 128) chunk 128, a = -1", args, init, 128)
+    # sixteen chunks in parallel, the state handed between them, a = -exp(normal)
+    args, init = _ssd_inputs(1, 1024, 4, 64, 1, 128, seed=11)
+    _ssd_case("many chunks (1, 1024, 4, 64, 1, 128) chunk 64", args, init, 64)
+    # one chunk (no state passed), and a long prefill (sixteen chunks at the
+    # served widths): the card tests' other rows
+    args, init = _ssd_inputs(1, 128, 4, 64, 1, 128, seed=12, a_minus_one=True)
+    _ssd_case("one chunk (1, 128, 4, 64, 1, 128) chunk 128, a = -1", args, init, 128)
+    args, init = _ssd_inputs(1, 2048, 32, 64, 1, 128, seed=13, a_minus_one=True)
+    _ssd_case("long prefill (1, 2048, 32, 64, 1, 128) chunk 128, a = -1", args, init, 128)
 
     # the state handed across two calls (tests/kernels/test_ssd.py:95)
     args, _ = _ssd_inputs(1, 256, 2, 8, 1, 16, seed=9)

@@ -10,32 +10,40 @@
 // What bounds it on an H100: the chain of S dependent steps.  At the
 // paper's shape (B 32, S 64, I 6, H 20) the work is about 8.5 MFLOP and
 // 0.22 MB, which the card's rates would clear in about 0.13 us; but step t
-// cannot start before step t-1's h is known, and each step is a short
-// chain of dependent FMAs, two barriers and the transcendental functions.
-// The kernel's time is 64 times the latency of one step, far above its
-// bytes and operations.
+// cannot start before step t-1's h is known.  The kernel's time is S times
+// the latency of one step, far above its bytes and operations.
 //
 // What the design does about it: the whole recurrence runs inside one
-// launch (the TPU's sequential grid axis becomes a loop), so the chain pays
-// one launch and no round trip to the host or to device memory between
-// steps.  h and c stay in shared memory for all S steps, and each step's x
-// is fetched during the step before it.  The grid runs over
-// batch rows, which are independent, so a larger batch adds blocks, not
-// steps.  Within a row, thread j computes gate pre-activation j (stride
-// blockDim.x, so any H works) as two independent FMA chains (the x·W_ih and
-// h·W_hh sums), unrolled so that several weight loads are in flight at
-// once; then threads j < H update c and h.  Neighbouring threads read neighbouring weight columns, so the weight
-// reads coalesce, and L1/L2 keep the 8.3 KB of weights across steps.  x is
-// read through its (B,S,I) strides, so the TPU wrapper's transposes and
-// padding copies are gone.  Arithmetic is fp32 FMA with expf and tanhf
-// (no fast math), sigmoid(x) = 1/(1+expf(-x)).
+// launch (the TPU's sequential grid axis becomes a loop), and one warp runs
+// one batch row, so a step's critical path holds no block barrier:
+//  * Lane j owns hidden unit j (and j + 32, j + 64, ... when H > 32).  It
+//    computes all four gates of its units, i, f, g and o, and updates its
+//    own c and h; no gate crosses lanes.
+//  * Where a unit's weights fit a register budget (H ≤ 32 and I ≤ 8: at
+//    most 4·(8 + 32) + 4 floats a lane), the lane holds its four columns of
+//    W_ih and W_hh and its biases in registers for all S steps (template
+//    parameter HC, H rounded up to a multiple of 4, zero-padded: a zero
+//    weight times a zero input adds exactly nothing).  Otherwise (HC = 0)
+//    it reads them through L1 on every step, as the block kernel this one
+//    replaced did; neighbouring lanes read neighbouring columns.
+//  * h is shared inside the warp only: each lane writes its units' new h
+//    to a warp-private, double-buffered slice of shared memory, one
+//    __syncwarp, and the next step reads the whole h back as broadcasts
+//    (float4 reads in the register case).  c stays in a register (or, for
+//    H > 32, in the warp's slice).
+//  * Each step's x is read from device memory during the step before it
+//    and stored after that step's gates, so its latency hides behind them.
+//  * A block holds up to four rows (warps); the grid runs over rows.
+// x is read through its (B,S,I) strides.  Arithmetic is as before: fp32
+// FMA chains (acc_x + acc_h) + b, expf and tanhf (no fast math),
+// sigmoid(x) = 1/(1+expf(-x)).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
 namespace {
 
-constexpr int kMaxThreadsX = 256;
-constexpr int kMaxRows = 4;
+constexpr int kRowsPerBlock = 4;   // warps, one batch row each
+constexpr int kIC = 8;             // register capacity for one step's x
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -48,108 +56,187 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
 
 __device__ __forceinline__ float sigmoid_f32(float v) { return 1.0f / (1.0f + expf(-v)); }
 
-// blockDim = (threads per row, rows per block); one row of the batch for
-// each threadIdx.y.  Shared memory per row, fp32: gates (4H), h (H), c (H)
-// and two buffers of one step's x (2 I).
-template <typename T>
-__global__ void lstm_kernel(const T* __restrict__ x, const T* __restrict__ w_ih,
-                            const T* __restrict__ w_hh, const T* __restrict__ bias,
-                            const T* __restrict__ h0, const T* __restrict__ c0,
-                            T* __restrict__ hs, T* __restrict__ h_n, T* __restrict__ c_n,
-                            int batch, int seq, int in_dim, int hidden,
-                            long long sx_b, long long sx_s, long long sx_i) {
-  extern __shared__ float smem[];
-  const int g4 = 4 * hidden;
-  float* gates = smem + threadIdx.y * (6 * hidden + 2 * in_dim);
-  float* h_s = gates + g4;
-  float* c_s = h_s + hidden;
-  float* x_s = c_s + hidden;          // x_s[(t & 1) * in_dim + k] = x[row, t, k]
-  const long long row = (long long)blockIdx.x * blockDim.y + threadIdx.y;
-  const bool live = row < batch;
-  const T* xr = x + (live ? row * sx_b : 0);
-  T* hr = hs + (live ? row * seq * hidden : 0);
+struct Args {
+  const void* x;
+  const void* w_ih;
+  const void* w_hh;
+  const void* bias;
+  const void* h0;
+  const void* c0;
+  void* hs;
+  void* h_n;
+  void* c_n;
+  int batch, seq, in_dim, hidden;
+  long long sx_b, sx_s, sx_i;
+};
 
-  if (live) {
-    for (int j = threadIdx.x; j < hidden; j += blockDim.x) {
-      h_s[j] = h0 ? to_float(h0[row * hidden + j]) : 0.0f;
-      c_s[j] = c0 ? to_float(c0[row * hidden + j]) : 0.0f;
+// floats of one warp's slice of shared memory: h and x, double-buffered
+// (HC and kIC wide for float4 reads in the register case), and c when it
+// is not in a register: at most 6 H + 2 I, what the wrapper lets through
+__host__ __device__ inline int warp_floats(int hc, int hidden, int in_dim) {
+  return hc > 0 ? 2 * hc + 2 * kIC : 3 * hidden + 2 * in_dim;
+}
+
+// one step's gates of a unit: pre-activations (acc_x + acc_h) + b in
+// gate order i, f, g, o → the new c and h
+__device__ __forceinline__ void cell(const float (&pre)[4], float& c, float& h) {
+  const float i_g = sigmoid_f32(pre[0]);
+  const float f_g = sigmoid_f32(pre[1]);
+  const float g_g = tanhf(pre[2]);
+  const float o_g = sigmoid_f32(pre[3]);
+  c = f_g * c + i_g * g_g;
+  h = o_g * tanhf(c);
+}
+
+template <typename T, int HC>
+__global__ void __launch_bounds__(32 * kRowsPerBlock) lstm_kernel(const Args args) {
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (row >= args.batch) return;   // a whole warp: nothing below waits for it
+  const int H = args.hidden, I = args.in_dim, G4 = 4 * H, S = args.seq;
+  const int hw = HC > 0 ? HC : H;     // h buffer width
+  const int xw = HC > 0 ? kIC : I;    // x buffer width
+  float* hb = smem + warp * warp_floats(HC, H, I);   // h[2][hw]
+  float* xb = hb + 2 * hw;                           // x[2][xw]
+  const T* x = static_cast<const T*>(args.x) + row * args.sx_b;
+  const T* w_ih = static_cast<const T*>(args.w_ih);
+  const T* w_hh = static_cast<const T*>(args.w_hh);
+  const T* bias = static_cast<const T*>(args.bias);
+  const T* h0 = static_cast<const T*>(args.h0);
+  const T* c0 = static_cast<const T*>(args.c0);
+  T* hs = static_cast<T*>(args.hs) + row * S * H;
+
+  for (int k = lane; k < 2 * hw; k += 32) hb[k] = 0.0f;
+  for (int k = lane; k < 2 * xw; k += 32) xb[k] = k < I ? to_float(x[k * args.sx_i]) : 0.0f;
+  for (int u = lane; u < H; u += 32) hb[u] = h0 ? to_float(h0[row * H + u]) : 0.0f;
+
+  if constexpr (HC > 0) {
+    // lane j's unit j: its four gate columns in registers
+    const int u = lane;
+    const bool live = u < H;
+    float wx[4][kIC], wh[4][HC], bq[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+#pragma unroll
+      for (int k = 0; k < kIC; ++k)
+        wx[q][k] = live && k < I ? to_float(w_ih[k * G4 + q * H + u]) : 0.0f;
+#pragma unroll
+      for (int k = 0; k < HC; ++k)
+        wh[q][k] = live && k < H ? to_float(w_hh[k * G4 + q * H + u]) : 0.0f;
+      bq[q] = live ? to_float(bias[q * H + u]) : 0.0f;
     }
-    for (int k = threadIdx.x; k < in_dim; k += blockDim.x) x_s[k] = to_float(xr[k * sx_i]);
-  }
-  __syncthreads();
-
-  for (int t = 0; t < seq; ++t) {
-    const float* x_t = x_s + (t & 1) * in_dim;
-    float* x_next = x_s + ((t + 1) & 1) * in_dim;
-    const bool fetch = live && t + 1 < seq && (int)threadIdx.x < in_dim;
-    // the next step's x is read from device memory now and stored after
-    // this step's gates, so its latency hides behind them
-    const float x_pre = fetch ? to_float(xr[(t + 1) * sx_s + threadIdx.x * sx_i]) : 0.0f;
+    float c = live && c0 ? to_float(c0[row * H + u]) : 0.0f;
+    float h = 0.0f;
+    __syncwarp();
+    for (int t = 0; t < S; ++t) {
+      const float* xt = xb + (t & 1) * kIC;
+      const float* ht = hb + (t & 1) * HC;
+      const bool fetch = t + 1 < S && lane < I;
+      // the next step's x, read now and stored after this step's gates
+      const float x_pre = fetch ? to_float(x[(t + 1) * args.sx_s + lane * args.sx_i]) : 0.0f;
+      float acc_x[4] = {0.0f, 0.0f, 0.0f, 0.0f}, acc_h[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int k = 0; k < kIC; k += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(xt + k);
+        const float xv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc_x[q] = fmaf(xv[kk], wx[q][k + kk], acc_x[q]);
+      }
+#pragma unroll
+      for (int k = 0; k < HC; k += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(ht + k);
+        const float hv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc_h[q] = fmaf(hv[kk], wh[q][k + kk], acc_h[q]);
+      }
+      float pre[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) pre[q] = (acc_x[q] + acc_h[q]) + bq[q];
+      cell(pre, c, h);
+      if (live) {
+        hs[(long long)t * H + u] = from_float<T>(h);
+        hb[((t + 1) & 1) * HC + u] = h;
+      }
+      if (fetch) xb[((t + 1) & 1) * kIC + lane] = x_pre;
+      __syncwarp();   // this step's h (and the next x) for every lane
+    }
     if (live) {
-      for (int j = threadIdx.x; j < g4; j += blockDim.x) {
-        float acc_x = 0.0f;
-        float acc_h = 0.0f;
-#pragma unroll 8
-        for (int k = 0; k < in_dim; ++k)
-          acc_x = fmaf(x_t[k], to_float(w_ih[(long long)k * g4 + j]), acc_x);
-#pragma unroll 8
-        for (int k = 0; k < hidden; ++k)
-          acc_h = fmaf(h_s[k], to_float(w_hh[(long long)k * g4 + j]), acc_h);
-        gates[j] = (acc_x + acc_h) + to_float(bias[j]);
-      }
-      if (fetch) x_next[threadIdx.x] = x_pre;
-      if (t + 1 < seq) {
-        for (int k = threadIdx.x + blockDim.x; k < in_dim; k += blockDim.x)
-          x_next[k] = to_float(xr[(t + 1) * sx_s + k * sx_i]);
-      }
+      static_cast<T*>(args.h_n)[row * H + u] = from_float<T>(h);
+      static_cast<T*>(args.c_n)[row * H + u] = from_float<T>(c);
     }
-    __syncthreads();   // every gate of this step, and the next x, in shared memory
-    if (live) {
-      for (int j = threadIdx.x; j < hidden; j += blockDim.x) {
-        const float i_g = sigmoid_f32(gates[j]);
-        const float f_g = sigmoid_f32(gates[hidden + j]);
-        const float g_g = tanhf(gates[2 * hidden + j]);
-        const float o_g = sigmoid_f32(gates[3 * hidden + j]);
-        const float c = f_g * c_s[j] + i_g * g_g;
-        const float h = o_g * tanhf(c);
-        c_s[j] = c;
-        h_s[j] = h;
-        hr[(long long)t * hidden + j] = from_float<T>(h);
+  } else {
+    // units j, j + 32, ...: weights through L1, c in the warp's slice
+    float* cb = xb + 2 * xw;
+    for (int u = lane; u < H; u += 32) cb[u] = c0 ? to_float(c0[row * H + u]) : 0.0f;
+    __syncwarp();
+    for (int t = 0; t < S; ++t) {
+      const float* xt = xb + (t & 1) * xw;
+      const float* ht = hb + (t & 1) * hw;
+      float* hn = hb + ((t + 1) & 1) * hw;
+      float* xn = xb + ((t + 1) & 1) * xw;
+      const bool fetch = t + 1 < S && lane < I;
+      const float x_pre = fetch ? to_float(x[(t + 1) * args.sx_s + lane * args.sx_i]) : 0.0f;
+      for (int u = lane; u < H; u += 32) {
+        float pre[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int j = q * H + u;
+          float acc_x = 0.0f;
+          float acc_h = 0.0f;
+#pragma unroll 8
+          for (int k = 0; k < I; ++k) acc_x = fmaf(xt[k], to_float(w_ih[(long long)k * G4 + j]), acc_x);
+#pragma unroll 8
+          for (int k = 0; k < H; ++k) acc_h = fmaf(ht[k], to_float(w_hh[(long long)k * G4 + j]), acc_h);
+          pre[q] = (acc_x + acc_h) + to_float(bias[j]);
+        }
+        float c = cb[u], h;
+        cell(pre, c, h);
+        cb[u] = c;
+        hn[u] = h;
+        hs[(long long)t * H + u] = from_float<T>(h);
       }
+      if (t + 1 < S) {
+        if (fetch) xn[lane] = x_pre;
+        for (int k = lane + 32; k < I; k += 32) xn[k] = to_float(x[(t + 1) * args.sx_s + k * args.sx_i]);
+      }
+      __syncwarp();   // this step's h (and the next x) for every lane
     }
-    __syncthreads();   // h of this step is visible to the next step's gates
-  }
-
-  if (live) {
-    for (int j = threadIdx.x; j < hidden; j += blockDim.x) {
-      h_n[row * hidden + j] = from_float<T>(h_s[j]);
-      c_n[row * hidden + j] = from_float<T>(c_s[j]);
+    const float* hl = hb + (S & 1) * hw;
+    for (int u = lane; u < H; u += 32) {
+      static_cast<T*>(args.h_n)[row * H + u] = from_float<T>(hl[u]);
+      static_cast<T*>(args.c_n)[row * H + u] = from_float<T>(cb[u]);
     }
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* x, const void* w_ih, const void* w_hh, const void* bias,
-                   const void* h0, const void* c0, void* hs, void* h_n, void* c_n,
-                   int batch, int seq, int in_dim, int hidden, long long sx_b,
-                   long long sx_s, long long sx_i, cudaStream_t stream) {
-  int tx = ((4 * hidden + 31) / 32) * 32;
-  if (tx > kMaxThreadsX) tx = kMaxThreadsX;
-  // one row per block while the batch alone gives two blocks per SM; a few
-  // rows per block beyond that, so that a large batch launches fewer blocks
-  int rows = batch / 264;
-  if (rows < 1) rows = 1;
-  if (rows > kMaxRows) rows = kMaxRows;
-  const size_t per_row = ((size_t)6 * hidden + 2 * (size_t)in_dim) * sizeof(float);
+template <typename T, int HC>
+cudaError_t launch(const Args& args, cudaStream_t stream) {
+  const size_t per_row = (size_t)warp_floats(HC, args.hidden, args.in_dim) * sizeof(float);
+  int rows = args.batch < kRowsPerBlock ? args.batch : kRowsPerBlock;
   while (rows > 1 && rows * per_row > 48 * 1024) --rows;
-  const dim3 block(tx, rows);
-  const unsigned grid = (unsigned)((batch + rows - 1) / rows);
-  lstm_kernel<T><<<grid, block, rows * per_row, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w_ih), static_cast<const T*>(w_hh),
-      static_cast<const T*>(bias), static_cast<const T*>(h0), static_cast<const T*>(c0),
-      static_cast<T*>(hs), static_cast<T*>(h_n), static_cast<T*>(c_n), batch, seq,
-      in_dim, hidden, sx_b, sx_s, sx_i);
+  const unsigned grid = (unsigned)((args.batch + rows - 1) / rows);
+  lstm_kernel<T, HC><<<grid, 32 * rows, rows * per_row, stream>>>(args);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(const Args& args, cudaStream_t stream) {
+  if (args.in_dim > kIC || args.hidden > 32) return launch<T, 0>(args, stream);
+  switch ((args.hidden + 3) / 4) {   // H rounded up to a multiple of 4
+    case 1: return launch<T, 4>(args, stream);
+    case 2: return launch<T, 8>(args, stream);
+    case 3: return launch<T, 12>(args, stream);
+    case 4: return launch<T, 16>(args, stream);
+    case 5: return launch<T, 20>(args, stream);
+    case 6: return launch<T, 24>(args, stream);
+    case 7: return launch<T, 28>(args, stream);
+    default: return launch<T, 32>(args, stream);
+  }
 }
 
 }  // namespace
@@ -159,8 +246,8 @@ cudaError_t launch(const void* x, const void* w_ih, const void* w_hh, const void
 // contiguous; h0 and c0 may be null (zeros).  Outputs, contiguous: hs
 // (batch, seq, H), h_n and c_n (batch, H).  Every tensor is fp32 (dtype 0)
 // or bf16 (dtype 1).  The wrapper checks shapes, types and that one row's
-// shared memory, (6 H + 2 I) floats, fits in 48 KB.  Returns
-// cudaGetLastError().
+// state fits in 48 KB (6 H + 2 I floats, at least what a warp's slice takes).
+// Returns cudaGetLastError().
 extern "C" int repro_lstm(const void* x, const void* w_ih, const void* w_hh,
                           const void* bias, const void* h0, const void* c0, void* hs,
                           void* h_n, void* c_n, int dtype, int batch, int seq,
@@ -168,11 +255,8 @@ extern "C" int repro_lstm(const void* x, const void* w_ih, const void* w_hh,
                           long long sx_i, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (batch == 0 || seq == 0 || hidden == 0) return static_cast<int>(cudaGetLastError());
-  if (dtype == 1) {
-    return static_cast<int>(launch<__nv_bfloat16>(x, w_ih, w_hh, bias, h0, c0, hs, h_n, c_n,
-                                                  batch, seq, in_dim, hidden, sx_b, sx_s,
-                                                  sx_i, s));
-  }
-  return static_cast<int>(launch<float>(x, w_ih, w_hh, bias, h0, c0, hs, h_n, c_n, batch,
-                                        seq, in_dim, hidden, sx_b, sx_s, sx_i, s));
+  const Args args{x, w_ih, w_hh, bias, h0, c0, hs, h_n, c_n, batch, seq, in_dim, hidden,
+                  sx_b, sx_s, sx_i};
+  if (dtype == 1) return static_cast<int>(dispatch<__nv_bfloat16>(args, s));
+  return static_cast<int>(dispatch<float>(args, s));
 }

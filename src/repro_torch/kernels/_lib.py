@@ -120,7 +120,7 @@ def library() -> ctypes.CDLL:
         lib.repro_flash_attention_bf16.restype = i32
         lib.repro_lstm.argtypes = [vp] * 9 + [i32] * 5 + [ll] * 3 + [vp]
         lib.repro_lstm.restype = i32
-        lib.repro_ssd.argtypes = [vp] * 9 + [i32] * 10 + [ctypes.POINTER(ll), vp]
+        lib.repro_ssd.argtypes = [vp] * 13 + [i32] * 11 + [ctypes.POINTER(ll), vp]
         lib.repro_ssd.restype = i32
         _lib = lib
     return _lib

@@ -17,7 +17,7 @@ from repro_torch.kernels import _lib
 from repro_torch.kernels.lstm.ref import lstm_reference
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_SHARED_FLOATS = 48 * 1024 // 4   # one row's gates, h, c and x: 6 H + 2 I floats
+_SHARED_FLOATS = 48 * 1024 // 4   # 6 H + 2 I floats a row fit 48 KB (a warp's slice takes no more)
 
 #: kernel launches since the count was last set to 0
 launches = 0
@@ -34,7 +34,11 @@ def lstm(
     """(B,S,I) → (hs (B,S,H), (h,c)); differentiable on both devices."""
     if x.device.type == "cpu":
         return lstm_reference(x, w_ih, w_hh, b, h0, c0)
-    hs, h, c = _LstmFunction.apply(x, w_ih, w_hh, b, h0, c0)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, w_ih, w_hh, b, h0, c0)):
+        hs, h, c = _LstmFunction.apply(x, w_ih, w_hh, b, h0, c0)
+    else:   # nothing to differentiate: the kernel alone (an inference call takes some 25 µs)
+        hs, h, c = lstm_cuda(x, w_ih, w_hh, b, h0, c0)
     return hs, (h, c)
 
 
@@ -85,8 +89,10 @@ def lstm_cuda(
         x.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), b.data_ptr(),
         None if h0 is None else h0.data_ptr(), None if c0 is None else c0.data_ptr(),
         hs.data_ptr(), h_n.data_ptr(), c_n.data_ptr(), _DTYPES[x.dtype],
-        bsz, seq, in_dim, hidden, x.stride(0), x.stride(1), x.stride(2),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        bsz, seq, in_dim, hidden, *x.stride(),
+        # the current stream's handle, without building a Stream object (the
+        # private binding the flash wrapper uses; card tests hold it equal)
+        torch._C._cuda_getCurrentRawStream(x.get_device()),
     )
     _lib.check(err, "lstm")
     launches += 1

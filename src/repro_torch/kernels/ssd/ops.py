@@ -6,6 +6,9 @@ update goes through the plain ``ssd_decode_step`` (exported here)."""
 from __future__ import annotations
 
 import ctypes
+import functools
+import itertools
+import math
 
 import torch
 
@@ -13,10 +16,13 @@ from repro_torch.kernels import _lib
 from repro_torch.kernels.ssd.ref import ssd_chunked, ssd_decode_step
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_SMEM_LIMIT = 232448      # bytes of shared memory one block may use on Hopper
-_SMS = 132                # the H100's SMs: P is split until the grid covers them
+_TILE = 64                # rows and columns of the kernels' product tiles
+_PREP_WARPS = 4           # chunk cumsums one block of the first kernel runs
+_PASS_ELEMENTS = 1024     # state elements one block of the third kernel passes
+ALL_STAGES = 0b1111
 
-#: kernel launches since the count was last set to 0
+#: calls that launched the kernels since the count was last set to 0 (one
+#: call of ``ssd_cuda`` runs the four kernels of ``csrc/ssd.cu``)
 launches = 0
 
 
@@ -37,25 +43,49 @@ def ssd(
     return ssd_cuda(x, dt, a, b_mat, c_mat, d_vec, chunk=chunk, init_state=init_state)
 
 
-def p_slice(bsz: int, heads: int, p: int) -> int:
-    """Columns of P one block takes: the largest power of two up to 64 that
-    divides P, halved (down to 16) while twice the blocks still fit in one
-    wave over the card's SMs (one block a SM: its shared memory)."""
-    ps = 64
-    while ps > 8 and p % ps:
-        ps //= 2
-    if p % ps:
+@functools.lru_cache(maxsize=64)
+def geometry(bsz: int, seq: int, heads: int, p: int, groups: int, n: int,
+             chunk: int, bf16: bool = True) -> dict:
+    """Scratch shapes and blocks of one call of ``csrc/ssd.cu``'s four
+    kernels for bf16 (tensor cores) or fp32 inputs (its ``launch_all``
+    computes the same grids); raises on a shape the kernels do not take.
+
+    * ``scores`` (B, G, nc, Q, Q): one C·Bᵀ tile per (batch, group, chunk);
+    * ``cs`` (B, H, S): the in-chunk cumsum of a·dt;
+    * ``states`` (B, H, nc, P, N): each chunk's own state, then (fp32
+      inputs) the state entering it;
+    * ``entering`` (B, H, nc, 2, P, N), bf16 inputs only: the state
+      entering each chunk as two bf16 parts, within 2^-16 of it.
+    """
+    if chunk < 32 or chunk > 256 or chunk % 32:
+        raise ValueError(f"ssd kernel takes a chunk that is a multiple of 32 up to 256, got {chunk}")
+    if seq % chunk:
+        raise ValueError(f"sequence {seq} is not a multiple of the chunk {chunk}")
+    if n not in (16, 32, 64, 128):
+        raise ValueError(f"ssd kernel takes a state size N that is a power of two from 16 to 128, got {n}")
+    if p < 8 or p % 8:
         raise ValueError(f"ssd kernel needs a head dim P that is a multiple of 8, got {p}")
-    while ps > 16 and 2 * bsz * heads * (p // ps) <= _SMS:
-        ps //= 2
-    return ps
-
-
-def smem_bytes(chunk: int, n: int, ps: int) -> int:
-    """Shared memory of one block (the layout of ``csrc/ssd.cu``)."""
-    rt = 32
-    return 4 * (chunk * (n + 1) + rt * (n + 1) + ps * (n + 1) + chunk * ps
-                + rt * (chunk + 1) + chunk)
+    if groups < 1 or heads % groups:
+        raise ValueError(f"heads {heads} are not a multiple of groups {groups}")
+    nc = seq // chunk
+    tiles = -(-chunk // _TILE)
+    p_tiles, n_tiles = -(-p // _TILE), -(-n // _TILE)
+    items = bsz * heads * nc
+    pass_y = -(-p * n // _PASS_ELEMENTS)
+    if items >= 2 ** 31 or pass_y > 65535:
+        raise ValueError(f"batch {bsz}, heads {heads}, {nc} chunks or P·N {p * n} exceed the grid")
+    return {
+        "scores": (bsz, groups, nc, chunk, chunk),
+        "cs": (bsz, heads, seq),
+        "states": (bsz, heads, nc, p, n),
+        "entering": (bsz, heads, nc, 2, p, n),
+        "blocks": {
+            "prep": bsz * groups * nc * tiles * (tiles + 1) // 2 + -(-items // _PREP_WARPS),
+            "chunk_state": items * p_tiles * n_tiles,
+            "state_pass": bsz * heads * pass_y,
+            "output": items * -(-chunk // (2 * _TILE if bf16 else _TILE)) * p_tiles,
+        },
+    }
 
 
 def ssd_cuda(
@@ -69,9 +99,29 @@ def ssd_cuda(
     chunk: int = 128,
     init_state: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/ssd.cu`` on the current stream → (y in x's dtype,
-    final state fp32); raises on any input the kernel does not take."""
+    """Launch ``csrc/ssd.cu`` (its four kernels, in order) on the current
+    stream → (y in x's dtype, final state fp32); raises on any input the
+    kernels do not take."""
     global launches
+    call = prepare(x, dt, a, b_mat, c_mat, d_vec, chunk=chunk, init_state=init_state)
+    launch_stages(call, ALL_STAGES)
+    launches += 1
+    return call["y"], call["state"]
+
+
+def prepare(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    a: torch.Tensor,
+    b_mat: torch.Tensor,
+    c_mat: torch.Tensor,
+    d_vec: torch.Tensor,
+    *,
+    chunk: int = 128,
+    init_state: torch.Tensor | None = None,
+) -> dict:
+    """Check the inputs and allocate the outputs and scratch of one call:
+    → {"y", "state", "args"} for :func:`launch_stages`."""
     named = {"x": x, "dt": dt, "a": a, "b_mat": b_mat, "c_mat": c_mat, "d_vec": d_vec,
              "init_state": init_state}
     given = {k: t for k, t in named.items() if t is not None}
@@ -103,44 +153,49 @@ def ssd_cuda(
         t = given.get(k)
         if t is not None and tuple(t.shape) != shape:
             raise ValueError(f"{k} has shape {tuple(t.shape)}, want {shape}")
-    if groups == 0 or heads % groups:
-        raise ValueError(f"heads {heads} are not a multiple of groups {groups}")
-    if chunk < 32 or chunk > 256 or chunk % 32:
-        raise ValueError(f"ssd kernel takes a chunk that is a multiple of 32 up to 256, got {chunk}")
-    if seq % chunk:
-        raise ValueError(f"sequence {seq} is not a multiple of the chunk {chunk}")
-    if n not in (16, 32, 64, 128):
-        raise ValueError(f"ssd kernel takes a state size N that is a power of two from 16 to 128, got {n}")
-    if bsz > 65535 or heads > 65535:
-        raise ValueError(f"batch {bsz} or heads {heads} exceed the grid's 65535")
     if x.stride(3) != 1 or b_mat.stride(3) != 1 or c_mat.stride(3) != 1 or dt.stride(2) != 1:
         raise ValueError("ssd kernel needs the last dim of x, b_mat, c_mat and dt contiguous")
     if not a.is_contiguous() or not d_vec.is_contiguous() or (
             init_state is not None and not init_state.is_contiguous()):
         raise ValueError("ssd kernel needs a, d_vec and init_state contiguous")
-    ps = p_slice(bsz, heads, p)
-    if smem_bytes(chunk, n, ps) > _SMEM_LIMIT:
-        raise ValueError(f"chunk {chunk}, N {n}: {smem_bytes(chunk, n, ps)} bytes of shared "
-                         f"memory exceed the {_SMEM_LIMIT} a block may use")
-    y = torch.empty((bsz, seq, heads, p), dtype=x.dtype, device=x.device)
-    state = torch.empty((bsz, heads, p, n), dtype=torch.float32, device=x.device)
-    strides = (ctypes.c_longlong * 12)(
-        x.stride(0), x.stride(1), x.stride(2),
-        dt.stride(0), dt.stride(1), dt.stride(2),
-        b_mat.stride(0), b_mat.stride(1), b_mat.stride(2),
-        c_mat.stride(0), c_mat.stride(1), c_mat.stride(2),
-    )
-    lib = _lib.library()
-    err = lib.repro_ssd(
+    bf16 = x.dtype == torch.bfloat16
+    geo = geometry(bsz, seq, heads, p, groups, n, chunk, bf16)
+    dev = x.device
+    y = torch.empty((bsz, seq, heads, p), dtype=x.dtype, device=dev)
+    state = torch.empty((bsz, heads, p, n), dtype=torch.float32, device=dev)
+    # the scratch in one allocation (each part a multiple of 16 bytes):
+    # scores, cs and states in fp32, and for bf16 the entering state's parts
+    sizes = [math.prod(geo[k]) * 4 for k in ("scores", "cs", "states")]
+    if bf16:
+        sizes.append(math.prod(geo["entering"]) * 2)
+    scratch = torch.empty(sum(sizes), dtype=torch.uint8, device=dev)
+    parts = list(itertools.accumulate(sizes[:-1], initial=scratch.data_ptr()))
+    if not bf16:
+        parts.append(None)
+    strides = [*x.stride()[:3], *dt.stride(), *b_mat.stride()[:3], *c_mat.stride()[:3]]
+    # 16-byte cp.async copies need every row of x, B and C to start on 16 bytes
+    per16 = 16 // x.element_size()
+    vec = all(t.data_ptr() % 16 == 0 for t in (x, b_mat, c_mat)) and all(
+        st % per16 == 0 for st in strides[:3] + strides[6:])
+    args = (
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
         d_vec.data_ptr(), None if init_state is None else init_state.data_ptr(),
-        y.data_ptr(), state.data_ptr(), _DTYPES[x.dtype], int(d_vec.dtype == torch.bfloat16),
-        bsz, seq, heads, p, groups, n, chunk, ps, strides,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        y.data_ptr(), state.data_ptr(), *parts, _DTYPES[x.dtype], int(d_vec.dtype == torch.bfloat16),
+        bsz, seq, heads, p, groups, n, chunk, int(vec),
     )
+    return {"y": y, "state": state, "args": args, "scratch": scratch,
+            "strides": (ctypes.c_longlong * 12)(*strides), "device": x.get_device()}
+
+
+def launch_stages(call: dict, stages: int) -> None:
+    """Launch the kernels of ``stages`` (bit k: kernel k + 1 of
+    ``csrc/ssd.cu``) for a prepared call.  ``ssd_cuda`` launches all four;
+    one stage alone is for timing it, on the scratch a whole call filled."""
+    # the current stream's handle, without building a Stream object (the
+    # private binding the flash wrapper uses; card tests hold it equal)
+    stream = torch._C._cuda_getCurrentRawStream(call["device"])
+    err = _lib.library().repro_ssd(*call["args"], stages, call["strides"], stream)
     _lib.check(err, "ssd")
-    launches += 1
-    return y, state
 
 
 __all__ = ["ssd", "ssd_cuda", "ssd_decode_step"]

@@ -55,7 +55,7 @@ print("imported", len({_modules()!r}))
 
 @pytest.mark.parametrize(
     "path",
-    sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")) + ["chip_smoke.py"],
+    sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")) + ["chip_smoke.py", "kernel_ab.py"],
 )
 def test_no_jax_or_repro_import_statement(path):
     text = (ROOT / path).read_text()

@@ -44,7 +44,10 @@ LSTM_TABLE = [
     (4, 32, 6, 20), (1, 16, 3, 7), (8, 64, 12, 20),   # tests/kernels/test_lstm.py
     (32, 64, 6, 20), (1, 64, 6, 20),                  # the quickstart: training, inference
     (3, 24, 4, 5), (2, 24, 5, 33),                    # h in {5, 33}
-    (530, 8, 3, 7), (1101, 8, 6, 20),                 # 2 and 4 rows a block, ragged
+    (530, 8, 3, 7), (1101, 8, 6, 20),                 # many rows, ragged last block
+    (4, 16, 6, 32), (4, 16, 6, 64), (4, 16, 6, 1),    # a full warp, two units a lane, H 1
+    (1, 1, 6, 20),                                    # one row, one step
+    (2, 8, 40, 100),                                  # weights through L1, I > 32
 ]
 
 
@@ -227,6 +230,29 @@ def test_lstm_gradient_equals_plain_autograd(cuda, with_state):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["lstm", "ssd"])
+def test_lstm_and_ssd_kernels_run_on_the_current_stream(cuda, kernel):
+    """The wrappers take the stream from the private binding the flash
+    wrapper uses: inside a side stream they launch there."""
+    if kernel == "lstm":
+        args = _lstm_inputs(cuda, 4, 32, 6, 20)[:4]
+        run, plain = (lambda: lstm_ops.lstm_cuda(*args)[0]), (lambda: lstm_reference(*args)[0])
+        tol = 1e-5
+    else:
+        args, _ = _ssd_inputs(cuda, 2, 256, 4, 16, 2, 32)
+        run, plain = (lambda: ssd_ops.ssd_cuda(*args, chunk=64)[0]), (lambda: ssd_recurrent_reference(*args)[0])
+        tol = SSD_Y
+    ref = plain()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        assert torch._C._cuda_getCurrentRawStream(args[0].get_device()) == side.cuda_stream
+        out = run()
+    side.synchronize()
+    assert float((out - ref).abs().max()) <= tol
+
+
+@pytest.mark.cuda
 def test_lstm_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     x, w_ih, w_hh, b, h0, c0 = _lstm_inputs(cuda, 2, 8, 6, 20)
     with pytest.raises(TypeError, match="one dtype"):
@@ -248,7 +274,12 @@ SSD_TABLE = [   # b, s, h, p, g, n, chunk, a = -1
     # exp(cs_i - cs_j) can stray past 5e-4 from the recurrence (PERF.md)
     (2, 256, 32, 64, 1, 128, 128, True),                       # the served prefill
     (1, 256, 8, 64, 2, 128, 128, True),                        # two groups under eight heads
-    (1, 2048, 32, 64, 1, 128, 128, True),                      # a long prefill: P split in 4
+    (1, 2048, 32, 64, 1, 128, 128, True),                      # a long prefill: 16 chunks
+    # the redesign's stages: many chunks and the state passed between them,
+    # one chunk (no passing), and four groups
+    (1, 1024, 4, 64, 1, 128, 64, False),
+    (1, 128, 4, 64, 1, 128, 128, True),
+    (1, 256, 8, 64, 4, 128, 128, True),
 ]
 SSD_Y, SSD_STATE = 5e-4, 5e-5      # tests/kernels/test_ssd.py:49-50
 
@@ -324,6 +355,27 @@ def test_ssd_kernel_reads_the_models_strided_views(cuda):
     y, st = ssd_ops.ssd(*args, chunk=64)
     ry, rst = ssd_recurrent_reference(*args)
     assert float((y - ry).abs().max()) <= SSD_Y
+    assert float((st - rst).abs().max()) <= SSD_STATE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_reads_views_that_are_not_16_byte_aligned(cuda, dtype):
+    """x, B and C whose rows do not start on 16 bytes go through plain
+    loads instead of cp.async, with the same result."""
+    b, s, h, p, n = 1, 256, 4, 16, 32
+    gen = torch.Generator(cuda).manual_seed(5)
+    xbc = torch.randn((b, s, 1 + h * p + 2 * n), generator=gen, device=cuda).to(dtype)
+    x, bm, cm = torch.split(xbc[..., 1:], [h * p, n, n], dim=-1)
+    args, init = _ssd_inputs(cuda, b, s, h, p, 1, n, seed=6)
+    args[0], args[3], args[4] = x.reshape(b, s, h, p), bm.reshape(b, s, 1, n), cm.reshape(b, s, 1, n)
+    args[5] = args[5].to(dtype)
+    assert args[0].data_ptr() % 16
+    y, st = ssd_ops.ssd(*args, chunk=64, init_state=init)
+    ry, rst = ssd_recurrent_reference(*(t.float() for t in args), init_state=init)
+    _, exp = torch.frexp(ry)
+    ulp = torch.ldexp(torch.ones_like(ry), exp - 8) if dtype == torch.bfloat16 else 0.0
+    assert bool(((y.float() - ry).abs() <= ulp + SSD_Y).all())
     assert float((st - rst).abs().max()) <= SSD_STATE
 
 

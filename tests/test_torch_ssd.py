@@ -2,7 +2,8 @@
 the chunked form, the decode step and the Pallas kernel in interpret mode,
 on the same numpy inputs, at the JAX tests' own tolerances
 (``tests/kernels/test_ssd.py``: 5e-4 on y, 5e-5 on the state, 2e-5 for
-decode); and the wrapper's CPU route."""
+decode); the wrapper's CPU route; and ``csrc/ssd.cu``'s launch geometry
+and its staged numerics, emulated on the CPU and held to the JAX package."""
 import numpy as np
 import pytest
 import torch
@@ -209,20 +210,184 @@ def test_wrapper_raises_off_the_cpu_without_a_card():
         ssd_ops.ssd(*cpu_args, chunk=48)
 
 
-@pytest.mark.parametrize("bsz,heads,p,want", [
-    (2, 32, 64, 32),     # the served prefill: 128 blocks
-    (1, 32, 64, 16),     # a long prefill at batch 1: 128 blocks
-    (8, 32, 64, 64),     # enough (batch, head) pairs: P stays whole
-    (1, 2, 8, 8),
-    (2, 4, 16, 16),
-    (1, 4, 24, 8),
+# ---------------------------------------------------------------------------
+# csrc/ssd.cu's launch geometry and its numerics, emulated on the CPU
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("shape,blocks", [
+    # b, s, h, p, g, n, chunk → blocks of the four kernels for bf16 inputs,
+    # and of the output kernel for fp32 inputs (64 rows a block, not 128)
+    ((2, 256, 32, 64, 1, 128, 128), (44, 256, 512, 128, 256)),     # the served prefill
+    ((1, 2048, 32, 64, 1, 128, 128), (176, 1024, 256, 512, 1024)), # 16 chunks at once
+    ((1, 256, 8, 64, 2, 128, 128), (16, 32, 64, 16, 32)),         # two groups
+    ((1, 256, 8, 64, 4, 128, 128), (28, 32, 64, 16, 32)),         # four groups
+    ((2, 256, 4, 16, 2, 32, 64), (24, 32, 8, 32, 32)),            # tests/kernels/test_ssd.py's
+    ((1, 128, 2, 8, 1, 16, 128), (4, 2, 2, 2, 4)),                # one chunk, P and N below a tile
+    ((1, 192, 2, 24, 1, 32, 96), (7, 4, 2, 4, 8)),                # a chunk of 96: part of a row tile
 ])
-def test_p_slice_fills_the_card_and_fits_shared_memory(bsz, heads, p, want):
-    ps = ssd_ops.p_slice(bsz, heads, p)
-    assert ps == want and p % ps == 0
-    assert ssd_ops.smem_bytes(128, 128, ps) <= 232448
+def test_geometry_runs_chunks_in_parallel_with_one_score_tile_per_group(shape, blocks):
+    """One score tile per (batch, group, chunk), whatever the heads; every
+    chunk's state and output in blocks of their own (the grids of
+    ``csrc/ssd.cu``'s ``launch_all``)."""
+    b, s, h, p, g, n, q = shape
+    geo = ssd_ops.geometry(*shape)
+    assert geo["scores"] == (b, g, s // q, q, q)
+    assert geo["cs"] == (b, h, s)
+    assert geo["states"] == (b, h, s // q, p, n)
+    assert geo["entering"] == (b, h, s // q, 2, p, n)
+    assert tuple(geo["blocks"].values()) == blocks[:4]
+    assert ssd_ops.geometry(*shape, bf16=False)["blocks"]["output"] == blocks[4]
+    assert ssd_ops.geometry(b, s, 2 * h, p, g, n, q)["scores"] == geo["scores"]
 
 
-def test_p_slice_rejects_a_head_dim_it_cannot_split():
-    with pytest.raises(ValueError, match="multiple of 8"):
-        ssd_ops.p_slice(1, 4, 12)
+@pytest.mark.parametrize("shape,match", [
+    ((1, 128, 4, 12, 1, 32, 64), "multiple of 8"),     # a head dim the tiles cannot take
+    ((1, 128, 4, 16, 1, 24, 64), "power of two"),
+    ((1, 128, 4, 16, 1, 32, 48), "multiple of 32"),
+    ((1, 96, 4, 16, 1, 32, 64), "multiple of the chunk"),
+    ((1, 128, 6, 16, 4, 32, 64), "multiple of groups"),
+])
+def test_geometry_refuses_what_the_kernels_do_not_take(shape, match):
+    with pytest.raises(ValueError, match=match):
+        ssd_ops.geometry(*shape)
+
+
+def bf16_parts(v, parts):
+    """The sum of ``parts`` bf16 values, each the rounding of what the ones
+    before leave of v (fp32): the value the tensor cores multiply."""
+    out, rest = torch.zeros_like(v), v
+    for _ in range(parts):
+        part = rest.to(torch.bfloat16).float()
+        out, rest = out + part, rest - part
+    return out
+
+
+def emulate_ssd_kernel(x, dt, a, b_mat, c_mat, d_vec, *, chunk, init_state=None):
+    """What ``csrc/ssd.cu`` computes, stage by stage, in fp32 on the CPU:
+
+    1. cs: a·dt rounded, each of 32 lanes summing chunk/32 consecutive
+       steps in order, the lane sums scanned as the shuffles do
+       (Hillis–Steele), the lanes below's sum added; the score tile
+       S[j][i] = B_j·C_i once per (batch, group, chunk);
+    2. each chunk's own state Σ_j ((x_j·dt_j)·exp(total − cs_j)) ⊗ B_j;
+    3. the states passed in order: slot c ← carry,
+       carry ← exp(total_c)·carry + ΔH_c, from init_state or zeros;
+    4. y = exp(cs_i)·(C_i·H_entering) + Σ_{j≤i} (S[j][i]·exp(cs_i − cs_j))·(x_j·dt_j)
+       + D·x, rounded once to x's dtype.
+
+    For bf16 inputs (the tensor-core path) dt moves to the fp32 side of
+    the output's product, ((S[j][i]·exp(cs_i − cs_j))·dt_j)·x_j, so that x
+    stays exact, and the output's fp32 operands (that one and the entering
+    state) are cut to the sum of two bf16 parts, as the kernel multiplies
+    them; the chunk's own state takes three parts, which sum to the fp32
+    value exactly.  The sums inside a product run in another order than the
+    kernel's."""
+    bsz, s, h, p = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    q, nc, hpg = chunk, s // chunk, h // g
+    lanes, per = 32, chunk // 32
+    xf, dtf, af = x.float(), dt.float(), a.float()
+    la = (af[None, None, :] * dtf).reshape(bsz, nc, lanes, per, h)
+    part, run = [], torch.zeros((bsz, nc, lanes, h))
+    for k in range(per):
+        run = run + la[:, :, :, k]
+        part.append(run)
+    part = torch.stack(part, dim=3)
+    incl = run
+    for off in (1, 2, 4, 8, 16):
+        below = torch.zeros_like(incl)
+        below[:, :, off:] = incl[:, :, :-off]
+        incl = incl + below
+    before = torch.zeros_like(incl)
+    before[:, :, 1:] = incl[:, :, :-1]
+    cs = (part + before[:, :, :, None]).reshape(bsz, nc, q, h)
+    bc = b_mat.float().reshape(bsz, nc, q, g, n)
+    cc = c_mat.float().reshape(bsz, nc, q, g, n)
+    scores = torch.einsum("bcjgn,bcign->bcgji", bc, cc)             # once per group
+    xbar = (xf * dtf[..., None]).reshape(bsz, nc, q, h, p)
+    total = cs[:, :, -1]                                              # (B, NC, H)
+    decay = torch.exp(total[:, :, None] - cs)
+    bh, ch = bc.repeat_interleave(hpg, dim=3), cc.repeat_interleave(hpg, dim=3)
+    own = torch.einsum("bcjhp,bcjhn->bchpn", xbar * decay[..., None], bh)
+    carry = torch.zeros((bsz, h, p, n)) if init_state is None else init_state.float()
+    entering = []
+    for c in range(nc):
+        entering.append(carry)
+        carry = torch.exp(total[:, c])[..., None, None] * carry + own[:, c]
+    entering = torch.stack(entering, dim=1)
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        entering = bf16_parts(entering, 2)
+    y = torch.einsum("bcihn,bchpn->bcihp", ch, entering) * torch.exp(cs)[..., None]
+    csh = cs.permute(0, 1, 3, 2)                                      # (B, NC, H, Q)
+    diff = csh[..., None, :] - csh[..., :, None]                      # [j][i] = cs_i − cs_j
+    below_diag = torch.ones((q, q), dtype=torch.bool).triu()          # j ≤ i
+    lmat = torch.exp(diff.masked_fill(~below_diag, float("-inf")))
+    sl = scores.repeat_interleave(hpg, dim=2) * lmat                  # (B, NC, H, J, I)
+    if bf16:
+        w = bf16_parts(sl * dtf.reshape(bsz, nc, q, h).permute(0, 1, 3, 2)[..., None], 2)
+        y = y + torch.einsum("bchji,bcjhp->bcihp", w, xf.reshape(bsz, nc, q, h, p))
+    else:
+        y = y + torch.einsum("bchji,bcjhp->bcihp", sl, xbar)
+    y = y.reshape(bsz, s, h, p) + xf * d_vec.float()[None, None, :, None]
+    return y.to(x.dtype), carry
+
+
+EMULATED = [   # b, s, h, p, g, n, chunk, a = -1
+    *[(*row, False) for row in SHAPES],          # the reference test's, a = -exp(normal)
+    (1, 1024, 4, 64, 1, 128, 64, False),         # many chunks, the state passed between them
+    (1, 256, 8, 64, 4, 128, 128, True),          # four groups
+    (2, 256, 32, 64, 1, 128, 128, True),         # the served prefill, the init's a = -1
+]
+
+
+@pytest.mark.parametrize("with_state", [True, False])
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,a_one", EMULATED)
+def test_emulated_kernel_matches_jax_oracle_and_chunked(jref, b, s, h, p, g, n, chunk, a_one, with_state):
+    """The kernel's stages in fp32 stay within the reference test's limits
+    of the JAX package's recurrent oracle and of its chunked form."""
+    inp = make_inputs(11, b, s, h, p, g, n)
+    if a_one:
+        inp["a"] = -np.ones((h,), np.float32)
+    (targs, tstate), (jargs, jstate) = _t(inp, with_state), _j(inp, with_state)
+    y, st = emulate_ssd_kernel(*targs, chunk=chunk, init_state=tstate)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all())
+    oy, ost = jref["ref"].ssd_recurrent_reference(*jargs, init_state=jstate)
+    _close(y, oy, Y_TOL)
+    _close(st, ost, STATE_TOL)
+    cy, cst = jref["ref"].ssd_chunked(*jargs, chunk=chunk, init_state=jstate)
+    _close(y, cy, Y_TOL)
+    _close(st, cst, STATE_TOL)
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,a_one", EMULATED)
+def test_emulated_kernel_bf16_within_one_ulp_of_jax(jref, b, s, h, p, g, n, chunk, a_one):
+    """bf16 x, B, C and d, fp32 dt and a, one rounding of y: within one bf16
+    ulp (plus the fp32 tolerance) of the JAX oracle on the same values, and
+    the state within the fp32 tolerance."""
+    inp = make_inputs(12, b, s, h, p, g, n)
+    if a_one:
+        inp["a"] = -np.ones((h,), np.float32)
+    bf = {k: torch.from_numpy(inp[k]).to(torch.bfloat16) for k in ("x", "b_mat", "c_mat", "d_vec")}
+    args = [bf[k] if k in bf else torch.from_numpy(inp[k]) for k in ARGS]
+    y, st = emulate_ssd_kernel(*args, chunk=chunk)
+    assert y.dtype == torch.bfloat16 and st.dtype == torch.float32
+    jy, jst = jref["ref"].ssd_recurrent_reference(*[jnp.asarray(t.float().numpy()) for t in args])
+    jy = torch.from_numpy(np.array(jy))
+    _, exp = torch.frexp(jy)
+    ulp = torch.ldexp(torch.ones_like(jy), exp - 8)
+    assert bool(((y.float() - jy).abs() <= ulp + Y_TOL).all())
+    _close(st, jst, STATE_TOL)
+
+
+@pytest.mark.parametrize("parts", [2, 3])
+def test_bf16_parts_carry_an_fp32_value(parts):
+    """The kernel's split of an fp32 operand for the tensor cores: three
+    bf16 parts sum to the value exactly, two leave under 2^-16 of it."""
+    rng = np.random.default_rng(13)
+    v = torch.from_numpy((rng.standard_normal(100_000) * 10.0 ** rng.integers(-20, 20, 100_000))
+                         .astype(np.float32))
+    got = bf16_parts(v, parts)
+    if parts == 3:
+        assert torch.equal(got, v)
+    else:
+        assert bool(((got - v).abs() <= v.abs() * 2.0 ** -16).all())
