@@ -11,8 +11,9 @@ Phases, in order; any failure exits non-zero:
 3. kernels — each kernel against its plain PyTorch version on the card, at
    the main path's shapes and at the reference tests' shapes, with times
    (dequant; flash attention: bf16 through the tensor-core (wgmma) kernel
-   and fp32 through the CUDA-core kernel, timed at the served prefill, at
-   the reduced qwen3's prefill and at S 2048 beside SDPA);
+   and fp32 through the CUDA-core kernel, timed at the served prefills of
+   qwen3-1.7b, yi-6b, internlm2-20b and qwen3-32b (GQA groups 2, 8, 6, 8),
+   at the reduced qwen3's prefill and at S 2048 beside SDPA);
 4. lstm — the LSTM kernel (one warp a batch row, the weights in registers
    where they fit, no block barrier in the step loop) against its plain
    version (fp32 and bf16, with and without an initial state, H from 1 to
@@ -23,12 +24,26 @@ Phases, in order; any failure exits non-zero:
    count checked and the first losses held against a plain-trained run;
    then the kernel (device time, call time and µs a step), its plain
    version and cuDNN's ``nn.LSTM`` timed at batch 32 and 1;
-5. serving — full-width qwen3-1.7b under the duty-cycle controller with the
+5. decide — the adaptive-serving example (the 499.06 ms crossover and the
+   three traffic shapes) and the deployment planner at the paper's
+   operating point, held to the reference values 499.0607 ms and 12.4108×;
+6. duty-cycle example — ``repro_torch.examples.duty_cycle_serving`` on the
+   card at the reduced width, with its asserts and its flash launches
+   counted;
+7. serving — full-width qwen3-1.7b under the duty-cycle controller with the
    On-Off and Idle-Waiting strategies, through ``launch.serve.build_demo``;
    the launch counts show that bring-up went through the dequant kernel and
-   prefill through the flash-attention kernel; the output is checked
+   prefill through the flash-attention kernel; then ``run_process_schedule``
+   with Poisson arrivals under Idle-Waiting on the same checkpoint (its
+   offsets held to the process's arrival times); the output is checked
    against the plain path;
-6. ssd — the SSD kernel (four launches a call, chunks in parallel: the
+8. multi-tenant — ``repro_torch.examples.multi_tenant_serving`` on the card
+   at the reduced width; then two full-width tenants, qwen3-1.7b (the
+   serving phase's checkpoint) and yi-6b cut to 4 layers (a checkpoint of
+   its own), under a budget that holds the larger alone and one that holds
+   both: the example's asserts, the card's memory after every release, and
+   the dequant and flash launches of every bring-up and prefill;
+9. ssd — the SSD kernel (four launches a call, chunks in parallel: the
    score tile C·Bᵀ once per group on the tensor cores, with the in-chunk
    cumsums; each chunk's own state; the states passed between chunks; the
    output; for bf16 the chunk states and the output on warpgroup MMAs with
@@ -38,13 +53,17 @@ Phases, in order; any failure exits non-zero:
    with two and four groups, in fp32 and bf16; timed at the served shape
    and at a 2048-step prefill, with the device time split over the four
    kernels;
-7. mamba2 serving — full-width mamba2-370m through ``build_demo`` under
+10. mamba2 serving — full-width mamba2-370m through ``build_demo`` under
    On-Off and Idle-Waiting (prompt 200: two chunks, the second ragged);
    the launch counts show 9 dequant launches per bring-up and 48 SSD
    launches per prefill; the fp32 logits of the 48 layers are checked
    against the plain path, and bf16 layer by layer;
-8. the ``kernels`` JSON line, the card line, and the last line
-   ``{"ok": true, "device": {...}}``.
+11. dense families — yi-6b, internlm2-20b and qwen3-32b at full published
+   depth and width in bf16 (random weights drawn on the card): prefill at
+   batch 2, prompt 32 through the kernels against the plain path, one
+   flash launch a layer; in fp32 at full depth (yi-6b) or half depth;
+12. the phases' seconds, the ``kernels`` JSON line, the card line, and the
+   last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -78,6 +97,10 @@ MAMBA = "mamba2-370m"
 MAMBA_PROMPT, MAMBA_MAX_LEN = 200, 208      # two chunks of 128, the second ragged
 CKPT_DIR_MAMBA = ROOT / "build" / "chip_smoke_ckpt_mamba2"
 TRAIN_STEPS = 300                           # examples/quickstart.py
+PROCESS_SEED = 5                            # the process-schedule phase's arrivals
+TENANT_YI_LAYERS = 4                        # yi-6b's depth as the second full-width tenant
+CKPT_DIR_YI = ROOT / "build" / "chip_smoke_ckpt_yi6b"
+DENSE = {"yi-6b": 32, "internlm2-20b": 24, "qwen3-32b": 32}   # arch → depth of the fp32 check
 # Experiments 1-3 as the reference quickstart prints them
 EXPERIMENT_LINES = [
     "== Experiment 1: configuration-phase parameter optimization ==",
@@ -277,6 +300,11 @@ def flash_phase(card: str) -> dict:
         (2, 32, 32, 16, 8, 128, True, 0, 0, "demo prefill (main path)"),
         (2, 32, 32, 4, 2, 16, True, 0, 0, "reduced qwen3 prefill"),
         (1, 2048, 2048, 16, 8, 128, True, 0, 0, "long prefill"),
+        (2, 32, 32, 32, 4, 128, True, 0, 0, "yi-6b prefill, GQA group 8"),
+        (2, 32, 32, 48, 8, 128, True, 0, 0, "internlm2-20b prefill, GQA group 6"),
+        (2, 32, 32, 64, 8, 128, True, 0, 0, "qwen3-32b prefill, GQA group 8"),
+        (1, 100, 100, 48, 8, 128, True, 0, 0, "GQA group 6, ragged"),
+        (1, 2048, 2048, 64, 8, 128, True, 0, 0, "GQA group 8 at S 2048"),
     ]
     entry, timed = None, {}
     for (b, sq, sk, h, kvh, d, causal, window, q_offset, label) in cases:
@@ -342,6 +370,8 @@ def flash_phase(card: str) -> dict:
             print(line)
     entry["long_prefill"] = timed["long prefill"]
     entry["reduced_prefill"] = timed["reduced qwen3 prefill"]
+    entry["dense_prefills"] = {label.split()[0]: row for label, row in timed.items()
+                               if label.split()[0] in DENSE}
     return entry
 
 
@@ -544,8 +574,58 @@ def lstm_phase(card: str) -> dict:
     }
 
 
+
 # ---------------------------------------------------------------------------
-# Phase 5: serving
+# Phase 5: decide, and Phase 6: the duty-cycle example
+# ---------------------------------------------------------------------------
+def decide_phase() -> None:
+    """The adaptive-serving example and the planner at the paper's operating
+    point (40 ms, methods 1+2), against the reference values."""
+    from repro_torch.core import energy_model as em
+    from repro_torch.core import planner
+    from repro_torch.core.phases import paper_lstm_item
+    from repro_torch.examples import adaptive_serving
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = adaptive_serving.main()
+    lines = buf.getvalue().splitlines()
+    print("\n".join(f"  {line}" for line in lines))
+    check(lines[0] == "analytical crossover: 499.06 ms (paper: 499.06 ms)", "adaptive_serving's first line")
+    check(round(out["crossover_ms"], 4) == 499.0607, f"crossover {out['crossover_ms']!r} != 499.0607 ms")
+    item, cal = paper_lstm_item(), em.CALIBRATED_POWERUP_OVERHEAD_MJ
+    plan = planner.plan(item, 40.0, target_lifetime_h=45.0, powerup_overhead_mj=cal)
+    ratio = plan.lifetime_h / em.evaluate_onoff(item, 40.0, powerup_overhead_mj=cal).lifetime_hours
+    print(f"  planner at 40 ms, 45 h target: {plan.strategy}, {plan.method}, {plan.n_items} items, "
+          f"{plan.lifetime_h:.4f} h, lifetime {ratio:.4f}x On-Off's, idle power needed "
+          f"{plan.required_idle_power_mw:.4f} mW")
+    check(plan.strategy == "idle_waiting" and plan.method == "method1+2", f"planner chose {plan}")
+    check(round(ratio, 4) == 12.4108, f"lifetime ratio {ratio!r} != 12.4108")
+
+
+def duty_cycle_example_phase(card: str) -> int:
+    """``duty_cycle_serving`` on the card at the reduced width, with its
+    asserts → its flash launches (two a prefill: one per layer)."""
+    from repro_torch.configs import get_config
+    from repro_torch.examples import duty_cycle_serving
+    from repro_torch.kernels.dequant import ops as dq
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    layers = get_config(duty_cycle_serving.ARCH, reduced=True).num_layers
+    dq.launches = 0
+    fa.launches = 0
+    out = duty_cycle_serving.main([])
+    n_fa, n_dq = fa.launches, dq.launches
+    prefills = sum(out[k].n_requests + out[k].n_configurations for k in ("on_off", "idle_waiting", "auto"))
+    print(f"  flash launches {n_fa} ({layers} a prefill, {prefills} prefills), dequant launches {n_dq} "
+          f"(the reduced leaves are below the quantization floor) [{card}]")
+    check(n_fa == layers * prefills, f"duty-cycle example: {n_fa} flash launches for {prefills} prefills")
+    check(n_dq == 0, f"duty-cycle example: {n_dq} dequant launches")
+    return n_fa
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: serving
 # ---------------------------------------------------------------------------
 def output_check() -> None:
     """The kernel path against the plain path on the same weights: a small
@@ -700,13 +780,200 @@ def serving_phase(card: str) -> tuple[int, int]:
     print(f"  energy ratio On-Off / Idle-Waiting: {oo.energy_mj / iw.energy_mj:.4f}")
     check(iw.energy_mj < oo.energy_mj, "Idle-Waiting must use less energy than On-Off at 0.5 s")
     configuration_split(card)
+    n_dq, n_fa = process_schedule(card)
+    launches["dequant"] += n_dq
+    launches["flash"] += n_fa
     output_check()
-    shutil.rmtree(CKPT_DIR, ignore_errors=True)
     return launches["dequant"], launches["flash"]
 
 
+def process_schedule(card: str) -> tuple[int, int]:
+    """``run_process_schedule`` with Poisson arrivals (mean 500 ms) under
+    Idle-Waiting on the serving phase's checkpoint: the offsets it waits
+    for are the process's arrival times in seconds, no request is served
+    before its offset, one bring-up → (dequant, flash launches)."""
+    import torch
+
+    from repro_torch.core.arrivals import PoissonArrivals
+    from repro_torch.kernels.dequant import ops as dq
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch.serve import build_demo
+    from repro_torch.serving import scheduler
+
+    process = PoissonArrivals(500.0)
+    controller, make_request = build_demo(
+        ARCH, reduced=False, device="cuda", ckpt_dir=str(CKPT_DIR), strategy="idle_waiting"
+    )
+    requests = [make_request() for _ in range(REQUESTS)]
+    seen = {}
+    inner = scheduler.run_arrival_schedule
+
+    def recording(controller, requests, offsets, sleep, clock):
+        seen["offsets"] = list(offsets)
+        seen["t0"] = clock()
+        return inner(controller, requests, seen["offsets"], sleep, clock)
+
+    served = []
+    infer = controller.infer_fn
+
+    def timed_infer(handle, x):
+        served.append(time.perf_counter())
+        return infer(handle, x)
+
+    controller.infer_fn = timed_infer
+    dq.launches = 0
+    fa.launches = 0
+    with mock.patch.object(scheduler, "run_arrival_schedule", recording):
+        res = scheduler.run_process_schedule(controller, iter(requests), process, seed=PROCESS_SEED)
+    n_dq, n_fa = dq.launches, fa.launches
+    controller.release_fn(controller.handle)
+    controller.handle = None
+    torch.cuda.synchronize()
+    want = [float(t) / 1000.0 for t in process.arrival_times(REQUESTS, PROCESS_SEED)]
+    late = [t - seen["t0"] - o for t, o in zip(served, want)]
+    print(f"  process schedule (Poisson, mean 500 ms, seed {PROCESS_SEED}), idle_waiting: offsets "
+          f"{[float(o) for o in seen['offsets']]} s (arrival_times / 1000: {want}), served "
+          f"{[round(x, 4) for x in late]} s "
+          f"after them, {res.n_requests} requests, {res.n_configurations} configurations, energy "
+          f"{res.energy_mj:.1f} mJ, wall {res.wall_s:.3f} s; dequant launches {n_dq}, flash launches "
+          f"{n_fa} [{card}]")
+    check(seen["offsets"] == want, "run_process_schedule's offsets differ from arrival_times / 1000")
+    check(res.n_requests == REQUESTS and res.n_configurations == 1, f"process schedule: {res}")
+    check(len(served) == REQUESTS and min(late) >= 0.0, f"a request was served before its offset: {late}")
+    check(n_dq == 8 and n_fa == 28 * (REQUESTS + 1),
+          f"process schedule: {n_dq} dequant and {n_fa} flash launches for one bring-up and {REQUESTS} requests")
+    return n_dq, n_fa
+
+
 # ---------------------------------------------------------------------------
-# Phase 6: the SSD kernel
+# Phase 8: multi-tenant serving
+# ---------------------------------------------------------------------------
+def multi_tenant_example(card: str) -> int:
+    """``multi_tenant_serving`` on the card at the reduced width, with its
+    asserts → its flash launches (two a prefill)."""
+    from repro_torch.kernels.dequant import ops as dq
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.examples import multi_tenant_serving
+
+    dq.launches = 0
+    fa.launches = 0
+    s1, s2, timeouts = multi_tenant_serving.main([])
+    n_fa, n_dq = fa.launches, dq.launches
+    prefills = s1["configurations"] + s2["configurations"] + 2 * multi_tenant_serving.N_REQUESTS
+    print(f"  reduced: break-even releases {timeouts}, flash launches {n_fa} (2 a prefill, {prefills} "
+          f"prefills), dequant launches {n_dq} (zstd checkpoints) [{card}]")
+    check(n_fa == 2 * prefills and n_dq == 0,
+          f"multi-tenant example: {n_fa} flash and {n_dq} dequant launches for {prefills} prefills")
+    return n_fa
+
+
+def multi_tenant_full_width(card: str) -> tuple[int, int]:
+    """Two full-width tenants on the card: qwen3-1.7b from the serving
+    phase's zstd+int8 checkpoint and yi-6b cut to 4 layers from a checkpoint
+    of its own, each with its bf16 weight bytes as its footprint, under a
+    budget that holds the larger alone and one that holds both.  The
+    example's asserts hold, exactly two bring-ups under the roomy budget;
+    after every release the card holds no more than the resident tenants'
+    weights and 0.5 GB; every bring-up launches one dequant per quantized
+    leaf and every prefill (the bring-up's warm-up and each request's) one
+    flash a layer → (dequant, flash launches)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.serializer import _should_quantize, flatten
+    from repro_torch.configs import get_config
+    from repro_torch.examples.multi_tenant_serving import N_REQUESTS, live_tenant, serve_alternating
+    from repro_torch.kernels.dequant import ops as dq
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import model_zoo as zoo
+
+    cfgs = {ARCH: get_config(ARCH),
+            "yi-6b": dataclasses.replace(get_config("yi-6b"), num_layers=TENANT_YI_LAYERS)}
+    shutil.rmtree(CKPT_DIR_YI, ignore_errors=True)
+    t0 = time.perf_counter()
+    params = zoo.init_params(cfgs["yi-6b"], torch.Generator("cuda").manual_seed(0))
+    CheckpointManager(str(CKPT_DIR_YI), mode="zstd+int8").save(0, params)
+    del params
+    torch.cuda.empty_cache()
+    print(f"  yi-6b at {TENANT_YI_LAYERS} layers: checkpoint written in {time.perf_counter() - t0:.3f} s "
+          f"({sum(f.stat().st_size for f in CKPT_DIR_YI.iterdir()) / 1e9:.3f} GB)")
+    managers = {ARCH: CheckpointManager(str(CKPT_DIR)), "yi-6b": CheckpointManager(str(CKPT_DIR_YI))}
+    shapes = {name: flatten(zoo.param_shapes(cfg)) for name, cfg in cfgs.items()}
+    weight_bytes = {name: sum(t.numel() * t.element_size() for _, t in leaves)
+                    for name, leaves in shapes.items()}
+    leaves = {name: sum(_should_quantize(t) for _, t in ls) for name, ls in shapes.items()}
+    big, small = sorted(weight_bytes.values(), reverse=True)
+    tight_gb, roomy_gb = (big + small / 2) / 1e9, (big + small) / 1e9 + 1.0
+    log = {"bring_up_s": {n: [] for n in cfgs}, "prefill_s": {n: [] for n in cfgs},
+           "after_release_gb": []}
+
+    def make_tenants():
+        tenants = []
+
+        def watch(name, cfg):
+            def bring_up():
+                d0, f0, c0 = dq.launches, fa.launches, time.perf_counter()
+                engine = inner_bring_up()
+                log["bring_up_s"][name].append(time.perf_counter() - c0)
+                got = engine.param_bytes()
+                check(got == weight_bytes[name], f"{name}: {got} weight bytes, not {weight_bytes[name]}")
+                check(dq.launches - d0 == leaves[name] and fa.launches - f0 == cfg.num_layers,
+                      f"{name} bring-up: {dq.launches - d0} dequant, {fa.launches - f0} flash launches")
+                return engine
+
+            def infer(engine, x):
+                d0, f0 = dq.launches, fa.launches
+                out = inner_infer(engine, x)
+                log["prefill_s"][name].append(out.prefill_s)
+                check(dq.launches == d0 and fa.launches - f0 == cfg.num_layers,
+                      f"{name} request: {dq.launches - d0} dequant, {fa.launches - f0} flash launches")
+                return out
+
+            def release(engine):
+                engine.release()
+                torch.cuda.synchronize()
+                held = sum(weight_bytes[t.name] for t in tenants
+                           if t.handle is not None and t.handle is not engine)
+                after = torch.cuda.memory_allocated()
+                log["after_release_gb"].append(after / 1e9)
+                check(after <= held + 0.5e9, f"after releasing {name}: {after} bytes allocated, "
+                                             f"{held} held by the resident tenants")
+
+            t = live_tenant(cfg, managers[name], weight_bytes[name] / 1e9, "cuda", release=release)
+            inner_bring_up, inner_infer = t.bring_up, t.infer
+            t.bring_up, t.infer = bring_up, infer
+            return t
+
+        for name, cfg in cfgs.items():
+            tenants.append(watch(name, cfg))
+        return tenants
+
+    torch.cuda.reset_peak_memory_stats()
+    dq.launches = 0
+    fa.launches = 0
+    s1, s2, timeouts = serve_alternating(make_tenants, tight_gb, roomy_gb)
+    n_dq, n_fa = dq.launches, fa.launches
+    peak = torch.cuda.max_memory_allocated()
+    configs = s1["configurations"] + s2["configurations"]
+    print(f"  full width: weight bytes {weight_bytes} (dequant leaves {leaves}); budgets "
+          f"{tight_gb:.3f} / {roomy_gb:.3f} GB; tight: {s1['configurations']} configurations, "
+          f"{s1['evictions']} evictions, {s1['energy_mj']:.1f} mJ; roomy: {s2['configurations']} "
+          f"configurations, {s2['evictions']} evictions, {s2['energy_mj']:.1f} mJ, break-even releases "
+          f"{timeouts}")
+    print(f"  full width: bring-up s {log['bring_up_s']}; prefill s (requests) {log['prefill_s']}")
+    print(f"  full width: dequant launches {n_dq}, flash launches {n_fa} over {configs} bring-ups and "
+          f"{2 * N_REQUESTS} requests; max_memory_allocated {peak / 1e9:.3f} GB, memory_allocated after each release "
+          f"{[round(x, 6) for x in log['after_release_gb']]} GB [{card}]")
+    check(timeouts == 0 and s2["configurations"] == 2,
+          f"full width: {s2['configurations']} bring-ups under the roomy budget, {timeouts} break-even releases")
+    shutil.rmtree(CKPT_DIR_YI, ignore_errors=True)
+    return n_dq, n_fa
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the SSD kernel
 # ---------------------------------------------------------------------------
 def _ssd_inputs(b, s, h, p, g, n, seed, a_minus_one=False):
     """The reference test's inputs (``make_inputs``): x, dt, a, B, C, d and
@@ -897,7 +1164,7 @@ def ssd_phase(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 7: mamba2-370m serving
+# Phase 10: mamba2-370m serving
 # ---------------------------------------------------------------------------
 def mamba2_output_check(card: str) -> None:
     """The full-width 48-layer prefill logits through the kernel against
@@ -1047,6 +1314,152 @@ def mamba2_serving_phase(card: str) -> tuple[int, int]:
     return launches["dequant"], launches["ssd"]
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the dense families at full width and depth
+# ---------------------------------------------------------------------------
+def _float64_prefill(cfg, params, tokens):
+    """Last-position logits of the plain path in float64 on the same
+    weights, each layer widened as it runs (a 64-layer float64 copy would
+    not fit the card); norms, RoPE and the softmax stay in fp32, as the
+    model computes them."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ref import attention_reference
+    from repro_torch.models import attention, decoder
+    from repro_torch.models.common import rms_norm
+
+    def widen(tree):
+        return {k: widen(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.double()
+
+    x = params["embed"][tokens.long()].double()
+    with torch.inference_mode(), mock.patch.object(attention.attn_ops, "attention", attention_reference):
+        for i in range(cfg.num_layers):
+            lp = widen(decoder._layer(params["periods"], i)["pos0"])
+            mix, _ = attention.prefill_cache(lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps), cfg, 48)
+            x = decoder._mlp_residual(lp, x + mix, cfg)
+            del lp
+        x = rms_norm(x[:, -1], params["final_norm"].double(), cfg.norm_eps)
+        head = decoder._lm_head(params)
+        out = torch.empty((x.shape[0], head.shape[1]), dtype=torch.float64, device=x.device)
+        for c0 in range(0, head.shape[1], 16384):
+            out[:, c0:c0 + 16384] = x @ head[:, c0:c0 + 16384].double()
+    return out
+
+
+def _dense_prefill(cfg, params, tokens, label: str, limit: float, card: str) -> dict:
+    """Prefill through the kernels against the plain path (the flash
+    wrapper swapped for its plain version here only) on the same weights:
+    within ``limit`` of the largest logit, one flash launch a layer a
+    prefill, and equal argmax.  In bf16 the argmax is held on the rows that
+    bf16 can decide: those whose top two logits in the float64 forward of
+    the same weights lie further apart than twice the larger of the two
+    paths' errors against it (at 48 and 64 layers of random weights a row's
+    top two logits lay 0.06 % and 0.14 % of the largest logit apart, far
+    inside either bf16 path's 2 % drift, and the plain path's argmax itself
+    left the float64 forward's); and the kernel path must lie no further
+    from the float64 forward than 1.5 times the plain path does."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import attention_reference
+    from repro_torch.models import attention
+    from repro_torch.models import model_zoo as zoo
+
+    batch = {"tokens": tokens}
+    fa.launches = 0
+    with torch.inference_mode():
+        times = []
+        for _ in range(2):                      # the first call warms up cuBLAS
+            t0 = time.perf_counter()
+            a, _ = zoo.prefill_fn(params, batch, cfg, 48)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        n_fa = fa.launches
+        with mock.patch.object(attention.attn_ops, "attention", attention_reference):
+            b, _ = zoo.prefill_fn(params, batch, cfg, 48)
+    check(a.shape == (2, cfg.vocab_size) and bool(torch.isfinite(a).all()),
+          f"{label}: logits of shape {tuple(a.shape)} or non-finite")
+    err, top = float((a - b).abs().max()), float(b.abs().max())
+    rows = [0, 1]
+    line = ""
+    if params["embed"].dtype == torch.bfloat16:
+        ref = _float64_prefill(cfg, params, tokens)
+        e_kernel, e_plain = (float((x.double() - ref).abs().max()) for x in (a, b))
+        top2 = ref.topk(2, dim=-1).values
+        margin = (top2[:, 0] - top2[:, 1]).tolist()
+        rows = [r for r in rows if margin[r] > 2 * max(e_kernel, e_plain)]
+        same_ref = [int(x.argmax(-1)[r] == ref.argmax(-1)[r]) for x in (a, b) for r in rows]
+        line = (f"; against the float64 forward: kernel {e_kernel:.4g}, plain {e_plain:.4g} "
+                f"({e_kernel / e_plain:.3f}x), top-2 margins {[round(m, 5) for m in margin]}, "
+                f"rows bf16 can decide {rows}")
+        check(e_kernel <= 1.5 * e_plain, f"{label}: kernel {e_kernel:.3g} from the float64 forward, "
+                                         f"plain {e_plain:.3g}")
+        check(all(same_ref), f"{label}: argmax differs from the float64 forward's on a row bf16 decides")
+    same = [int(a.argmax(-1)[r] == b.argmax(-1)[r]) for r in (0, 1)]
+    spread = [round(float(v), 4) for v in a.std(-1)]
+    print(f"  {label}: two prefills (B 2, prompt 32) {[round(t, 4) for t in times]} s, flash launches "
+          f"{n_fa}; logits, kernel vs plain path: max_abs_err {err:.3g}, relative error {err / top:.3g} "
+          f"(max |logit| {top:.4g}, limit {limit}), argmax equal by row {same}, logit std {spread}"
+          f"{line} [{card}]")
+    check(n_fa == 2 * cfg.num_layers, f"{label}: {n_fa} flash launches for two prefills of {cfg.num_layers} layers")
+    check(err / top <= limit, f"{label}: kernel vs plain differ by {err / top:.3g} of the largest logit")
+    check(all(same[r] for r in rows), f"{label}: argmax differs on rows {rows}: {same}")
+    return dict(prefill_s=times[-1], rel_err=err / top, flash_launches=n_fa)
+
+
+def dense_phase(card: str) -> int:
+    """yi-6b, internlm2-20b and qwen3-32b at their published widths and
+    depths in bf16, random weights drawn on the card; then in fp32 at the
+    depth ``DENSE`` gives (the full depth where fp32 fits the card) → the
+    flash launches of the kernel prefills."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.checkpoint.serializer import flatten
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_zoo as zoo
+
+    total = 0
+    for i, (arch, fp32_layers) in enumerate(DENSE.items()):
+        cfg = get_config(arch)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 32), device="cuda",
+                               generator=torch.Generator("cuda").manual_seed(100 + i))
+        for dtype, layers, limit in ((torch.bfloat16, cfg.num_layers, 3e-2),
+                                     (torch.float32, fp32_layers, 1e-4)):
+            c = dataclasses.replace(cfg, num_layers=layers)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            params = zoo.init_params(c, torch.Generator("cuda").manual_seed(i), dtype)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            n_bytes = sum(t.numel() * t.element_size() for _, t in flatten(params))
+            label = f"{arch} {str(dtype)[6:]} at {layers} of {cfg.num_layers} layers"
+            print(f"  {label}: {n_bytes / 1e9:.3f} GB of weights drawn on the card in {init_s:.3f} s")
+            row = _dense_prefill(c, params, tokens, label, limit, card)
+            total += row["flash_launches"]
+            del params
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            torch.cuda.empty_cache()
+            after = torch.cuda.memory_allocated()
+            print(f"  {label}: max_memory_allocated {peak / 1e9:.3f} GB, memory_allocated after "
+                  f"release {after / 1e9:.6f} GB [{card}]")
+            check(after < 1e8, f"{label}: {after} bytes still allocated after release")
+    return total
+
+
+@contextlib.contextmanager
+def timed_phase(name: str, seconds: dict):
+    """Print the phase's header, and its seconds when it ends."""
+    print(f"== {name}")
+    t0 = time.perf_counter()
+    yield
+    seconds[name] = round(time.perf_counter() - t0, 1)
+    print(f"  ({name}: {seconds[name]} s)")
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the repository")
@@ -1062,40 +1475,62 @@ def main() -> None:
     print(f"card: {card}, devices: {torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    seconds: dict = {}
 
-    print("== build")
-    from repro_torch.kernels import _lib
+    with timed_phase("build", seconds):
+        from repro_torch.kernels import _lib
 
-    t0 = time.perf_counter()
-    _lib.library()
-    print(f"kernel library built in {time.perf_counter() - t0:.2f} s "
-          f"(cached: {_lib.last_build['cached']})")
-    for line in _lib.last_build["log"].splitlines():
-        if "registers" in line or "==" in line or "spill" in line:
-            print(f"  {line.strip()}")
+        t0 = time.perf_counter()
+        _lib.library()
+        print(f"kernel library built in {time.perf_counter() - t0:.2f} s "
+              f"(cached: {_lib.last_build['cached']})")
+        for line in _lib.last_build["log"].splitlines():
+            if "registers" in line or "==" in line or "spill" in line:
+                print(f"  {line.strip()}")
 
-    print("== kernels vs plain versions")
-    dq_entry = dequant_phase(card)
-    fa_entry = flash_phase(card)
+    with timed_phase("kernels vs plain versions", seconds):
+        dq_entry = dequant_phase(card)
+        fa_entry = flash_phase(card)
 
-    print("== lstm")
-    lstm_entry = lstm_phase(card)
-    check(lstm_entry["launches"] > 0, "the LSTM kernel was never launched on the quickstart path")
+    with timed_phase("lstm", seconds):
+        lstm_entry = lstm_phase(card)
+        check(lstm_entry["launches"] > 0, "the LSTM kernel was never launched on the quickstart path")
 
-    print("== serving")
-    n_dq, n_fa = serving_phase(card)
-    dq_entry["launches"], fa_entry["launches"] = n_dq, n_fa
-    check(n_dq > 0 and n_fa > 0, "a kernel of the main path was never launched")
+    with timed_phase("decide", seconds):
+        decide_phase()
 
-    print("== ssd")
-    ssd_entry = ssd_phase(card)
+    with timed_phase("duty-cycle example", seconds):
+        fa_entry["launches"] += duty_cycle_example_phase(card)
 
-    print("== mamba2 serving")
-    n_dq_mamba, n_ssd = mamba2_serving_phase(card)
-    dq_entry["launches"] += n_dq_mamba
-    ssd_entry["launches"] = n_ssd
-    check(n_dq_mamba > 0 and n_ssd > 0, "a kernel of the mamba2 path was never launched")
+    with timed_phase("serving", seconds):
+        n_dq, n_fa = serving_phase(card)
+        dq_entry["launches"] += n_dq
+        fa_entry["launches"] += n_fa
+        check(n_dq > 0 and n_fa > 0, "a kernel of the main path was never launched")
 
+    with timed_phase("multi-tenant", seconds):
+        fa_entry["launches"] += multi_tenant_example(card)
+        n_dq, n_fa = multi_tenant_full_width(card)
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+        dq_entry["launches"] += n_dq
+        fa_entry["launches"] += n_fa
+        check(n_dq > 0 and n_fa > 0, "a kernel of the multi-tenant path was never launched")
+
+    with timed_phase("ssd", seconds):
+        ssd_entry = ssd_phase(card)
+
+    with timed_phase("mamba2 serving", seconds):
+        n_dq_mamba, n_ssd = mamba2_serving_phase(card)
+        dq_entry["launches"] += n_dq_mamba
+        ssd_entry["launches"] = n_ssd
+        check(n_dq_mamba > 0 and n_ssd > 0, "a kernel of the mamba2 path was never launched")
+
+    with timed_phase("dense families", seconds):
+        n_fa = dense_phase(card)
+        fa_entry["launches"] += n_fa
+        check(n_fa > 0, "the flash kernel was never launched on the dense families' path")
+
+    print(f"phase seconds: {json.dumps(seconds)}")
     print(card)
     print(json.dumps({"kernels": [dq_entry, fa_entry, lstm_entry, ssd_entry]}))
     print(json.dumps({"ok": True, "device": {

@@ -188,9 +188,6 @@ LATER_SLICES: dict[str, str] = {
     "qwen3-moe-235b-a22b": "the remaining-model-families slice (MoE)",
     "hubert-xlarge": "the remaining-model-families slice (audio frontend)",
     "llava-next-mistral-7b": "the remaining-model-families slice (vision frontend)",
-    "qwen3-32b": "the remaining-model-families slice",
-    "internlm2-20b": "the remaining-model-families slice",
-    "yi-6b": "the remaining-model-families slice",
 }
 
 

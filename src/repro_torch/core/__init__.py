@@ -7,12 +7,15 @@
 - strategies     : On-Off vs Idle-Waiting + power-saving methods (Exp. 2-3)
 - workload       : YAML workload/item descriptions (§5.1)
 - simulator      : discrete-event duty-cycle simulator (§5.1) + trace replay
+- arrivals       : request-arrival processes (deterministic/jittered/Poisson/
+                   MMPP/diurnal/flash-crowd/trace), their scalar streams
 - adaptive       : adaptive power policy (crossover decision rule + online
                    controller with hysteresis-guarded ski-rental hybrid)
+- planner        : deployment planner, the analytical model inverted
 - duty_cycle     : runnable duty-cycle controller for the serving engine
 
-Not ported yet: the arrival processes (``arrivals``), ``batch_eval`` and
-``pareto`` (ROADMAP A6), ``planner`` and ``tpu_energy``.
+Not ported yet: the batched ``jax.random`` sampling of ``arrivals``,
+``batch_eval`` and ``pareto`` (ROADMAP A6), and ``tpu_energy`` (ROADMAP A9).
 """
 from repro_torch.core.phases import (
     CONFIGURATION,
@@ -77,6 +80,14 @@ from repro_torch.core.simulator import (
     TraceSimResult,
     simulate,
     simulate_trace,
+)
+from repro_torch.core.arrivals import (
+    ArrivalProcess,
+    DeterministicArrivals,
+    MMPPArrivals,
+    PoissonArrivals,
+    TraceArrivals,
+    make_process,
 )
 from repro_torch.core.adaptive import (
     AdaptiveStrategy,

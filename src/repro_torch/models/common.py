@@ -44,15 +44,24 @@ def _leaf_init(spec: Spec, generator: torch.Generator, dtype, device) -> torch.T
         return torch.ones(spec.shape, dtype=dtype, device=device)
     fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
     std = spec.scale if spec.scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
-    w = torch.randn(spec.shape, generator=generator, dtype=torch.float32, device=device)
-    return (w * std).to(dtype)
+    if spec.axes[0] != "layers":
+        w = torch.randn(spec.shape, generator=generator, dtype=torch.float32, device=device)
+        return (w * std).to(dtype)
+    # a stacked leaf is drawn a layer at a time, so the fp32 draw never holds
+    # the whole stack (qwen3-32b's stacked FFN leaf would take 33.5 GB)
+    out = torch.empty(spec.shape, dtype=dtype, device=device)
+    for layer in out:
+        w = torch.randn(spec.shape[1:], generator=generator, dtype=torch.float32, device=device)
+        layer.copy_(w * std)
+    return out
 
 
 def init_from_specs(
     specs: Any, generator: torch.Generator, dtype=torch.bfloat16
 ) -> Any:
-    """Random parameters on ``generator.device``: fp32 normal, then a cast.
-    The draws differ from ``jax.random``'s; carry the reference's weights
+    """Random parameters on ``generator.device``: fp32 normal, then a cast,
+    a layer at a time for stacked leaves.  The draws differ from
+    ``jax.random``'s; carry the reference's weights
     with ``model_zoo.params_from_numpy`` where the two must agree."""
     return map_specs(
         lambda s: _leaf_init(s, generator, dtype, generator.device), specs

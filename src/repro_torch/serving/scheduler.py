@@ -1,17 +1,18 @@
 """Duty-cycle batch scheduler: request streams → strategy-managed engine
-(port of ``repro.serving.scheduler``; ``run_process_schedule`` comes with
-``core/arrivals`` in a later slice).
+(port of ``repro.serving.scheduler``).
 
 Drives a :class:`~repro_torch.core.duty_cycle.DutyCycleController` with a request
 stream and reports the strategy comparison — the runnable counterpart of
-Experiment 2.  Two entry points:
+Experiment 2.  Three entry points:
 
 * :func:`run_schedule` — the paper's duty-cycle mode: constant-period
   requests;
 * :func:`run_arrival_schedule` — arbitrary arrival times, the runnable
-  counterpart of the reference's ``simulate_trace``.
+  counterpart of :func:`repro_torch.core.simulator.simulate_trace`;
+* :func:`run_process_schedule` — arrival times drawn from a
+  :class:`repro_torch.core.arrivals.ArrivalProcess`.
 
-Both sleep out idle gaps like the MCU timer in the paper's system model,
+All three sleep out idle gaps like the MCU timer in the paper's system model,
 waking early at the policy's release time so a live engine actually powers
 down mid-gap (ski-rental / adaptive release).
 """
@@ -22,6 +23,7 @@ import itertools
 import time
 from typing import Any, Callable, Iterable, Optional
 
+from repro_torch.core.arrivals import ArrivalProcess
 from repro_torch.core.duty_cycle import DutyCycleController
 
 
@@ -87,6 +89,24 @@ def run_schedule(
 ) -> ScheduleResult:
     """Constant-period requests (the paper's duty-cycle mode)."""
     offsets = (i * period_s for i in itertools.count())
+    return run_arrival_schedule(controller, requests, offsets, sleep, clock)
+
+
+def run_process_schedule(
+    controller: DutyCycleController,
+    requests: Iterable[Any],
+    process: ArrivalProcess,
+    seed: int = 0,
+    time_scale: float = 1.0,
+    sleep: Callable[[float], None] = time.sleep,
+    clock: Callable[[], float] = time.perf_counter,
+) -> ScheduleResult:
+    """Draw arrival times from an :class:`ArrivalProcess` (times in ms are
+    converted to seconds; ``time_scale`` compresses or stretches the trace,
+    e.g. 10.0 slows a simulated 40 ms period to a livable 0.4 s)."""
+    requests = list(requests)
+    times_ms = process.arrival_times(len(requests), seed)
+    offsets = [t * time_scale / 1000.0 for t in times_ms]
     return run_arrival_schedule(controller, requests, offsets, sleep, clock)
 
 

@@ -192,6 +192,12 @@ EMULATED = [
     (1, 40, 100, 6, 2, 48, True, 30, 60),     # group 3, window and q_offset
     (1, 60, 20, 6, 2, 64, True, 0, -30),      # group 3, fully masked rows
     (2, 64, 64, 4, 1, 112, False, 0, 0),      # group 4, bidirectional
+    # the dense families' groups: 8 (yi-6b, qwen3-32b) and 6 (internlm2-20b)
+    (2, 32, 32, 32, 4, 128, True, 0, 0),      # group 8, yi-6b's prefill
+    (2, 32, 32, 64, 8, 128, True, 0, 0),      # group 8, qwen3-32b's prefill
+    (2, 32, 32, 48, 8, 128, True, 0, 0),      # group 6, internlm2-20b's prefill
+    (1, 100, 100, 48, 8, 128, True, 0, 0),    # group 6, ragged
+    (1, 2048, 2048, 64, 8, 128, True, 0, 0),  # group 8, a long qwen3-32b prefill
 ]
 
 

@@ -88,6 +88,15 @@ def test_module_list_covers_the_slice():
         "repro_torch.kernels.ssd.ops",
         "repro_torch.kernels.ssd.ref",
         "repro_torch.models.mamba2",
+        "repro_torch.core.planner",
+        "repro_torch.core.arrivals",
+        "repro_torch.serving.multi_tenant",
+        "repro_torch.examples.adaptive_serving",
+        "repro_torch.examples.duty_cycle_serving",
+        "repro_torch.examples.multi_tenant_serving",
+        "repro_torch.configs.yi_6b",
+        "repro_torch.configs.internlm2_20b",
+        "repro_torch.configs.qwen3_32b",
     ):
         assert name in mods
 
@@ -125,6 +134,17 @@ def test_quickstart_defaults_to_cuda_and_raises_without_it(monkeypatch, capsys):
     assert capsys.readouterr().out == ""      # nothing ran on the CPU
 
 
+@pytest.mark.parametrize("example", ["duty_cycle_serving", "multi_tenant_serving"])
+def test_serving_examples_default_to_cuda_and_raise_without_it(monkeypatch, capsys, example):
+    import importlib
+
+    mod = importlib.import_module(f"repro_torch.examples.{example}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main([])
+    assert "requests" not in capsys.readouterr().out      # nothing was served
+
+
 def test_workload_imports_yaml_only_for_the_round_trip():
     code = """
 import sys
@@ -145,7 +165,7 @@ def test_later_slice_configs_raise_with_their_slice():
     from repro_torch.configs import LATER_SLICES, get_config, list_archs
     from repro_torch.configs.base import register
 
-    assert list_archs() == ["mamba2-370m", "qwen3-1.7b"]
+    assert list_archs() == ["internlm2-20b", "mamba2-370m", "qwen3-1.7b", "qwen3-32b", "yi-6b"]
     # the paper's LSTM is not an arch of the registry, as in the reference
     assert "paper-lstm-h20" not in LATER_SLICES
     with pytest.raises(KeyError, match="unknown arch"):
@@ -153,9 +173,10 @@ def test_later_slice_configs_raise_with_their_slice():
     with pytest.raises(NotImplementedError, match="MoE and hybrid"):
         get_config("jamba-1.5-large-398b")
     assert "mixtral-8x7b" in LATER_SLICES
+    assert not {"yi-6b", "internlm2-20b", "qwen3-32b"} & set(LATER_SLICES)
     cfg = get_config("qwen3-1.7b")
 
     import dataclasses
 
     with pytest.raises(NotImplementedError, match="remaining-model-families"):
-        register(lambda: dataclasses.replace(cfg, name="yi-6b"), lambda: cfg)
+        register(lambda: dataclasses.replace(cfg, name="mixtral-8x7b"), lambda: cfg)

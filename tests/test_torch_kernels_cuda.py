@@ -39,6 +39,13 @@ TABLE = [
     (1, 77, 150, 6, 2, 96, True, 0, 73),      # group 3, q_offset, head dim 96
     (1, 50, 50, 10, 2, 16, True, 20, 0),      # group 5, window, head dim 16
     (2, 64, 64, 4, 1, 112, False, 0, 0),      # head dim 112, bidirectional
+    # the dense families' groups: 8 (yi-6b 32/4, qwen3-32b 64/8) and 6
+    # (internlm2-20b 48/8, which straddles blocks), at their served prefill
+    (2, 32, 32, 32, 4, 128, True, 0, 0),      # group 8, yi-6b
+    (2, 32, 32, 64, 8, 128, True, 0, 0),      # group 8, qwen3-32b
+    (2, 32, 32, 48, 8, 128, True, 0, 0),      # group 6, internlm2-20b
+    (1, 100, 100, 48, 8, 128, True, 0, 0),    # group 6, ragged
+    (1, 2048, 2048, 64, 8, 128, True, 0, 0),  # group 8, a long qwen3-32b prefill
 ]
 LSTM_TABLE = [
     (4, 32, 6, 20), (1, 16, 3, 7), (8, 64, 12, 20),   # tests/kernels/test_lstm.py
