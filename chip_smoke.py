@@ -31,12 +31,15 @@ Phases, in order; any failure exits non-zero:
    card at the reduced width, with its asserts and its flash launches
    counted;
 7. serving — full-width qwen3-1.7b under the duty-cycle controller with the
-   On-Off and Idle-Waiting strategies, through ``launch.serve.build_demo``;
-   the launch counts show that bring-up went through the dequant kernel and
-   prefill through the flash-attention kernel; then ``run_process_schedule``
-   with Poisson arrivals under Idle-Waiting on the same checkpoint (its
-   offsets held to the process's arrival times); the output is checked
-   against the plain path;
+   On-Off, Idle-Waiting and auto strategies, through
+   ``launch.serve.build_demo``, held to the duty-cycle example's ordering
+   (at full width 0.5 s lies below the crossover: the reference example's
+   asserts); the launch counts show that bring-up went through the dequant
+   kernel and prefill through the flash-attention kernel; then
+   ``run_process_schedule`` with Poisson arrivals under Idle-Waiting on the
+   same checkpoint, the engine already up (its offsets held to the
+   process's arrival times, each request served on time); the output is
+   checked against the plain path;
 8. multi-tenant — ``repro_torch.examples.multi_tenant_serving`` on the card
    at the reduced width; then two full-width tenants, qwen3-1.7b (the
    serving phase's checkpoint) and yi-6b cut to 4 layers (a checkpoint of
@@ -60,8 +63,10 @@ Phases, in order; any failure exits non-zero:
    against the plain path, and bf16 layer by layer;
 11. dense families — yi-6b, internlm2-20b and qwen3-32b at full published
    depth and width in bf16 (random weights drawn on the card): prefill at
-   batch 2, prompt 32 through the kernels against the plain path, one
-   flash launch a layer; in fp32 at full depth (yi-6b) or half depth;
+   batch 2, prompt 32 (eight token draws) through the kernels against the
+   plain path, one flash launch a layer; the bf16 argmax on the rows a
+   float64 forward shows bf16 can decide, at least two; in fp32 at full
+   depth (yi-6b) or half depth;
 12. the phases' seconds, the ``kernels`` JSON line, the card line, and the
    last line ``{"ok": true, "device": {...}}``.
 """
@@ -98,9 +103,12 @@ MAMBA_PROMPT, MAMBA_MAX_LEN = 200, 208      # two chunks of 128, the second ragg
 CKPT_DIR_MAMBA = ROOT / "build" / "chip_smoke_ckpt_mamba2"
 TRAIN_STEPS = 300                           # examples/quickstart.py
 PROCESS_SEED = 5                            # the process-schedule phase's arrivals
+SERVE_MARGIN_S = 0.05                       # its bound on a request's wait once due and free
 TENANT_YI_LAYERS = 4                        # yi-6b's depth as the second full-width tenant
 CKPT_DIR_YI = ROOT / "build" / "chip_smoke_ckpt_yi6b"
 DENSE = {"yi-6b": 32, "internlm2-20b": 24, "qwen3-32b": 32}   # arch → depth of the fp32 check
+DENSE_DRAWS = 8                             # token draws (B 2, prompt 32) a dense model
+DENSE_DECIDED = 2                           # fewest bf16-decided rows its argmax check may hold
 # Experiments 1-3 as the reference quickstart prints them
 EXPERIMENT_LINES = [
     "== Experiment 1: configuration-phase parameter optimization ==",
@@ -723,9 +731,16 @@ def configuration_split(card: str, arch: str = ARCH, ckpt_dir: Path = CKPT_DIR) 
 
 
 def serving_phase(card: str) -> tuple[int, int]:
+    """Full-width qwen3-1.7b from its zstd+int8 checkpoint, ``REQUESTS``
+    requests at ``PERIOD_S`` under On-Off, Idle-Waiting and auto, held to
+    the duty-cycle example's ordering: at full width the bring-up is
+    seconds, so 0.5 s lies below the crossover and the reference example's
+    asserts apply (Idle-Waiting wins, ``auto`` at most 2 configurations)
+    → (dequant, flash launches)."""
     import torch
 
     from repro_torch.core.phases import CONFIGURATION, INFERENCE
+    from repro_torch.examples import duty_cycle_serving
     from repro_torch.kernels.dequant import ops as dq
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.launch.serve import build_demo
@@ -733,9 +748,9 @@ def serving_phase(card: str) -> tuple[int, int]:
 
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
     cfg_layers = 28
-    results = {}
+    results, controllers = {}, {}
     launches = {"dequant": 0, "flash": 0}
-    for strategy in ("on_off", "idle_waiting"):
+    for strategy in ("on_off", "idle_waiting", "auto"):
         t0 = time.perf_counter()
         controller, make_request = build_demo(
             ARCH, reduced=False, device="cuda", ckpt_dir=str(CKPT_DIR), strategy=strategy
@@ -749,7 +764,7 @@ def serving_phase(card: str) -> tuple[int, int]:
         fa.launches = 0
         res = run_schedule(controller, iter(requests), period_s=PERIOD_S)
         n_dq, n_fa = dq.launches, fa.launches
-        if controller.handle is not None:     # idle-waiting keeps it resident
+        if controller.handle is not None:     # idle-waiting and auto keep it resident
             controller.release_fn(controller.handle)
             controller.handle = None
         torch.cuda.synchronize()
@@ -775,10 +790,13 @@ def serving_phase(card: str) -> tuple[int, int]:
         print(f"  {strategy}: max_memory_allocated {peak / 1e9:.3f} GB, "
               f"memory_allocated after release {after / 1e9:.6f} GB [{card}]")
         check(after < 1e8, f"{strategy}: {after} bytes still allocated after release")
-        results[strategy] = res
-    oo, iw = results["on_off"], results["idle_waiting"]
-    print(f"  energy ratio On-Off / Idle-Waiting: {oo.energy_mj / iw.energy_mj:.4f}")
-    check(iw.energy_mj < oo.energy_mj, "Idle-Waiting must use less energy than On-Off at 0.5 s")
+        results[strategy], controllers[strategy] = res, controller
+    oo, iw, auto = (results[k] for k in ("on_off", "idle_waiting", "auto"))
+    cross = duty_cycle_serving.median_crossover_ms(controllers["on_off"])
+    print(f"  energy ratio On-Off / Idle-Waiting: {oo.energy_mj / iw.energy_mj:.4f}, median measured "
+          f"crossover {cross:.1f} ms")
+    side = duty_cycle_serving.check_ordering(PERIOD_S, cross, oo, iw, auto)
+    check(side == "below", f"{PERIOD_S} s lies {side} the full-width crossover of {cross:.1f} ms")
     configuration_split(card)
     n_dq, n_fa = process_schedule(card)
     launches["dequant"] += n_dq
@@ -789,9 +807,12 @@ def serving_phase(card: str) -> tuple[int, int]:
 
 def process_schedule(card: str) -> tuple[int, int]:
     """``run_process_schedule`` with Poisson arrivals (mean 500 ms) under
-    Idle-Waiting on the serving phase's checkpoint: the offsets it waits
-    for are the process's arrival times in seconds, no request is served
-    before its offset, one bring-up → (dequant, flash launches)."""
+    Idle-Waiting on the serving phase's checkpoint, the engine brought up
+    by one request before the schedule starts: the offsets it waits for
+    are the process's arrival times in seconds, and each request is served
+    no earlier than its offset and within ``SERVE_MARGIN_S`` of the later
+    of its offset and the previous request's end; one bring-up →
+    (dequant, flash launches)."""
     import torch
 
     from repro_torch.core.arrivals import PoissonArrivals
@@ -804,7 +825,7 @@ def process_schedule(card: str) -> tuple[int, int]:
     controller, make_request = build_demo(
         ARCH, reduced=False, device="cuda", ckpt_dir=str(CKPT_DIR), strategy="idle_waiting"
     )
-    requests = [make_request() for _ in range(REQUESTS)]
+    requests = [make_request() for _ in range(REQUESTS + 1)]
     seen = {}
     inner = scheduler.run_arrival_schedule
 
@@ -813,35 +834,45 @@ def process_schedule(card: str) -> tuple[int, int]:
         seen["t0"] = clock()
         return inner(controller, requests, seen["offsets"], sleep, clock)
 
-    served = []
+    served, done = [], []
     infer = controller.infer_fn
 
     def timed_infer(handle, x):
         served.append(time.perf_counter())
-        return infer(handle, x)
+        out = infer(handle, x)
+        done.append(time.perf_counter())
+        return out
 
     controller.infer_fn = timed_infer
     dq.launches = 0
     fa.launches = 0
+    t0 = time.perf_counter()
+    controller.submit(requests[0])                 # brings the engine up
+    up_s = time.perf_counter() - t0
     with mock.patch.object(scheduler, "run_arrival_schedule", recording):
-        res = scheduler.run_process_schedule(controller, iter(requests), process, seed=PROCESS_SEED)
+        res = scheduler.run_process_schedule(controller, iter(requests[1:]), process, seed=PROCESS_SEED)
     n_dq, n_fa = dq.launches, fa.launches
     controller.release_fn(controller.handle)
     controller.handle = None
     torch.cuda.synchronize()
     want = [float(t) / 1000.0 for t in process.arrival_times(REQUESTS, PROCESS_SEED)]
-    late = [t - seen["t0"] - o for t, o in zip(served, want)]
-    print(f"  process schedule (Poisson, mean 500 ms, seed {PROCESS_SEED}), idle_waiting: offsets "
-          f"{[float(o) for o in seen['offsets']]} s (arrival_times / 1000: {want}), served "
-          f"{[round(x, 4) for x in late]} s "
-          f"after them, {res.n_requests} requests, {res.n_configurations} configurations, energy "
-          f"{res.energy_mj:.1f} mJ, wall {res.wall_s:.3f} s; dequant launches {n_dq}, flash launches "
-          f"{n_fa} [{card}]")
+    due = [seen["t0"] + o for o in want]
+    late = [t - d for t, d in zip(served[1:], due)]
+    wait = [t - max(d, prev) for t, d, prev in zip(served[1:], due, done)]
+    print(f"  process schedule (Poisson, mean 500 ms, seed {PROCESS_SEED}), idle_waiting, brought up by "
+          f"one request in {up_s:.3f} s: offsets {[float(o) for o in seen['offsets']]} s (arrival_times / "
+          f"1000: {want}), served {[round(x, 4) for x in late]} s after them and "
+          f"{[round(x, 4) for x in wait]} s after the later of the offset and the previous request's end, "
+          f"inference s {[round(e - b, 4) for b, e in zip(served, done)]}, {res.n_requests} requests, "
+          f"{res.n_configurations} configurations, energy {res.energy_mj:.1f} mJ, wall {res.wall_s:.3f} s; "
+          f"dequant launches {n_dq}, flash launches {n_fa} [{card}]")
     check(seen["offsets"] == want, "run_process_schedule's offsets differ from arrival_times / 1000")
     check(res.n_requests == REQUESTS and res.n_configurations == 1, f"process schedule: {res}")
-    check(len(served) == REQUESTS and min(late) >= 0.0, f"a request was served before its offset: {late}")
-    check(n_dq == 8 and n_fa == 28 * (REQUESTS + 1),
-          f"process schedule: {n_dq} dequant and {n_fa} flash launches for one bring-up and {REQUESTS} requests")
+    check(len(served) == REQUESTS + 1 and min(late) >= 0.0, f"a request was served before its offset: {late}")
+    check(max(wait) <= SERVE_MARGIN_S, f"a request was served more than {SERVE_MARGIN_S} s late: {wait}")
+    check(n_dq == 8 and n_fa == 28 * (REQUESTS + 2),
+          f"process schedule: {n_dq} dequant and {n_fa} flash launches for one bring-up and "
+          f"{REQUESTS + 1} requests")
     return n_dq, n_fa
 
 
@@ -932,7 +963,7 @@ def multi_tenant_full_width(card: str) -> tuple[int, int]:
                 return out
 
             def release(engine):
-                engine.release()
+                inner_release(engine)
                 torch.cuda.synchronize()
                 held = sum(weight_bytes[t.name] for t in tenants
                            if t.handle is not None and t.handle is not engine)
@@ -941,9 +972,9 @@ def multi_tenant_full_width(card: str) -> tuple[int, int]:
                 check(after <= held + 0.5e9, f"after releasing {name}: {after} bytes allocated, "
                                              f"{held} held by the resident tenants")
 
-            t = live_tenant(cfg, managers[name], weight_bytes[name] / 1e9, "cuda", release=release)
-            inner_bring_up, inner_infer = t.bring_up, t.infer
-            t.bring_up, t.infer = bring_up, infer
+            t = live_tenant(cfg, managers[name], weight_bytes[name] / 1e9, "cuda")
+            inner_bring_up, inner_infer, inner_release = t.bring_up, t.infer, t.release
+            t.bring_up, t.infer, t.release = bring_up, infer, release
             return t
 
         for name, cfg in cfgs.items():
@@ -1346,18 +1377,20 @@ def _float64_prefill(cfg, params, tokens):
     return out
 
 
-def _dense_prefill(cfg, params, tokens, label: str, limit: float, card: str) -> dict:
+def _dense_prefill(cfg, params, draws, label: str, limit: float, card: str) -> dict:
     """Prefill through the kernels against the plain path (the flash
-    wrapper swapped for its plain version here only) on the same weights:
-    within ``limit`` of the largest logit, one flash launch a layer a
-    prefill, and equal argmax.  In bf16 the argmax is held on the rows that
-    bf16 can decide: those whose top two logits in the float64 forward of
-    the same weights lie further apart than twice the larger of the two
-    paths' errors against it (at 48 and 64 layers of random weights a row's
-    top two logits lay 0.06 % and 0.14 % of the largest logit apart, far
-    inside either bf16 path's 2 % drift, and the plain path's argmax itself
-    left the float64 forward's); and the kernel path must lie no further
-    from the float64 forward than 1.5 times the plain path does."""
+    wrapper swapped for its plain version here only) on the same weights,
+    one prefill (B 2, prompt 32) per token draw in ``draws``: within
+    ``limit`` of the largest logit, one flash launch a layer a prefill, and
+    equal argmax.  In bf16 the argmax is held on the rows that bf16 can
+    decide: those whose top two logits in the float64 forward of the same
+    weights lie further apart than twice the larger of the two paths'
+    errors against it on that row (at 48 and 64 layers of random weights a
+    row's top two logits lay 0.06 % and 0.14 % of the largest logit apart,
+    far inside either bf16 path's 2 % drift, and the plain path's argmax
+    itself left the float64 forward's), at least ``DENSE_DECIDED`` of them;
+    and the kernel path must lie no further from the float64 forward than
+    1.5 times the plain path does."""
     import torch
 
     from repro_torch.kernels.flash_attention import ops as fa
@@ -1365,43 +1398,51 @@ def _dense_prefill(cfg, params, tokens, label: str, limit: float, card: str) -> 
     from repro_torch.models import attention
     from repro_torch.models import model_zoo as zoo
 
-    batch = {"tokens": tokens}
+    def prefill(tokens):
+        return zoo.prefill_fn(params, {"tokens": tokens}, cfg, 48)[0]
+
     fa.launches = 0
     with torch.inference_mode():
         times = []
         for _ in range(2):                      # the first call warms up cuBLAS
             t0 = time.perf_counter()
-            a, _ = zoo.prefill_fn(params, batch, cfg, 48)
+            prefill(draws[0])
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
+        a = torch.cat([prefill(t) for t in draws])
         n_fa = fa.launches
         with mock.patch.object(attention.attn_ops, "attention", attention_reference):
-            b, _ = zoo.prefill_fn(params, batch, cfg, 48)
-    check(a.shape == (2, cfg.vocab_size) and bool(torch.isfinite(a).all()),
+            b = torch.cat([prefill(t) for t in draws])
+    n_rows = 2 * len(draws)
+    check(a.shape == (n_rows, cfg.vocab_size) and bool(torch.isfinite(a).all()),
           f"{label}: logits of shape {tuple(a.shape)} or non-finite")
     err, top = float((a - b).abs().max()), float(b.abs().max())
-    rows = [0, 1]
+    same = (a.argmax(-1) == b.argmax(-1)).int().tolist()
+    rows = list(range(n_rows))
     line = ""
     if params["embed"].dtype == torch.bfloat16:
-        ref = _float64_prefill(cfg, params, tokens)
-        e_kernel, e_plain = (float((x.double() - ref).abs().max()) for x in (a, b))
+        ref = _float64_prefill(cfg, params, torch.cat(draws))
+        e_kernel, e_plain = ((x.double() - ref).abs().amax(-1) for x in (a, b))
         top2 = ref.topk(2, dim=-1).values
         margin = (top2[:, 0] - top2[:, 1]).tolist()
-        rows = [r for r in rows if margin[r] > 2 * max(e_kernel, e_plain)]
+        rows = [r for r in rows if margin[r] > 2 * max(float(e_kernel[r]), float(e_plain[r]))]
         same_ref = [int(x.argmax(-1)[r] == ref.argmax(-1)[r]) for x in (a, b) for r in rows]
+        e_kernel, e_plain = float(e_kernel.max()), float(e_plain.max())
         line = (f"; against the float64 forward: kernel {e_kernel:.4g}, plain {e_plain:.4g} "
                 f"({e_kernel / e_plain:.3f}x), top-2 margins {[round(m, 5) for m in margin]}, "
                 f"rows bf16 can decide {rows}")
         check(e_kernel <= 1.5 * e_plain, f"{label}: kernel {e_kernel:.3g} from the float64 forward, "
                                          f"plain {e_plain:.3g}")
+        check(len(rows) >= DENSE_DECIDED, f"{label}: bf16 decides {len(rows)} of {n_rows} rows, "
+                                          f"fewer than {DENSE_DECIDED}")
         check(all(same_ref), f"{label}: argmax differs from the float64 forward's on a row bf16 decides")
-    same = [int(a.argmax(-1)[r] == b.argmax(-1)[r]) for r in (0, 1)]
     spread = [round(float(v), 4) for v in a.std(-1)]
-    print(f"  {label}: two prefills (B 2, prompt 32) {[round(t, 4) for t in times]} s, flash launches "
-          f"{n_fa}; logits, kernel vs plain path: max_abs_err {err:.3g}, relative error {err / top:.3g} "
-          f"(max |logit| {top:.4g}, limit {limit}), argmax equal by row {same}, logit std {spread}"
-          f"{line} [{card}]")
-    check(n_fa == 2 * cfg.num_layers, f"{label}: {n_fa} flash launches for two prefills of {cfg.num_layers} layers")
+    print(f"  {label}: two prefills (B 2, prompt 32) {[round(t, 4) for t in times]} s, then one for each "
+          f"of {len(draws)} token draws; flash launches {n_fa}; logits, kernel vs plain path: max_abs_err "
+          f"{err:.3g}, relative error {err / top:.3g} (max |logit| {top:.4g}, limit {limit}), argmax "
+          f"equal by row {same}, logit std {spread}{line} [{card}]")
+    check(n_fa == (2 + len(draws)) * cfg.num_layers,
+          f"{label}: {n_fa} flash launches for {2 + len(draws)} prefills of {cfg.num_layers} layers")
     check(err / top <= limit, f"{label}: kernel vs plain differ by {err / top:.3g} of the largest logit")
     check(all(same[r] for r in rows), f"{label}: argmax differs on rows {rows}: {same}")
     return dict(prefill_s=times[-1], rel_err=err / top, flash_launches=n_fa)
@@ -1423,8 +1464,9 @@ def dense_phase(card: str) -> int:
     total = 0
     for i, (arch, fp32_layers) in enumerate(DENSE.items()):
         cfg = get_config(arch)
-        tokens = torch.randint(0, cfg.vocab_size, (2, 32), device="cuda",
-                               generator=torch.Generator("cuda").manual_seed(100 + i))
+        gen = torch.Generator("cuda").manual_seed(100 + i)
+        draws = [torch.randint(0, cfg.vocab_size, (2, 32), device="cuda", generator=gen)
+                 for _ in range(DENSE_DRAWS)]
         for dtype, layers, limit in ((torch.bfloat16, cfg.num_layers, 3e-2),
                                      (torch.float32, fp32_layers, 1e-4)):
             c = dataclasses.replace(cfg, num_layers=layers)
@@ -1437,7 +1479,7 @@ def dense_phase(card: str) -> int:
             n_bytes = sum(t.numel() * t.element_size() for _, t in flatten(params))
             label = f"{arch} {str(dtype)[6:]} at {layers} of {cfg.num_layers} layers"
             print(f"  {label}: {n_bytes / 1e9:.3f} GB of weights drawn on the card in {init_s:.3f} s")
-            row = _dense_prefill(c, params, tokens, label, limit, card)
+            row = _dense_prefill(c, params, draws, label, limit, card)
             total += row["flash_launches"]
             del params
             torch.cuda.synchronize()

@@ -43,7 +43,6 @@ def live_tenant(
     manager: CheckpointManager,
     hbm_gb: float,
     device,
-    release: Callable = lambda eng: eng.release(),
 ) -> Tenant:
     """A tenant that brings ``cfg`` up from ``manager``'s checkpoint onto
     ``device`` and answers a request (``None``: a fresh random prompt of 16
@@ -60,7 +59,7 @@ def live_tenant(
             cfg, manager, max_len=32, warmup_batch=prompt(), device=device
         ),
         infer=lambda eng, x: eng.generate(x if x is not None else prompt(), n_new=4),
-        release=release,
+        release=lambda eng: eng.release(),
         hbm_gb=hbm_gb,
         config_mw=90_000.0, infer_mw=200_000.0, idle_mw=65_000.0,
     )
