@@ -13,7 +13,10 @@ Phases, in order; any failure exits non-zero:
    (dequant; flash attention: bf16 through the tensor-core (wgmma) kernel
    and fp32 through the CUDA-core kernel, timed at the served prefills of
    qwen3-1.7b, yi-6b, internlm2-20b and qwen3-32b (GQA groups 2, 8, 6, 8),
-   at the reduced qwen3's prefill and at S 2048 beside SDPA);
+   at the reduced qwen3's prefill, at S 2048 beside SDPA, and at the new
+   families' shapes: qwen3-moe's group 16, mixtral's window 4096 at 4608
+   and 8192 tokens (SDPA with an explicit mask), hubert's bidirectional
+   head dim 80, llava's 608 tokens and jamba's attention position);
 4. lstm — the LSTM kernel (one warp a batch row, the weights in registers
    where they fit, no block barrier in the step loop) against its plain
    version (fp32 and bf16, with and without an initial state, H from 1 to
@@ -52,10 +55,10 @@ Phases, in order; any failure exits non-zero:
    output; for bf16 the chunk states and the output on warpgroup MMAs with
    their fp32 operand in bf16 parts) against the plain recurrent version
    at the reference test's shapes (with and without an initial state),
-   across two calls, with many chunks, at the served prefill's shape and
-   with two and four groups, in fp32 and bf16; timed at the served shape
-   and at a 2048-step prefill, with the device time split over the four
-   kernels;
+   across two calls, with many chunks, at the served prefill's shape, at
+   jamba's 256 heads and with two and four groups, in fp32 and bf16; timed
+   at the served shape, at a 2048-step prefill and at jamba's, with the
+   device time split over the four kernels;
 10. mamba2 serving — full-width mamba2-370m through ``build_demo`` under
    On-Off and Idle-Waiting (prompt 200: two chunks, the second ragged);
    the launch counts show 9 dequant launches per bring-up and 48 SSD
@@ -65,9 +68,31 @@ Phases, in order; any failure exits non-zero:
    depth and width in bf16 (random weights drawn on the card): prefill at
    batch 2, prompt 32 (eight token draws) through the kernels against the
    plain path, one flash launch a layer; the bf16 argmax on the rows a
-   float64 forward shows bf16 can decide, at least two; in fp32 at full
+   float64 forward (the decoder's per-position step on each layer's
+   widened weights) shows bf16 can decide, at least two; in fp32 at full
    depth (yi-6b) or half depth;
-12. the phases' seconds, the ``kernels`` JSON line, the card line, and the
+12. moe families — mixtral-8x7b (22 of 32 layers in bf16, 11 in fp32) and
+   qwen3-moe-235b-a22b (12 of 94, 6) at their published widths, held as
+   the dense families are (the float64 forward widens one expert at a
+   time), every routing flip between the two bf16 paths shown to sit on a
+   near-tie; 8 greedy decode steps through ``ServingEngine.generate``; a
+   mixtral request of 4608 tokens, beyond its 4096 window, and 8 decode
+   steps, the ring-aligned cache checked and the logits held against the
+   plain path;
+13. jamba — one period of jamba-1.5-large-398b at its published widths
+   (88.1 GB in bf16, more than the card), streamed: each layer drawn on the
+   card, run through the per-position prefill step (SSD kernel, flash
+   kernel, MoE dispatch) and freed, in fp32 and bf16, held as the dense
+   families are; then the reduced jamba served through the engine;
+14. frontends — hubert-xlarge (48 layers) through ``encode_fn`` on 512
+   frames and llava-next-mistral-7b (32 layers) with 576 patch tokens and
+   32 text tokens, then 8 decode steps, in bf16 and fp32, held as the dense
+   families are;
+15. moe serving — the reduced mixtral under the duty-cycle controller from
+   a ``zstd+int8`` checkpoint whose 4-D expert stacks are the dequant
+   kernel's first 4-D leaves (bit-exact against its plain version), the
+   card's memory checked after the release;
+16. the phases' seconds, the ``kernels`` JSON line, the card line, and the
    last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -109,6 +134,13 @@ CKPT_DIR_YI = ROOT / "build" / "chip_smoke_ckpt_yi6b"
 DENSE = {"yi-6b": 32, "internlm2-20b": 24, "qwen3-32b": 32}   # arch → depth of the fp32 check
 DENSE_DRAWS = 8                             # token draws (B 2, prompt 32) a dense model
 DENSE_DECIDED = 2                           # fewest bf16-decided rows its argmax check may hold
+MOE = {"mixtral-8x7b": (22, 11), "qwen3-moe-235b-a22b": (12, 6)}   # arch → depth in bf16, fp32
+MOE_WINDOW_PROMPT = 4608                    # mixtral's request beyond its 4096 window
+CKPT_DIR_MOE = ROOT / "build" / "chip_smoke_ckpt_mixtral"
+JAMBA = "jamba-1.5-large-398b"
+HUBERT, LLAVA = "hubert-xlarge", "llava-next-mistral-7b"
+HUBERT_FRAMES = 512                         # frames of each of hubert's two inputs
+AFTER_RELEASE_GB = 0.07                     # the card's memory once a model's weights are dropped
 # Experiments 1-3 as the reference quickstart prints them
 EXPERIMENT_LINES = [
     "== Experiment 1: configuration-phase parameter optimization ==",
@@ -313,7 +345,18 @@ def flash_phase(card: str) -> dict:
         (2, 32, 32, 64, 8, 128, True, 0, 0, "qwen3-32b prefill, GQA group 8"),
         (1, 100, 100, 48, 8, 128, True, 0, 0, "GQA group 6, ragged"),
         (1, 2048, 2048, 64, 8, 128, True, 0, 0, "GQA group 8 at S 2048"),
+        # the MoE, hybrid and frontend families' prefills
+        (2, 32, 32, 64, 4, 128, True, 0, 0, "qwen3-moe prefill, GQA group 16"),
+        (1, 100, 100, 64, 4, 128, True, 0, 0, "GQA group 16, ragged"),
+        (2, 32, 32, 32, 8, 128, True, 4096, 0, "mixtral prefill, window 4096"),
+        (1, MOE_WINDOW_PROMPT, MOE_WINDOW_PROMPT, 32, 8, 128, True, 4096, 0,
+         "mixtral prefill beyond its window"),
+        (1, 8192, 8192, 32, 8, 128, True, 4096, 0, "window 4096 at S 8192 prefill"),
+        (2, HUBERT_FRAMES, HUBERT_FRAMES, 16, 16, 80, False, 0, 0, "hubert prefill, D 80 bidirectional"),
+        (2, 608, 608, 32, 8, 128, True, 0, 0, "llava prefill, 576 patches + 32 tokens"),
+        (2, 32, 32, 64, 8, 128, True, 0, 0, "jamba prefill, GQA group 8"),
     ]
+    new_families = {"qwen3-moe", "mixtral", "window", "hubert", "llava", "jamba"}
     entry, timed = None, {}
     for (b, sq, sk, h, kvh, d, causal, window, q_offset, label) in cases:
         for dtype in (torch.float32, torch.bfloat16):
@@ -335,9 +378,17 @@ def flash_phase(card: str) -> dict:
                 k_ms = time_ms(lambda: fa.attention(q, k, v, **kw))
                 p_ms = time_ms(lambda: attention_reference(q, k, v, **kw))
                 qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+                # a window needs an explicit mask, which takes SDPA off its
+                # flash backend (to the memory-efficient or math one)
+                mask = None
+                if window:
+                    qpos = torch.arange(sq, device="cuda")[:, None] + q_offset
+                    kpos = torch.arange(sk, device="cuda")[None, :]
+                    mask = (kpos <= qpos) & (kpos > qpos - window)
 
                 def sdpa():
-                    return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
+                    return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                          is_causal=causal and mask is None, enable_gqa=True)
 
                 l_ms = time_ms(sdpa)
                 pairs = _attention_pairs(sq, sk, causal, window, q_offset)
@@ -372,14 +423,19 @@ def flash_phase(card: str) -> dict:
                             "per": "launch (B=2, S=32, H=16, KVH=8, D=128, causal, bf16)",
                         }
                     else:
-                        timed[label] = {"shape": f"B={b}, S={sq}, H={h}, KVH={kvh}, D={d}, causal, bf16",
+                        mask_name = ("causal" if causal else "bidirectional") + (f", window {window}" if window else "")
+                        timed[label] = {"shape": f"B={b}, S={sq}, H={h}, KVH={kvh}, D={d}, {mask_name}, bf16",
                                         "tflops": n_ops / k_ms / 1e9, **row}
+                        if window:
+                            timed[label]["library"] = "sdpa with an explicit window mask (not its flash backend)"
                 line += f" [{card}]"
             print(line)
     entry["long_prefill"] = timed["long prefill"]
     entry["reduced_prefill"] = timed["reduced qwen3 prefill"]
     entry["dense_prefills"] = {label.split()[0]: row for label, row in timed.items()
                                if label.split()[0] in DENSE}
+    entry["new_family_prefills"] = {label: row for label, row in timed.items()
+                                    if label.split()[0] in new_families}
     return entry
 
 
@@ -1158,6 +1214,9 @@ def ssd_phase(card: str) -> dict:
     _ssd_case("one chunk (1, 128, 4, 64, 1, 128) chunk 128, a = -1", args, init, 128)
     args, init = _ssd_inputs(1, 2048, 32, 64, 1, 128, seed=13, a_minus_one=True)
     _ssd_case("long prefill (1, 2048, 32, 64, 1, 128) chunk 128, a = -1", args, init, 128)
+    # jamba's mixer: 256 heads, its prompt of 32 padded to one chunk
+    args, init = _ssd_inputs(2, 128, 256, 64, 1, 128, seed=14, a_minus_one=True)
+    _ssd_case("jamba prefill (2, 128, 256, 64, 1, 128) chunk 128, a = -1", args, init, 128)
 
     # the state handed across two calls (tests/kernels/test_ssd.py:95)
     args, _ = _ssd_inputs(1, 256, 2, 8, 1, 16, seed=9)
@@ -1174,6 +1233,7 @@ def ssd_phase(card: str) -> dict:
 
     row = _ssd_timed("served prefill", 2, 256, 32, 64, 1, 128, 128, card)
     long = _ssd_timed("long prefill", 1, 2048, 32, 64, 1, 128, 128, card)
+    jamba = _ssd_timed("jamba prefill", 2, 128, 256, 64, 1, 128, 128, card)
     return {
         "name": "ssd_pallas",
         "route": "cuda",
@@ -1190,6 +1250,7 @@ def ssd_phase(card: str) -> dict:
         "fp32_cuda_core_floor_ms": row["fp32_cuda_core_floor_ms"],
         "max_abs_err_state": row["max_abs_err_state"],
         "at_long_prefill": long,
+        "at_jamba_prefill": jamba,
         "per": "launch (prefill: B=2, S=200 padded to 256, H=32, P=64, G=1, N=128, chunk 128, bf16)",
     }
 
@@ -1348,104 +1409,343 @@ def mamba2_serving_phase(card: str) -> tuple[int, int]:
 # ---------------------------------------------------------------------------
 # Phase 11: the dense families at full width and depth
 # ---------------------------------------------------------------------------
-def _float64_prefill(cfg, params, tokens):
-    """Last-position logits of the plain path in float64 on the same
-    weights, each layer widened as it runs (a 64-layer float64 copy would
-    not fit the card); norms, RoPE and the softmax stay in fp32, as the
-    model computes them."""
+@contextlib.contextmanager
+def plain_path():
+    """The model's kernel ops swapped for their plain versions (flash
+    attention and the SSD), inside the ``with`` block only."""
+    from repro_torch.kernels.flash_attention.ref import attention_reference
+    from repro_torch.kernels.ssd.ref import ssd_chunked
+    from repro_torch.models import attention, mamba2
+
+    with mock.patch.object(attention.attn_ops, "attention", attention_reference), \
+            mock.patch.object(mamba2.ssd_ops, "ssd", ssd_chunked):
+        yield
+
+
+class _PerExpert:
+    """An expert stack (E, ·, ·) whose experts are widened to float64 one at
+    a time, as the MoE block reads them (a float64 MoE layer of qwen3-moe
+    would take 19.9 GB)."""
+
+    def __init__(self, stack):
+        self.stack = stack
+
+    def __getitem__(self, e):
+        return self.stack[e].double()
+
+
+def _widen(tree):
+    """One block's parameters in float64; an MoE FFN's experts widened as
+    they are read, its router as the model reads it (routing runs in fp32)."""
+    if not isinstance(tree, dict):
+        return tree.double()
+    if "router" in tree:
+        return {k: v if k == "router" else _PerExpert(v) for k, v in tree.items()}
+    return {k: _widen(v) for k, v in tree.items()}
+
+
+def _step64(bp, x, cfg, pos):
+    """One block of the plain path in float64: the decoder's per-position
+    step on the block's widened weights."""
+    from repro_torch.models import decoder
+
+    with plain_path():
+        return decoder.forward_block(_widen(bp), x, cfg, pos)[0]
+
+
+def _head64(params, cfg, x):
+    """Final norm and head in float64, 16384 vocabulary columns at a time."""
     import torch
 
-    from repro_torch.kernels.flash_attention.ref import attention_reference
-    from repro_torch.models import attention, decoder
+    from repro_torch.models import decoder
     from repro_torch.models.common import rms_norm
 
-    def widen(tree):
-        return {k: widen(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.double()
-
-    x = params["embed"][tokens.long()].double()
-    with torch.inference_mode(), mock.patch.object(attention.attn_ops, "attention", attention_reference):
-        for i in range(cfg.num_layers):
-            lp = widen(decoder._layer(params["periods"], i)["pos0"])
-            mix, _ = attention.prefill_cache(lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps), cfg, 48)
-            x = decoder._mlp_residual(lp, x + mix, cfg)
-            del lp
-        x = rms_norm(x[:, -1], params["final_norm"].double(), cfg.norm_eps)
-        head = decoder._lm_head(params)
-        out = torch.empty((x.shape[0], head.shape[1]), dtype=torch.float64, device=x.device)
-        for c0 in range(0, head.shape[1], 16384):
-            out[:, c0:c0 + 16384] = x @ head[:, c0:c0 + 16384].double()
+    x = rms_norm(x, params["final_norm"].double(), cfg.norm_eps)
+    head = decoder._lm_head(params)
+    out = torch.empty((*x.shape[:-1], head.shape[1]), dtype=torch.float64, device=x.device)
+    for c0 in range(0, head.shape[1], 16384):
+        out[..., c0:c0 + 16384] = x @ head[:, c0:c0 + 16384].double()
     return out
 
 
-def _dense_prefill(cfg, params, draws, label: str, limit: float, card: str) -> dict:
-    """Prefill through the kernels against the plain path (the flash
-    wrapper swapped for its plain version here only) on the same weights,
-    one prefill (B 2, prompt 32) per token draw in ``draws``: within
-    ``limit`` of the largest logit, one flash launch a layer a prefill, and
-    equal argmax.  In bf16 the argmax is held on the rows that bf16 can
-    decide: those whose top two logits in the float64 forward of the same
-    weights lie further apart than twice the larger of the two paths'
-    errors against it on that row (at 48 and 64 layers of random weights a
-    row's top two logits lay 0.06 % and 0.14 % of the largest logit apart,
-    far inside either bf16 path's 2 % drift, and the plain path's argmax
-    itself left the float64 forward's), at least ``DENSE_DECIDED`` of them;
-    and the kernel path must lie no further from the float64 forward than
-    1.5 times the plain path does."""
+def _float64_forward(cfg, params, batch, all_positions=False):
+    """Logits of the plain path in float64 on the same weights, at the last
+    position (or at every position, for the encoder): every block through
+    the decoder's per-position step, its weights widened as it runs (a
+    64-layer float64 copy would not fit the card), an MoE layer's one expert
+    at a time; norms, RoPE, the softmax, the routing, the MoE combine and the
+    SSD's sums stay in fp32, as the model computes them."""
+    import torch
+
+    from repro_torch.models import decoder
+
+    small = {k: params[k] for k in ("embed",) if k in params}
+    if "frontend_proj" in params:
+        small["frontend_proj"] = params["frontend_proj"].double()
+    with torch.inference_mode():
+        x = decoder.embed_inputs(small, batch, cfg).double()
+        for pos, bp in decoder.blocks(params, cfg):
+            x = _step64(bp, x, cfg, pos)
+        return _head64(params, cfg, x if all_positions else x[:, -1])
+
+
+def _cat(batches: list) -> dict:
+    import torch
+
+    return {k: torch.cat([b[k] for b in batches]) for k in batches[0]}
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """Every ``moe.route`` call's fp32 router logits and expert ids, in call
+    order, into the yielded list."""
+    from repro_torch.models import moe
+
+    log, inner = [], moe.route
+
+    def recording(xt, router, k):
+        out = inner(xt, router, k)
+        log.append((xt.float() @ router.float(), out[1]))
+        return out
+
+    with mock.patch.object(moe, "route", recording):
+        yield log
+
+
+@contextlib.contextmanager
+def pinned_routes(ids: list):
+    """``moe.route`` with each call's experts taken, in call order, from
+    ``ids`` (another run's routing); the weights are this run's own
+    probabilities at those experts, renormalized, as ``route`` makes them."""
+    import torch
+
+    from repro_torch.models import moe
+
+    inner, chosen = moe.route, iter(ids)
+
+    def pinned(xt, router, k):
+        _, own, aux = inner(xt, router, k)
+        pick = next(chosen).to(own.device)
+        w = torch.softmax(xt.float() @ router.float(), dim=-1).gather(-1, pick)
+        return w / torch.sum(w, dim=-1, keepdim=True), pick, aux
+
+    with mock.patch.object(moe, "route", pinned):
+        yield
+
+
+def _routing_flips(kernel: list, plain: list, cfg, label: str) -> int:
+    """Tokens whose experts differ between the kernel path's and the plain
+    path's routing, each printed with its MoE layer, call and token, the
+    plain path's top-k margin (k-th minus (k+1)-th router logit) and the
+    spread of the two paths' router-logit difference on that token (largest
+    minus smallest).  A flip moves the gap between a taken and a dropped
+    expert by at least the margin, and no gap moves by more than the spread:
+    a flip whose margin exceeds the spread sat on no near-tie, and fails."""
+    check(len(kernel) == len(plain), f"{label}: {len(kernel)} and {len(plain)} routing calls")
+    k = cfg.experts_per_token
+    per_call = sum(cfg.layer_is_moe(i) for i in range(cfg.num_layers))
+    flips = []
+    for n, ((lk, ik), (lp, ip)) in enumerate(zip(kernel, plain)):
+        differ = (ik.sort(-1).values != ip.sort(-1).values).any(-1)
+        for t in differ.nonzero()[:, 0].tolist():
+            top = lp[t].topk(k + 1).values
+            delta = lk[t] - lp[t]
+            flips.append((n % per_call, n // per_call, t, float(top[k - 1] - top[k]),
+                          float(delta.max() - delta.min())))
+    routed = sum(int(ik.shape[0]) for _, ik in kernel)
+    print(f"  {label}: routing flips between the kernel and plain paths: {len(flips)} of {routed} "
+          f"token routings" + "".join(
+              f"\n    MoE layer {layer}, call {c}, token {t}: top-{k} margin {m:.4g}, router-logit "
+              f"difference spread {s:.4g}" for layer, c, t, m, s in flips))
+    bad = [f for f in flips if f[3] > f[4]]
+    check(not bad, f"{label}: {len(bad)} routing flips off a near-tie: {bad[:4]}")
+    return len(flips)
+
+
+def _float64_rule(a, b, ref) -> tuple[list, str, list]:
+    """The bf16 rule against the float64 forward's logits ``ref``: the rows
+    bf16 can decide (top-two margin in ``ref`` above twice the larger of the
+    two paths' errors on that row), the printed summary, and the gates: the
+    kernel path ``a`` no further from ``ref`` than 1.5 times the plain path
+    ``b``, at least ``DENSE_DECIDED`` decided rows, and both paths' argmax
+    equal to ``ref``'s on them → (decided rows, summary, gates)."""
+    n_rows, many = a.shape[0], a.shape[0] > 32
+    e_kernel, e_plain = ((x.double() - ref).abs().amax(-1) for x in (a, b))
+    top2 = ref.topk(2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]).tolist()
+    rows = [r for r in range(n_rows) if margin[r] > 2 * max(float(e_kernel[r]), float(e_plain[r]))]
+    same_ref = [int(x.argmax(-1)[r] == ref.argmax(-1)[r]) for x in (a, b) for r in rows]
+    by_row = "" if many else (f" (by row: kernel {[round(float(v), 4) for v in e_kernel]}, "
+                              f"plain {[round(float(v), 4) for v in e_plain]})")
+    e_kernel, e_plain = float(e_kernel.max()), float(e_plain.max())
+    line = (f"; against the float64 forward: kernel {e_kernel:.4g}, plain {e_plain:.4g} "
+            f"({e_kernel / e_plain:.3f}x){by_row}, top-2 margins "
+            f"{f'smallest {min(margin):.4g}' if many else [round(m, 5) for m in margin]}, "
+            f"rows bf16 can decide {f'{len(rows)} of {n_rows}' if many else rows}")
+    gates = [(e_kernel <= 1.5 * e_plain, f"kernel {e_kernel:.3g} from the float64 forward, plain {e_plain:.3g}"),
+             (len(rows) >= DENSE_DECIDED, f"bf16 decides {len(rows)} of {n_rows} rows, fewer than {DENSE_DECIDED}"),
+             (all(same_ref), "argmax differs from the float64 forward's on a row bf16 decides")]
+    return rows, line, gates
+
+
+def _prefill_check(cfg, params, batches, label: str, limit: float, card: str,
+                   encode: bool = False) -> dict:
+    """Prefill (for the encoder, ``encode_fn``) through the kernels against
+    the plain path (the kernel ops swapped for their plain versions here
+    only) on the same weights, one call per input batch: within ``limit`` of
+    the largest logit, one flash launch per attention layer and one SSD
+    launch per Mamba-2 layer a call, and equal argmax.  In bf16 the argmax
+    is held on the rows that bf16 can decide: those whose top two logits in
+    the float64 forward of the same weights lie further apart than twice the
+    larger of the two paths' errors against it on that row (at 48 and 64
+    layers of random weights a row's top two logits lay 0.06 % and 0.14 % of
+    the largest logit apart, far inside either bf16 path's 2 % drift, and the
+    plain path's argmax itself left the float64 forward's), at least
+    ``DENSE_DECIDED`` of them; and the kernel path must lie no further from
+    the float64 forward than 1.5 times the plain path does.
+
+    Where the model routes tokens (MoE), a routing flip moves a token's FFN
+    output by a share of its size, and the flips of one layer change the
+    next layer's routing: two bf16 runs of 22 layers of random weights
+    routed 663 of 11264 token slots apart, and their logits 19 % of the
+    largest apart.  So every flip between the two paths' own runs is
+    printed and must sit on a near-tie, and the gated comparisons above run
+    with the routing pinned: each MoE layer of both paths takes the experts
+    the float64 forward chose (fp32: that the kernel path chose), with its
+    own weights at them."""
     import torch
 
     from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.kernels.flash_attention.ref import attention_reference
-    from repro_torch.models import attention
+    from repro_torch.kernels.ssd import ops as so
     from repro_torch.models import model_zoo as zoo
 
-    def prefill(tokens):
-        return zoo.prefill_fn(params, {"tokens": tokens}, cfg, 48)[0]
+    def run(batch):
+        if encode:
+            return zoo.encode_fn(params, batch, cfg).flatten(0, 1)
+        seq = sum(batch[k].shape[1] for k in ("tokens", "patch_embeds") if k in batch)
+        return zoo.prefill_fn(params, batch, cfg, max(48, seq))[0]
 
-    fa.launches = 0
+    def sweep():
+        return torch.cat([run(b) for b in batches])
+
+    bf16, moe = params["final_norm"].dtype == torch.bfloat16, bool(cfg.num_experts)
     with torch.inference_mode():
         times = []
         for _ in range(2):                      # the first call warms up cuBLAS
             t0 = time.perf_counter()
-            prefill(draws[0])
+            run(batches[0])
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-        a = torch.cat([prefill(t) for t in draws])
-        n_fa = fa.launches
-        with mock.patch.object(attention.attn_ops, "attention", attention_reference):
-            b = torch.cat([prefill(t) for t in draws])
-    n_rows = 2 * len(draws)
-    check(a.shape == (n_rows, cfg.vocab_size) and bool(torch.isfinite(a).all()),
-          f"{label}: logits of shape {tuple(a.shape)} or non-finite")
+        fa.launches = so.launches = 0
+        with recorded_routes() as routes:
+            a = sweep()
+            n_fa, n_ssd = fa.launches, so.launches
+            kernel_routes = routes[:]
+            routes.clear()
+            with plain_path():
+                b = sweep()
+            plain_routes = routes[:]
+            routes.clear()
+            if bf16 and moe:                    # a call per batch, as the paths' calls
+                ref = torch.cat([_float64_forward(cfg, params, x) for x in batches])
+            elif bf16:
+                ref = _float64_forward(cfg, params, _cat(batches), all_positions=encode)
+                ref = ref.flatten(0, 1) if encode else ref
+            ref_routes = routes[:]
+        if moe:
+            pin = [ids for _, ids in (ref_routes if bf16 else kernel_routes)]
+            with pinned_routes(pin):
+                a_free, a = a, sweep()
+            with pinned_routes(pin), plain_path():
+                b_free, b = b, sweep()
+    n_rows = a.shape[0]
+    finite = a.shape == (n_rows, cfg.vocab_size) and bool(torch.isfinite(a).all())
     err, top = float((a - b).abs().max()), float(b.abs().max())
     same = (a.argmax(-1) == b.argmax(-1)).int().tolist()
     rows = list(range(n_rows))
-    line = ""
-    if params["embed"].dtype == torch.bfloat16:
-        ref = _float64_prefill(cfg, params, torch.cat(draws))
-        e_kernel, e_plain = ((x.double() - ref).abs().amax(-1) for x in (a, b))
-        top2 = ref.topk(2, dim=-1).values
-        margin = (top2[:, 0] - top2[:, 1]).tolist()
-        rows = [r for r in rows if margin[r] > 2 * max(float(e_kernel[r]), float(e_plain[r]))]
-        same_ref = [int(x.argmax(-1)[r] == ref.argmax(-1)[r]) for x in (a, b) for r in rows]
-        e_kernel, e_plain = float(e_kernel.max()), float(e_plain.max())
-        line = (f"; against the float64 forward: kernel {e_kernel:.4g}, plain {e_plain:.4g} "
-                f"({e_kernel / e_plain:.3f}x), top-2 margins {[round(m, 5) for m in margin]}, "
-                f"rows bf16 can decide {rows}")
-        check(e_kernel <= 1.5 * e_plain, f"{label}: kernel {e_kernel:.3g} from the float64 forward, "
-                                         f"plain {e_plain:.3g}")
-        check(len(rows) >= DENSE_DECIDED, f"{label}: bf16 decides {len(rows)} of {n_rows} rows, "
-                                          f"fewer than {DENSE_DECIDED}")
-        check(all(same_ref), f"{label}: argmax differs from the float64 forward's on a row bf16 decides")
-    spread = [round(float(v), 4) for v in a.std(-1)]
-    print(f"  {label}: two prefills (B 2, prompt 32) {[round(t, 4) for t in times]} s, then one for each "
-          f"of {len(draws)} token draws; flash launches {n_fa}; logits, kernel vs plain path: max_abs_err "
-          f"{err:.3g}, relative error {err / top:.3g} (max |logit| {top:.4g}, limit {limit}), argmax "
-          f"equal by row {same}, logit std {spread}{line} [{card}]")
-    check(n_fa == (2 + len(draws)) * cfg.num_layers,
-          f"{label}: {n_fa} flash launches for {2 + len(draws)} prefills of {cfg.num_layers} layers")
+    many = n_rows > 32
+    line, gates = "", []
+    if bf16:
+        rows, line, gates = _float64_rule(a, b, ref)
+    if moe:
+        free = float((a_free - b_free).abs().max())
+        line = (f"; routing pinned to the {'float64 forward' if bf16 else 'kernel path'}'s choices{line}; "
+                f"unpinned, each path routing for itself: max_abs_err {free:.3g}, relative error "
+                f"{free / top:.3g}, argmax equal in {int((a_free.argmax(-1) == b_free.argmax(-1)).sum())} "
+                f"of {n_rows} rows")
+        if bf16:
+            line += (f", token routings that differ from the float64 forward's: kernel "
+                     f"{_route_differences(kernel_routes, ref_routes)}, plain "
+                     f"{_route_differences(plain_routes, ref_routes)}")
+    std = a.std(-1)
+    spread = (f"{float(std.min()):.4f}–{float(std.max()):.4f} over {n_rows} rows" if many
+              else [round(float(v), 4) for v in std])
+    attn_layers = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.num_layers))
+    ssm_layers = cfg.num_layers - attn_layers
+    by_row = "" if many else f" (by row {[round(float(v) / top, 4) for v in (a - b).abs().amax(-1)]})"
+    print(f"  {label}: two calls {[round(t, 4) for t in times]} s, then one for each of {len(batches)} "
+          f"input draws; flash launches {n_fa}, ssd launches {n_ssd}; logits, kernel vs plain path: "
+          f"max_abs_err {err:.3g}, relative error {err / top:.3g}{by_row} (max |logit| {top:.4g}, limit "
+          f"{limit}), argmax equal in {sum(same)} of {n_rows} rows, logit std {spread}{line} [{card}]")
+    flips = _routing_flips(kernel_routes, plain_routes, cfg, label) if moe else 0
+    check(finite, f"{label}: logits of shape {tuple(a.shape)} or non-finite")
+    for ok, msg in gates:
+        check(ok, f"{label}: {msg}")
+    check(n_fa == len(batches) * attn_layers and n_ssd == len(batches) * ssm_layers,
+          f"{label}: {n_fa} flash and {n_ssd} ssd launches for {len(batches)} calls of {cfg.num_layers} layers")
     check(err / top <= limit, f"{label}: kernel vs plain differ by {err / top:.3g} of the largest logit")
-    check(all(same[r] for r in rows), f"{label}: argmax differs on rows {rows}: {same}")
-    return dict(prefill_s=times[-1], rel_err=err / top, flash_launches=n_fa)
+    check(all(same[r] for r in rows), f"{label}: argmax differs between the paths on a row bf16 decides")
+    return dict(prefill_s=times[-1], rel_err=err / top, flips=flips,
+                flash_launches=n_fa + 2 * attn_layers, ssd_launches=n_ssd + 2 * ssm_layers)
+
+
+def _route_differences(one: list, other: list) -> int:
+    """Token routings (over every call of every MoE layer) whose experts
+    differ between two runs of the same calls."""
+    return sum(int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
+               for (_, x), (_, y) in zip(one, other))
+
+
+def _draw_on_card(cfg, seed: int, dtype):
+    """Random weights of ``cfg`` drawn on the card, a matrix at a time → (params, s)."""
+    import torch
+
+    from repro_torch.models import model_zoo as zoo
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = zoo.init_params(cfg, torch.Generator("cuda").manual_seed(seed), dtype)
+    torch.cuda.synchronize()
+    return params, time.perf_counter() - t0
+
+
+def _weight_gb(params) -> float:
+    from repro_torch.checkpoint.serializer import flatten
+
+    return sum(t.numel() * t.element_size() for _, t in flatten(params)) / 1e9
+
+
+def _released(label: str, card: str) -> None:
+    """The card's peak since the weights were drawn, and its memory once
+    they are dropped: at most ``AFTER_RELEASE_GB``."""
+    import torch
+
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated()
+    print(f"  {label}: max_memory_allocated {peak / 1e9:.3f} GB, memory_allocated after "
+          f"release {after / 1e9:.6f} GB [{card}]")
+    check(after <= AFTER_RELEASE_GB * 1e9, f"{label}: {after} bytes still allocated after release")
+
+
+def _token_draws(cfg, seed: int, n: int = DENSE_DRAWS, batch: int = 2, prompt: int = 32) -> list:
+    import torch
+
+    gen = torch.Generator("cuda").manual_seed(seed)
+    return [{"tokens": torch.randint(0, cfg.vocab_size, (batch, prompt), device="cuda", generator=gen)}
+            for _ in range(n)]
 
 
 def dense_phase(card: str) -> int:
@@ -1457,39 +1757,441 @@ def dense_phase(card: str) -> int:
 
     import torch
 
-    from repro_torch.checkpoint.serializer import flatten
     from repro_torch.configs import get_config
-    from repro_torch.models import model_zoo as zoo
 
     total = 0
     for i, (arch, fp32_layers) in enumerate(DENSE.items()):
         cfg = get_config(arch)
-        gen = torch.Generator("cuda").manual_seed(100 + i)
-        draws = [torch.randint(0, cfg.vocab_size, (2, 32), device="cuda", generator=gen)
-                 for _ in range(DENSE_DRAWS)]
+        draws = _token_draws(cfg, 100 + i)
         for dtype, layers, limit in ((torch.bfloat16, cfg.num_layers, 3e-2),
                                      (torch.float32, fp32_layers, 1e-4)):
             c = dataclasses.replace(cfg, num_layers=layers)
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            params = zoo.init_params(c, torch.Generator("cuda").manual_seed(i), dtype)
-            torch.cuda.synchronize()
-            init_s = time.perf_counter() - t0
-            n_bytes = sum(t.numel() * t.element_size() for _, t in flatten(params))
+            params, init_s = _draw_on_card(c, i, dtype)
             label = f"{arch} {str(dtype)[6:]} at {layers} of {cfg.num_layers} layers"
-            print(f"  {label}: {n_bytes / 1e9:.3f} GB of weights drawn on the card in {init_s:.3f} s")
-            row = _dense_prefill(c, params, draws, label, limit, card)
-            total += row["flash_launches"]
+            print(f"  {label}: {_weight_gb(params):.3f} GB of weights drawn on the card in {init_s:.3f} s")
+            total += _prefill_check(c, params, draws, label, limit, card)["flash_launches"]
             del params
-            torch.cuda.synchronize()
-            peak = torch.cuda.max_memory_allocated()
-            torch.cuda.empty_cache()
-            after = torch.cuda.memory_allocated()
-            print(f"  {label}: max_memory_allocated {peak / 1e9:.3f} GB, memory_allocated after "
-                  f"release {after / 1e9:.6f} GB [{card}]")
-            check(after < 1e8, f"{label}: {after} bytes still allocated after release")
+            _released(label, card)
     return total
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the MoE families at full width
+# ---------------------------------------------------------------------------
+def _generate(cfg, params, batch, max_len, label, card, n_new=8) -> tuple:
+    """``ServingEngine.generate`` (prefill, then ``n_new`` greedy decode
+    steps) → (result, flash launches, ssd launches)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd import ops as so
+    from repro_torch.serving.engine import ServingEngine
+
+    engine = ServingEngine(cfg, params, max_len)
+    fa.launches = so.launches = 0
+    out = engine.generate(batch, n_new=n_new)
+    n_fa, n_ssd = fa.launches, so.launches
+    check(out.tokens.shape == (batch["tokens"].shape[0], n_new) and out.tokens.dtype == torch.int32,
+          f"{label}: generated tokens of shape {tuple(out.tokens.shape)}")
+    print(f"  {label}: generate, prefill {out.prefill_s:.4f} s, {n_new} decode steps {out.decode_s:.4f} s "
+          f"({out.decode_s / n_new * 1e3:.2f} ms a step), flash launches {n_fa}, ssd launches {n_ssd}, "
+          f"tokens {out.tokens.tolist()} [{card}]")
+    return out, n_fa, n_ssd
+
+
+def _window_request(cfg, params, label, card) -> int:
+    """One mixtral request whose prompt (``MOE_WINDOW_PROMPT`` tokens) is
+    longer than the 4096 window, then 8 decode steps: the prefill keeps the
+    last 4096 keys ring-aligned (slot = position mod 4096), and decode wraps
+    around the ring.  The logits of the prefill and of the decode steps
+    (each path fed the kernel path's tokens) are held against the plain
+    path's, its routing pinned to the kernel path's (``_prefill_check``
+    says why); the flips of its own routing are shown on near-ties → flash
+    launches (the generated request's and the kernel path's prefill)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import model_zoo as zoo
+
+    gen = torch.Generator("cuda").manual_seed(7)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, MOE_WINDOW_PROMPT), device="cuda", generator=gen)}
+    max_len = MOE_WINDOW_PROMPT + 8
+    out, n_fa, _ = _generate(cfg, params, batch, max_len, f"{label}, prompt {MOE_WINDOW_PROMPT}", card)
+    check(n_fa == cfg.num_layers, f"{label}: {n_fa} flash launches for a prefill of {cfg.num_layers} layers")
+    def run():
+        first, state = zoo.prefill_fn(params, batch, cfg, max_len)
+        steps = [first]
+        for i in range(8):
+            step, state = zoo.decode_fn(params, state, out.tokens[:, i], cfg)
+            steps.append(step)
+        return torch.cat(steps), state.caches[0]["pos0"]
+
+    with torch.inference_mode(), recorded_routes() as routes:
+        a, cache = run()
+        kernel_routes = routes[:]
+        routes.clear()
+        with plain_path():
+            b_free, _ = run()
+        plain_routes = routes[:]
+        with pinned_routes([ids for _, ids in kernel_routes]), plain_path():
+            b, _ = run()
+    n_fa = fa.launches
+    window = cfg.sliding_window
+    slots = cache.positions.long()
+    check(cache.k.shape[1] == window and cache.index == max_len, f"{label}: cache {tuple(cache.k.shape)}")
+    check(bool((slots % window == torch.arange(window, device=slots.device)).all())
+          and int(slots.max()) == max_len - 1 and int(slots.min()) == max_len - window,
+          f"{label}: the ring cache is not aligned to slot = position mod {window}")
+    err, top = float((a - b).abs().max()), float(b.abs().max())
+    free = float((a - b_free).abs().max())
+    same = (a.argmax(-1) == b.argmax(-1)).int().tolist()
+    print(f"  {label}, prompt {MOE_WINDOW_PROMPT} > window {window}: ring cache aligned (positions "
+          f"{max_len - window}..{max_len - 1}); prefill and 8 decode steps, kernel vs plain path with its "
+          f"routing pinned to the kernel path's: max_abs_err {err:.3g}, relative error {err / top:.3g} "
+          f"(max |logit| {top:.4g}, limit 3e-2), argmax equal {same}; unpinned: max_abs_err {free:.3g}, "
+          f"relative error {free / top:.3g} [{card}]")
+    _routing_flips(kernel_routes, plain_routes, cfg, f"{label}, prompt {MOE_WINDOW_PROMPT}")
+    check(bool(torch.isfinite(a).all()) and err / top <= 3e-2,
+          f"{label}: window request, kernel vs plain differ by {err / top:.3g} of the largest logit")
+    return n_fa
+
+
+def _moe_times(cfg, params, label, card) -> dict:
+    """One MoE layer's FFN on a normal input at the prefill's 64 tokens and a
+    decode step's 2: the grouped dispatch (the model's path; it reads the
+    per-expert counts on the host) against the dense oracle, beside the
+    bound of reading the weights of the experts the tokens touch."""
+    import torch
+
+    from repro_torch.models import decoder, moe
+
+    bp = decoder._layer(params["periods"], 0)["pos0"]["moe"]
+    gen = torch.Generator("cuda").manual_seed(9)
+    out = {}
+    for name, tokens in (("prefill", 32), ("decode", 1)):
+        h = torch.randn((2, tokens, cfg.d_model), generator=gen, device="cuda").to(params["final_norm"].dtype)
+        with torch.inference_mode():
+            _, ids, _ = moe.route(h.reshape(-1, cfg.d_model), bp["router"], cfg.experts_per_token)
+            touched = len(set(ids.flatten().tolist()))
+            k_ms = time_ms(lambda: moe.moe_block(bp, h, cfg))
+            d_ms = time_ms(lambda: moe.moe_reference(bp, h, cfg))
+        expert_bytes = 3 * cfg.d_model * cfg.d_ff * h.element_size()
+        b_ms, b_by = bound_ms(touched * expert_bytes, 6.0 * 2 * tokens * cfg.experts_per_token * cfg.d_model
+                              * cfg.d_ff, "bfloat16")
+        print(f"  {label}: one MoE layer at {2 * tokens} tokens ({touched} of {cfg.num_experts} experts "
+              f"touched): grouped dispatch {k_ms:.4f} ms a call, dense oracle {d_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms by {b_by} (the touched experts' weights, {touched * expert_bytes / 1e9:.3f} GB) "
+              f"[{card}]")
+        out[f"moe_{name}_ms"], out[f"moe_{name}_dense_ms"], out[f"moe_{name}_bound_ms"] = k_ms, d_ms, b_ms
+    return out
+
+
+def moe_phase(card: str) -> tuple[int, dict]:
+    """mixtral-8x7b and qwen3-moe-235b-a22b at their published widths, cut to
+    the depths ``MOE`` gives (the bf16 and fp32 depths that fit the card),
+    random weights drawn on the card: the prefill check of the dense
+    families with every routing flip shown on a near-tie; 8 greedy decode
+    steps through ``ServingEngine.generate`` in bf16; and mixtral's request
+    beyond its window → (flash launches, prefill seconds by label)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+
+    total, rows = 0, {}
+    for i, (arch, depths) in enumerate(MOE.items()):
+        cfg = get_config(arch)
+        draws = _token_draws(cfg, 200 + i)
+        for dtype, layers, limit in zip((torch.bfloat16, torch.float32), depths, (3e-2, 1e-4)):
+            c = dataclasses.replace(cfg, num_layers=layers)
+            params, init_s = _draw_on_card(c, 20 + i, dtype)
+            label = f"{arch} {str(dtype)[6:]} at {layers} of {cfg.num_layers} layers"
+            print(f"  {label}: {_weight_gb(params):.3f} GB of weights drawn on the card in {init_s:.3f} s")
+            row = _prefill_check(c, params, draws, label, limit, card)
+            total += row["flash_launches"]
+            if dtype == torch.bfloat16:
+                out, n_fa, _ = _generate(c, params, draws[0], 48, label, card)
+                check(n_fa == layers, f"{label}: {n_fa} flash launches for a prefill")
+                row["decode_step_s"] = out.decode_s / 8
+                row.update(_moe_times(c, params, label, card))
+                total += n_fa
+                if c.sliding_window:
+                    total += _window_request(c, params, label, card)
+            rows[label] = row
+            del params
+            _released(label, card)
+    return total, rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: jamba, streamed a layer at a time
+# ---------------------------------------------------------------------------
+def jamba_phase(card: str) -> tuple[int, int]:
+    """One period of jamba-1.5-large-398b at its published widths, which no
+    card holds whole (88.1 GB in bf16): each of its eight layers is drawn on
+    the card in turn, run through the decoder's per-position prefill step
+    (the SSD kernel at positions 0-3 and 5-7 with 256 heads, flash at 4, the
+    MoE dispatch at the odd positions) on every token draw (B 2, prompt 32
+    padded to one chunk of 128), on the plain path and, in bf16, on the
+    float64 forward (an expert at a time), then freed; in fp32 (a 40.3 GB
+    MoE layer) and bf16 (20.2 GB).  The logits after the period are held as
+    ``_prefill_check`` holds a model's (the routing flips of the paths' own
+    runs on near-ties, the gated comparisons with the routing pinned); in
+    bf16 each layer is also held alone, on the plain path's input, at the
+    same limits and against the float64 forward, and the 3e-2 limit holds
+    the layers (the plain path's own bf16 error after the period is larger
+    than it: PERF.md).  Then
+    the reduced jamba through ``ServingEngine.generate``: prefill and 8
+    decode steps, kernel against plain path → (flash, ssd launches)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd import ops as so
+    from repro_torch.models import decoder
+    from repro_torch.models.common import init_from_specs, rms_norm, stack_specs
+
+    cfg = dataclasses.replace(get_config(JAMBA), num_layers=8)
+    draws = _token_draws(cfg, 300)
+
+    def stream(dtype, limit) -> tuple[int, int]:
+        """The period in ``dtype``, held as above → (flash, ssd launches);
+        its tensors go when it returns."""
+        n_fa = n_ssd = 0
+        label = f"{JAMBA} {str(dtype)[6:]}, one period streamed"
+        gen = torch.Generator("cuda").manual_seed(30)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        specs = decoder.decoder_specs(cfg)
+        outer = init_from_specs({k: v for k, v in specs.items() if k != "periods"}, gen, dtype)
+        bf16 = dtype == torch.bfloat16
+        first = [outer["embed"][d["tokens"].long()] for d in draws]
+        xs = {k: list(first) for k in ("kernel", "plain", "kernel_free", "plain_free")}
+        if bf16:
+            xs["float64"] = [x.double() for x in first]
+        kernel_routes, plain_routes = [], []
+
+        def step(name, bp, pos, inputs=None):
+            xs[name] = [decoder.prefill_block(bp, x, cfg, pos, 48)[0] for x in (inputs or xs[name])]
+
+        layer_rows = []
+
+        for pos in range(8):
+            t0 = time.perf_counter()
+            bp = decoder._layer(init_from_specs(
+                stack_specs({"b": decoder._block_specs(cfg, pos)}, 1), gen, dtype), 0)["b"]
+            torch.cuda.synchronize()
+            drawn = time.perf_counter() - t0
+            with torch.inference_mode():
+                with recorded_routes() as routes:
+                    fa0, ssd0, t0 = fa.launches, so.launches, time.perf_counter()
+                    step("kernel_free", bp, pos)
+                    torch.cuda.synchronize()
+                    run_s = time.perf_counter() - t0
+                    got = (fa.launches - fa0, so.launches - ssd0)
+                    kernel_routes += routes[:]
+                    pin = [ids for _, ids in routes]
+                    routes.clear()
+                    with plain_path():
+                        step("plain_free", bp, pos)
+                    plain_routes += routes[:]
+                    routes.clear()
+                    if bf16:
+                        xs["float64"] = [_step64(bp, x, cfg, pos) for x in xs["float64"]]
+                        pin = [ids for _, ids in routes]
+                    routes.clear()
+                    if bf16:                    # this layer alone, on the plain path's input
+                        inputs = xs["plain"]
+                        ref = [_step64(bp, x.double(), cfg, pos) for x in inputs]
+                        layer_pin = [ids for _, ids in routes]
+                with pinned_routes(pin):
+                    step("kernel", bp, pos)
+                with pinned_routes(pin), plain_path():
+                    step("plain", bp, pos)
+                if bf16:
+                    with pinned_routes(layer_pin):
+                        k1 = [decoder.prefill_block(bp, x, cfg, pos, 48)[0] for x in inputs]
+                    with pinned_routes(layer_pin), plain_path():
+                        p1 = [decoder.prefill_block(bp, x, cfg, pos, 48)[0] for x in inputs]
+                    c_k, c_p, c_r = (torch.cat([(y.double() - x.double()) for y, x in zip(ys, inputs)])
+                                     for ys in (k1, p1, ref))
+                    e_kp = float((c_k - c_p).abs().max()) / float(c_p.abs().max())
+                    e_k, e_p = float((c_k - c_r).abs().max()), float((c_p - c_r).abs().max())
+                    layer_rows.append((pos, e_kp, e_k, e_p))
+                    del k1, p1, ref, c_k, c_p, c_r
+            layer_gb = _weight_gb(bp)
+            del bp
+            kind = ("attention" if cfg.layer_kind(pos) == "attn" else "mamba-2") + (
+                " + MoE" if cfg.layer_is_moe(pos) else " + dense FFN")
+            want = (len(draws), 0) if cfg.layer_kind(pos) == "attn" else (0, len(draws))
+            print(f"  {label}: position {pos} ({kind}, {layer_gb:.3f} GB) drawn in {drawn:.3f} s, "
+                  f"{len(draws)} prefill steps {run_s:.4f} s, flash / ssd launches {got}")
+            check(got == want, f"{label}: position {pos}: flash / ssd launches {got}, not {want}")
+            n_fa, n_ssd = n_fa + got[0], n_ssd + got[1]
+        with torch.inference_mode():
+            a, b, a_free, b_free = (
+                torch.cat([decoder.logits_at(outer, rms_norm(x[:, -1:], outer["final_norm"], cfg.norm_eps),
+                                             cfg)[:, 0] for x in xs[k]])
+                for k in ("kernel", "plain", "kernel_free", "plain_free"))
+        err, top = float((a - b).abs().max()), float(b.abs().max())
+        free = float((a_free - b_free).abs().max())
+        same = (a.argmax(-1) == b.argmax(-1)).int().tolist()
+        rows, line, gates = list(range(a.shape[0])), "", []
+        if bf16:
+            ref = torch.cat([_head64(outer, cfg, x[:, -1]) for x in xs["float64"]])
+            rows, line, gates = _float64_rule(a, b, ref)
+        print(f"  {label}: logits after the period, routing pinned to the "
+              f"{'float64 forward' if bf16 else 'kernel path'}'s choices, kernel vs plain path: "
+              f"max_abs_err {err:.3g}, relative error {err / top:.3g} (max |logit| {top:.4g}"
+              f"{', limit ' + str(limit) if not bf16 else ''}), argmax equal {same}{line}; unpinned: "
+              f"max_abs_err {free:.3g}, relative error {free / top:.3g} [{card}]")
+        for pos, e_kp, e_k, e_p in layer_rows:
+            print(f"  {label}: position {pos} alone on the plain path's input, routing pinned to the float64 "
+                  f"forward's: its contribution (output − input), kernel vs plain path, relative error "
+                  f"{e_kp:.3g} (limit {limit}); against the float64 forward: kernel {e_k:.4g}, plain {e_p:.4g} "
+                  f"({e_k / e_p:.3f}x)")
+            gates += [(e_kp <= limit, f"position {pos}: kernel vs plain differ by {e_kp:.3g}"),
+                      (e_k <= 1.5 * e_p, f"position {pos}: kernel {e_k:.3g} from the float64 forward, plain {e_p:.3g}")]
+        check(bool(torch.isfinite(a).all()), f"{label}: non-finite logits")
+        for ok, msg in gates:
+            check(ok, f"{label}: {msg}")
+        # in bf16 the limit holds each layer (above): after eight bf16 layers of
+        # these widths the plain path itself lies 6.7 % of the largest logit
+        # from the float64 forward, so two bf16 paths can differ by 3 % there
+        check(bf16 or err / top <= limit, f"{label}: kernel vs plain differ by {err / top:.3g} of the largest logit")
+        check(all(same[r] for r in rows), f"{label}: argmax differs between the paths on a decided row")
+        # the routes came position by position; _routing_flips reads them call by call
+        by_call = [m * len(draws) + d for d in range(len(draws)) for m in range(len(kernel_routes) // len(draws))]
+        _routing_flips([kernel_routes[i] for i in by_call], [plain_routes[i] for i in by_call], cfg, label)
+        return n_fa, n_ssd
+
+    n_fa = n_ssd = 0
+    for dtype, limit in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
+        got = stream(dtype, limit)
+        n_fa, n_ssd = n_fa + got[0], n_ssd + got[1]
+        _released(f"{JAMBA} {str(dtype)[6:]}, one period streamed", card)
+
+    small = get_config(JAMBA, reduced=True)
+    params, _ = _draw_on_card(small, 31, torch.float32)
+    batch = _token_draws(small, 301, n=1)[0]
+    label = f"{small.name} fp32"
+    out, fa1, ssd1 = _generate(small, params, batch, 48, label, card)
+    with plain_path():
+        plain, _, _ = _generate(small, params, batch, 48, f"{label}, plain path", card)
+    check((fa1, ssd1) == (1, 7), f"{label}: flash / ssd launches {(fa1, ssd1)} for a prefill, not (1, 7)")
+    check(torch.equal(out.tokens, plain.tokens), f"{label}: kernel and plain paths generate different tokens")
+    del params
+    _released(label, card)
+    return n_fa + fa1, n_ssd + ssd1
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the frontends: hubert (encoder) and llava (vision)
+# ---------------------------------------------------------------------------
+def frontends_phase(card: str) -> int:
+    """hubert-xlarge at full depth (48 layers) through ``encode_fn``, B 2 ×
+    ``HUBERT_FRAMES`` frames (flash at head dim 80 without a causal mask),
+    and llava-next-mistral-7b at full depth (32 layers) with 576 patch
+    tokens and 32 text tokens, prefill held to the plain path and then
+    through ``ServingEngine.generate`` (8 decode steps): in bf16 by the dense
+    families' rule, in fp32 within 1e-4 → flash launches."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_zoo as zoo
+
+    total = 0
+    for i, arch in enumerate((HUBERT, LLAVA)):
+        cfg = get_config(arch)
+        for dtype, limit in ((torch.bfloat16, 3e-2), (torch.float32, 1e-4)):
+            gen = torch.Generator("cuda").manual_seed(400 + i)    # the same inputs in both dtypes
+            if arch == HUBERT:
+                batches = [zoo.make_batch(cfg, 2, HUBERT_FRAMES, gen)]
+            else:
+                batches = [zoo.make_batch(cfg, 2, cfg.frontend_tokens + 32, gen) for _ in range(DENSE_DRAWS)]
+            params, init_s = _draw_on_card(cfg, 40 + i, dtype)
+            label = f"{arch} {str(dtype)[6:]} at {cfg.num_layers} layers"
+            print(f"  {label}: {_weight_gb(params):.3f} GB of weights drawn on the card in {init_s:.3f} s")
+            total += _prefill_check(cfg, params, batches, label, limit, card,
+                                    encode=not cfg.decode_supported)["flash_launches"]
+            if cfg.decode_supported and dtype == torch.bfloat16:
+                _, n_fa, _ = _generate(cfg, params, batches[0], cfg.frontend_tokens + 48, label, card)
+                check(n_fa == cfg.num_layers, f"{label}: {n_fa} flash launches for a prefill")
+                total += n_fa
+            del params, batches
+            _released(label, card)
+    return total
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the MoE main path under the duty-cycle controller
+# ---------------------------------------------------------------------------
+def moe_serving_phase(card: str) -> tuple[int, int, dict]:
+    """The reduced mixtral-8x7b through ``build_demo`` under On-Off:
+    a ``zstd+int8`` checkpoint whose expert stacks w_gate and w_up,
+    (2, 4, 64, 128), are the dequant kernel's first 4-D leaves (each
+    bring-up launches it twice, bit-exact against its plain version on the
+    checkpoint's own blobs), ``REQUESTS`` requests generated, and after the
+    release at most ``AFTER_RELEASE_GB`` on the card → (dequant launches,
+    flash launches, the 4-D leaves' dequant row)."""
+    import zlib
+
+    import torch
+
+    from repro_torch.checkpoint import _msgpack
+    from repro_torch.kernels.dequant import ops as dq
+    from repro_torch.kernels.dequant.ref import dequantize_blocked_reference
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch.serve import build_demo
+    from repro_torch.serving.scheduler import run_schedule
+
+    shutil.rmtree(CKPT_DIR_MOE, ignore_errors=True)
+    controller, make_request = build_demo("mixtral-8x7b", reduced=True, device="cuda",
+                                          ckpt_dir=str(CKPT_DIR_MOE), strategy="on_off")
+    payload = _msgpack.unpackb(sorted(CKPT_DIR_MOE.glob("step_*.ckpt"))[-1].read_bytes())
+    quant = [r for r in payload["leaves"] if "quant" in r]
+    check([r["path"] for r in quant] == ["periods/pos0/moe/w_gate", "periods/pos0/moe/w_up"]
+          and all(r["shape"] == [2, 4, 64, 128] for r in quant),
+          f"mixtral checkpoint quantizes {[(r['path'], r['shape']) for r in quant]}")
+    err = k_ms = p_ms = 0.0
+    for r in quant:
+        q = torch.frombuffer(bytearray(zlib.decompress(r["quant"]["q"])), dtype=torch.int8)
+        s = torch.frombuffer(bytearray(zlib.decompress(r["quant"]["scales"])), dtype=torch.float32)
+        q, s = q.reshape(r["quant"]["rows"], -1).cuda(), s.reshape(r["quant"]["rows"], -1).cuda()
+        out, ref = dq.dequantize(q, s), dequantize_blocked_reference(q, s)
+        torch.cuda.synchronize()
+        check(torch.equal(out, ref), f"dequant of the 4-D leaf {r['path']} is not bit-exact")
+        err = max(err, float((out.float() - ref.float()).abs().max()))
+        k_ms += time_ms(lambda: dq.dequantize(q, s))
+        p_ms += time_ms(lambda: dequantize_blocked_reference(q, s))
+    n_bytes = sum(r["quant"]["rows"] * 128 * (1 + 2) + r["quant"]["rows"] * 4 for r in quant)
+    b_ms, b_by = bound_ms(n_bytes, sum(r["quant"]["rows"] * 128 for r in quant), "float32")
+    print(f"  dequant of the reduced mixtral's 4-D expert leaves {[r['shape'] for r in quant]} as (512, 128) "
+          f"matrices: bit-exact, max_abs_err {err}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+          f"{b_ms:.6f} ms by {b_by} [{card}]")
+    requests = [make_request() for _ in range(REQUESTS)]
+    dq.launches = fa.launches = 0
+    res = run_schedule(controller, iter(requests), period_s=PERIOD_S)
+    n_dq, n_fa = dq.launches, fa.launches
+    if controller.handle is not None:
+        controller.release_fn(controller.handle)
+        controller.handle = None
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    prefills = res.n_requests + res.n_configurations
+    print(f"  mixtral-8x7b-reduced on_off: {res.n_requests} requests, {res.n_configurations} configurations, "
+          f"energy {res.energy_mj:.1f} mJ, wall {res.wall_s:.3f} s; dequant launches {n_dq} (2 per bring-up), "
+          f"flash launches {n_fa} (2 per prefill, {prefills} prefills); memory_allocated after release "
+          f"{after / 1e9:.6f} GB [{card}]")
+    check(res.n_requests == REQUESTS and n_dq == 2 * res.n_configurations and n_fa == 2 * prefills,
+          f"mixtral serving: {n_dq} dequant and {n_fa} flash launches for {res.n_configurations} bring-ups")
+    check(after <= AFTER_RELEASE_GB * 1e9, f"mixtral serving: {after} bytes allocated after release")
+    shutil.rmtree(CKPT_DIR_MOE, ignore_errors=True)
+    return n_dq, n_fa, dict(leaves=[r["shape"] for r in quant], max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                            bound_ms=b_ms, bound_by=b_by)
 
 
 @contextlib.contextmanager
@@ -1571,6 +2273,28 @@ def main() -> None:
         n_fa = dense_phase(card)
         fa_entry["launches"] += n_fa
         check(n_fa > 0, "the flash kernel was never launched on the dense families' path")
+
+    with timed_phase("moe families", seconds):
+        n_fa, fa_entry["moe_prefills"] = moe_phase(card)
+        fa_entry["launches"] += n_fa
+        check(n_fa > 0, "the flash kernel was never launched on the MoE families' path")
+
+    with timed_phase("jamba", seconds):
+        n_fa, n_ssd = jamba_phase(card)
+        fa_entry["launches"] += n_fa
+        ssd_entry["launches"] += n_ssd
+        check(n_fa > 0 and n_ssd > 0, "a kernel of the hybrid path was never launched")
+
+    with timed_phase("frontends", seconds):
+        n_fa = frontends_phase(card)
+        fa_entry["launches"] += n_fa
+        check(n_fa > 0, "the flash kernel was never launched on the frontends' path")
+
+    with timed_phase("moe serving", seconds):
+        n_dq, n_fa, dq_entry["moe_expert_leaves"] = moe_serving_phase(card)
+        dq_entry["launches"] += n_dq
+        fa_entry["launches"] += n_fa
+        check(n_dq > 0 and n_fa > 0, "a kernel of the MoE serving path was never launched")
 
     print(f"phase seconds: {json.dumps(seconds)}")
     print(card)

@@ -49,11 +49,13 @@ class CheckpointManager:
         self._rotate()
         return path
 
-    def restore(self, step: int, target: Any = None, device="cpu") -> Any:
+    def restore(self, step: int, target: Any = None, device="cuda") -> Any:
+        """Step ``step``'s tensors on ``device`` (the card unless the caller
+        asks for the CPU); see :func:`serializer.deserialize`."""
         with open(self._path(step), "rb") as f:
             return serializer.deserialize(f.read(), target, device=device)
 
-    def restore_latest(self, target: Any = None, device="cpu") -> tuple[Optional[int], Any]:
+    def restore_latest(self, target: Any = None, device="cuda") -> tuple[Optional[int], Any]:
         steps = self.steps()
         if not steps:
             return None, None

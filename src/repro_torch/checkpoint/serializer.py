@@ -29,6 +29,7 @@ from typing import Any
 import torch
 
 from repro_torch.checkpoint import _msgpack
+from repro_torch.device import resolve_device
 from repro_torch.kernels.dequant import ops as dq
 
 MODES = ("none", "zstd", "zstd+int8")
@@ -111,7 +112,7 @@ def _from_bytes(raw: bytes, dtype: torch.dtype, shape, device) -> torch.Tensor:
         # clone on the CPU) before anything could write to it
         warnings.simplefilter("ignore", UserWarning)
         t = torch.frombuffer(raw, dtype=torch.uint8).view(dtype).reshape(shape)
-    return t.to(device) if torch.device(device).type != "cpu" else t.clone()
+    return t.to(device) if device.type != "cpu" else t.clone()
 
 
 def serialize(tree: Any, mode: str = "zstd") -> bytes:
@@ -149,11 +150,14 @@ def serialize(tree: Any, mode: str = "zstd") -> bytes:
     return _msgpack.packb(payload)
 
 
-def deserialize(data: bytes, target: Any = None, device="cpu") -> Any:
-    """bytes → tensors on ``device``.  If ``target`` (a tree of tensors, e.g.
-    meta tensors from ``model_zoo.param_shapes``) is given, leaves are
-    restored into its structure and cast to its dtypes; else a flat
-    {path: tensor} dict is returned."""
+def deserialize(data: bytes, target: Any = None, device="cuda") -> Any:
+    """bytes → tensors on ``device``, the card unless the caller passes
+    ``device="cpu"`` (raises where CUDA is asked for and absent).  If
+    ``target`` (a tree of tensors, e.g. meta tensors from
+    ``model_zoo.param_shapes``) is given, leaves are restored into its
+    structure and cast to its dtypes; else a flat {path: tensor} dict is
+    returned."""
+    device = resolve_device(device)
     payload = _msgpack.unpackb(data)
     mode = payload["mode"]
     # blobs predating the codec field were always zstd-compressed

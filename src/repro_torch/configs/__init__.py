@@ -1,8 +1,6 @@
-"""Architecture configs — importing this package registers the ported archs
-(the dense qwen3-1.7b, yi-6b, internlm2-20b and qwen3-32b, and mamba2-370m
-so far; see ``base.LATER_SLICES`` for the rest)."""
+"""Architecture configs — importing this package registers every arch of
+the reference (the paper's LSTM is not an arch of the registry)."""
 from repro_torch.configs.base import (
-    LATER_SLICES,
     LM_SHAPES,
     SHAPES_BY_NAME,
     ArchConfig,
@@ -11,15 +9,19 @@ from repro_torch.configs.base import (
     list_archs,
 )
 from repro_torch.configs import (  # noqa: F401  (registration)
+    hubert_xlarge,
     internlm2_20b,
+    jamba_1_5_large_398b,
+    llava_next_mistral_7b,
     mamba2_370m,
+    mixtral_8x7b,
     qwen3_1_7b,
     qwen3_32b,
+    qwen3_moe_235b_a22b,
     yi_6b,
 )
 
 __all__ = [
-    "LATER_SLICES",
     "LM_SHAPES",
     "SHAPES_BY_NAME",
     "ArchConfig",

@@ -1,8 +1,8 @@
 """Architecture configuration system (port of ``repro.configs.base``).
 
-The dataclasses are copied unchanged.  The registry holds only the
-architectures whose path the port already runs; asking for one that a
-later slice brings raises and names that slice.
+The dataclasses are copied unchanged.  Every architecture of the
+reference is registered (``repro_torch.configs``); the shape-cell helpers
+of the dry-run tooling (``arch_shapes``, ``all_cells``) are not ported.
 """
 from __future__ import annotations
 
@@ -181,31 +181,14 @@ class ArchConfig:
 _REGISTRY: dict[str, Callable[[], ArchConfig]] = {}
 _REDUCED: dict[str, Callable[[], ArchConfig]] = {}
 
-#: Architectures of the reference that a later slice of the port brings.
-LATER_SLICES: dict[str, str] = {
-    "jamba-1.5-large-398b": "the remaining-model-families slice (MoE and hybrid layers)",
-    "mixtral-8x7b": "the remaining-model-families slice (MoE)",
-    "qwen3-moe-235b-a22b": "the remaining-model-families slice (MoE)",
-    "hubert-xlarge": "the remaining-model-families slice (audio frontend)",
-    "llava-next-mistral-7b": "the remaining-model-families slice (vision frontend)",
-}
-
 
 def register(full: Callable[[], ArchConfig], reduced: Callable[[], ArchConfig]) -> None:
     cfg = full()
-    if cfg.name in LATER_SLICES:
-        raise NotImplementedError(
-            f"{cfg.name} is not ported yet: it comes with {LATER_SLICES[cfg.name]}"
-        )
     _REGISTRY[cfg.name] = full
     _REDUCED[cfg.name] = reduced
 
 
 def get_config(name: str, reduced: bool = False) -> ArchConfig:
-    if name in LATER_SLICES:
-        raise NotImplementedError(
-            f"{name} is not ported yet: it comes with {LATER_SLICES[name]}"
-        )
     table = _REDUCED if reduced else _REGISTRY
     if name not in table:
         raise KeyError(f"unknown arch {name!r}; available: {sorted(table)}")

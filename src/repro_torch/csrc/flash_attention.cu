@@ -27,11 +27,13 @@
 // tensor cores):
 //  * Tiles of 64 keys.  S = Q K^T is accumulated in fp32 registers; the
 //    online softmax (running max, denominator, rescale) stays in registers
-//    with quad shuffles for the row max, one FFMA and one ex2 a score; P is
-//    rounded to bf16 in registers and used directly as the register A
-//    operand of P V (the S accumulator layout is the A fragment layout),
-//    with no shared-memory round trip.  The denominator sums the rounded P,
-//    so each output row is a convex combination of V's rows.
+//    with quad shuffles for the row max, one FFMA and one ex2 a score; P
+//    goes in two bf16 parts (its rounding, and the rounding of the rest:
+//    within 2^-16 of the fp32 P, which the TPU kernel multiplies V by),
+//    each used directly as the register A operand of a P V product (the S
+//    accumulator layout is the A fragment layout), with no shared-memory
+//    round trip.  The denominator sums the two parts, so each output row
+//    is a convex combination of V's rows.
 //  * wgmma: a block is one warpgroup of 64 rows (112 KB of shared memory at
 //    D 128), so two blocks share an SM and one's softmax overlaps the
 //    other's products.  The tensor cores read Q, K and V straight from
@@ -143,11 +145,13 @@ __device__ __forceinline__ bool tile_straddles(int k0, int qmin, int qmax,
 // (rows g and g + 8 of its warp's 16; `qpos` their query positions).  `s`
 // holds the raw scores as a 16x8-tile accumulator (s[j][0..1] row g,
 // s[j][2..3] row g + 8, keys k0 + 8j + 2tq and + 1).  Updates the running
-// max `m` (of raw scores) and this thread's partial sums `l`, leaves P in
-// bf16 in `pf` as the A fragments of P V (16 keys each), and the factor
-// by which the output rows must be rescaled in `alpha`.
+// max `m` (of raw scores) and this thread's partial sums `l`, leaves P as
+// two bf16 parts, `pf[0]` its rounding and `pf[1]` the rounding of what
+// that leaves (their sum within 2^-16 of P), as the A fragments of P V (16
+// keys each), and the factor by which the output rows must be rescaled in
+// `alpha`.
 __device__ __forceinline__ void softmax_tile(
-    float (&s)[kNT][4], uint32_t (&pf)[kNT / 2][4], float (&alpha)[2],
+    float (&s)[kNT][4], uint32_t (&pf)[2][kNT / 2][4], float (&alpha)[2],
     float (&m)[2], float (&l)[2], const int (&qpos)[2], bool masked, int k0,
     int sk, int causal, int window, int tq, float scale_log2) {
   if (masked) {
@@ -184,16 +188,16 @@ __device__ __forceinline__ void softmax_tile(
   float ps[2] = {0.f, 0.f};
 #pragma unroll
   for (int j = 0; j < kNT; ++j) {
-    const __nv_bfloat162 p0 = __floats2bfloat162_rn(
-        fast_exp2(fmaf(s[j][0], scale_log2, -mu[0])),
-        fast_exp2(fmaf(s[j][1], scale_log2, -mu[0])));
-    const __nv_bfloat162 p1 = __floats2bfloat162_rn(
-        fast_exp2(fmaf(s[j][2], scale_log2, -mu[1])),
-        fast_exp2(fmaf(s[j][3], scale_log2, -mu[1])));
-    ps[0] += __low2float(p0) + __high2float(p0);
-    ps[1] += __low2float(p1) + __high2float(p1);
-    pf[j >> 1][(j & 1) * 2] = as_u32(p0);
-    pf[j >> 1][(j & 1) * 2 + 1] = as_u32(p1);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float e0 = fast_exp2(fmaf(s[j][2 * r], scale_log2, -mu[r]));
+      const float e1 = fast_exp2(fmaf(s[j][2 * r + 1], scale_log2, -mu[r]));
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(e0, e1);
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(e0 - __low2float(hi), e1 - __high2float(hi));
+      ps[r] += (__low2float(hi) + __low2float(lo)) + (__high2float(hi) + __high2float(lo));
+      pf[0][j >> 1][(j & 1) * 2 + r] = as_u32(hi);
+      pf[1][j >> 1][(j & 1) * 2 + r] = as_u32(lo);
+    }
   }
   l[0] = l[0] * alpha[0] + ps[0];
   l[1] = l[1] * alpha[1] + ps[1];
@@ -427,7 +431,7 @@ flash_wg_kernel(const __nv_bfloat16* __restrict__ q,
     wg_commit();
     wg_wait<0>();
     wg_hold(s);
-    uint32_t pf[kNT / 2][4];
+    uint32_t pf[2][kNT / 2][4];
     float alpha[2];
     softmax_tile(s, pf, alpha, m, l, qpos,
                  tile_straddles(k0, gmin, gmax, sk, causal, window), k0, sk,
@@ -436,7 +440,9 @@ flash_wg_kernel(const __nv_bfloat16* __restrict__ q,
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < kNT / 2; ++kk) {
-      wgmma_o<DP>(acc, pf[kk], sw128_desc(tv + kk * 16 * 64, kTcBK * 128));
+      const uint64_t vd = sw128_desc(tv + kk * 16 * 64, kTcBK * 128);
+      wgmma_o<DP>(acc, pf[1][kk], vd);   // the small part first
+      wgmma_o<DP>(acc, pf[0][kk], vd);
     }
     wg_commit();
     wg_wait<0>();

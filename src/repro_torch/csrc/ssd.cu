@@ -9,6 +9,7 @@
 //   intra-chunk:  Y  = ((C·Bᵀ) ⊙ L)·x̄,  L[i,j] = exp(cs_i − cs_j) for j ≤ i
 //   inter-chunk:  Y += exp(cs) ⊙ (C·Hᵀ)          (H: the state entering)
 //   state:        H  ← exp(total)·H + (exp(total − cs) ⊙ x̄)ᵀ·B
+//                 (total − cs_j = Σ_{i>j} a·dt_i, summed from the chunk's end)
 //   output:       y  = Y + D·x, rounded once to x's dtype
 //
 // and returns the final state in fp32.  Heads share B and C per group
@@ -33,7 +34,9 @@
 //     same grid, per (batch, head, chunk) cs = cumsum(a·dt), one warp a
 //     chunk, to cs (B, H, S).
 //  2. chunk_state_kernel: per (batch, head, chunk) the chunk's own state
-//     Σ_j (x̄_j·exp(total − cs_j)) ⊗ B_j (P×N), to states (B, H, nc, P, N).
+//     Σ_j (x̄_j·exp(total − cs_j)) ⊗ B_j (P×N), to states (B, H, nc, P, N),
+//     with total − cs_j summed from the chunk's end by one warp (the
+//     difference of the two cumsums loses their ulp: ROADMAP C-ref-5).
 //  3. state_pass_kernel: per (batch, head) and element of the P×N state,
 //     H_c = exp(total_c)·H_{c−1} + ΔH_c over the chunks in order, from
 //     init_state or zeros, in fp32; it writes the state entering each
@@ -306,6 +309,37 @@ __device__ void chunk_cumsum(const Args& args, int item) {
     if (k < per) out[lane * per + k] = lane > 0 ? part[k] + before : part[k];
 }
 
+// decay[j] = exp(Σ_{i>j} a·dt_i) over one chunk, by one warp, summed from
+// the chunk's end: each lane sums its Q/32 steps from its last, then a
+// shuffle scan adds the lanes above.  exp(total − cs_j), the difference of
+// two cumsums that reach |a|·Σdt (about 90 over 128 steps at a = −1), loses
+// ulp(90) of the exponent at every step, and the chunk's state 5e-5 at 256
+// heads (ROADMAP C-ref-5); a sum from the end is short and small for the
+// steps near it, whose decays weigh most.
+__device__ void suffix_decay(const float* dts, float* decay, float a, int q) {
+  const int lane = threadIdx.x & 31, per = q / 32;
+  float after[kMaxQ / 32];
+  float run = 0.0f;
+#pragma unroll
+  for (int k = kMaxQ / 32 - 1; k >= 0; --k) {
+    if (k < per) {
+      after[k] = run;                       // the lane's steps after k
+      run += a * dts[lane * per + k];
+    }
+  }
+  float incl = run;                         // this lane's steps and the lanes above's
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float t = __shfl_down_sync(kFull, incl, off);
+    if (lane + off < 32) incl += t;
+  }
+  float above = __shfl_down_sync(kFull, incl, 1);
+  if (lane == 31) above = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kMaxQ / 32; ++k)
+    if (k < per) decay[lane * per + k] = expf(after[k] + above);
+}
+
 // grid: score_blocks tiles (batch, group, chunk, tile pair jt ≤ it), then
 // blocks of four warps, one (batch, head, chunk) cumsum a warp
 template <typename T>
@@ -512,7 +546,7 @@ __device__ __forceinline__ void split_a(unsigned (&a)[PARTS][4], int k, Value va
 // ----------------------------------------------------------------------------
 // 2. each chunk's own state, all chunks at once
 // ----------------------------------------------------------------------------
-// grid (B·H·nc, P tiles × N tiles); ΔH[p][n] = Σ_j ((x_j[p]·dt_j)·exp(total − cs_j))·B_j[n]
+// grid (B·H·nc, P tiles × N tiles); ΔH[p][n] = Σ_j ((x_j[p]·dt_j)·exp(Σ_{i>j} a·dt_i))·B_j[n]
 template <typename T>
 __global__ void __launch_bounds__(kThreads<T>) chunk_state_kernel(const Args args) {
   constexpr int NT = kThreads<T>;
@@ -527,13 +561,11 @@ __global__ void __launch_bounds__(kThreads<T>) chunk_state_kernel(const Args arg
   const int ptiles = (P + kTile - 1) / kTile;
   const int p0 = (blockIdx.y % ptiles) * kTile, n0 = (blockIdx.y / ptiles) * kTile;
   const long long s0 = (long long)c * q;
-  const float* cs = args.cs + (long long)bh * args.seq + s0;
-  const float total = cs[q - 1];
   const float* dt = args.dt + bi * args.sdt_b + h * args.sdt_h + s0 * args.sdt_s;
-  for (int j = threadIdx.x; j < q; j += NT) {
-    dts[j] = dt[j * args.sdt_s];
-    decay[j] = expf(total - cs[j]);
-  }
+  for (int j = threadIdx.x; j < q; j += NT) dts[j] = dt[j * args.sdt_s];
+  __syncthreads();
+  if (threadIdx.x < 32) suffix_decay(dts, decay, args.a[h], q);
+  __syncthreads();
   const T* x = static_cast<const T*>(args.x) + bi * args.sx_b + h * args.sx_h + s0 * args.sx_s + p0;
   const T* bm = static_cast<const T*>(args.b) + bi * args.sb_b + g * args.sb_g + s0 * args.sb_s + n0;
   const bool vec = args.vec;

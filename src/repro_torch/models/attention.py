@@ -1,5 +1,6 @@
 """GQA attention block: qk_norm, RoPE, sliding window, KV cache (port of
-``repro.models.attention``, serving half).
+``repro.models.attention``: prefill with its cache, decode, and the
+cache-free forward the encoder runs).
 
 Cache layout: ``KVCache(k, v, positions, index)`` where ``k``/``v`` are
 (B, C, KVH, D) ring/linear buffers, ``positions`` (C,) holds each slot's
@@ -67,6 +68,24 @@ def _project_qkv(params, x, cfg: ArchConfig, positions):
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     return q, k, v
+
+
+def attention_block(
+    params: dict,
+    x: torch.Tensor,                    # (B, S, d)
+    cfg: ArchConfig,
+    *,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Full-sequence attention with no cache (the encoder's forward).
+    Returns (B, S, d)."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device) + q_offset
+    q, k, v = _project_qkv(params, x, cfg, positions)
+    y = attn_ops.attention(
+        q, k, v, causal=cfg.causal, window=cfg.sliding_window, q_offset=q_offset
+    )
+    return y.reshape(b, s, cfg.q_dim) @ params["wo"]
 
 
 def attention_decode(

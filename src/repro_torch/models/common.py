@@ -46,13 +46,14 @@ def _leaf_init(spec: Spec, generator: torch.Generator, dtype, device) -> torch.T
     std = spec.scale if spec.scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
     if spec.axes[0] != "layers":
         w = torch.randn(spec.shape, generator=generator, dtype=torch.float32, device=device)
-        return (w * std).to(dtype)
-    # a stacked leaf is drawn a layer at a time, so the fp32 draw never holds
-    # the whole stack (qwen3-32b's stacked FFN leaf would take 33.5 GB)
+        return w.mul_(std).to(dtype)
+    # a stacked leaf is drawn a matrix at a time (a layer's, or a layer's
+    # expert's), so the fp32 draw never holds the whole stack (qwen3-32b's
+    # stacked FFN leaf would take 33.5 GB, one layer of jamba's experts 38.7)
     out = torch.empty(spec.shape, dtype=dtype, device=device)
-    for layer in out:
-        w = torch.randn(spec.shape[1:], generator=generator, dtype=torch.float32, device=device)
-        layer.copy_(w * std)
+    for mat in out.view(-1, *spec.shape[-2:]) if out.dim() > 2 else out:
+        w = torch.randn(mat.shape, generator=generator, dtype=torch.float32, device=device)
+        mat.copy_(w.mul_(std))
     return out
 
 
@@ -60,7 +61,7 @@ def init_from_specs(
     specs: Any, generator: torch.Generator, dtype=torch.bfloat16
 ) -> Any:
     """Random parameters on ``generator.device``: fp32 normal, then a cast,
-    a layer at a time for stacked leaves.  The draws differ from
+    a matrix at a time for stacked leaves.  The draws differ from
     ``jax.random``'s; carry the reference's weights
     with ``model_zoo.params_from_numpy`` where the two must agree."""
     return map_specs(

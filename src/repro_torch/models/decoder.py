@@ -1,11 +1,18 @@
-"""Decoder-LM assembly for serving: specs → prefill / decode (port of the
-attention, Mamba-2 and dense-MLP paths of ``repro.models.decoder``).
+"""Decoder-LM assembly: specs → forward / prefill / decode (port of
+``repro.models.decoder``, without the training loss).
 
-Per-layer parameters are stacked on a leading layer axis, as in the
-reference (``periods/pos0/...``); the reference's ``lax.scan`` over that
-axis is a Python loop here.  A layer is attention (``attn``) or Mamba-2
-(``ssm``) as ``cfg.layer_kind`` says; hybrid periods (``attn_every``) and
-MoE layers raise: they come with a later slice of the port.
+Deep stacks are *periods*: ``cfg.attn_every`` layers for a hybrid, else one
+layer, with per-period parameters stacked on a leading axis
+(``periods/pos{i}/...``), as in the reference.  The reference's
+``lax.scan`` over periods is a Python loop here, and each period runs its
+positions in order through one per-position step (:func:`prefill_block`,
+:func:`decode_block`, :func:`forward_block`).  A position is attention
+(``attn``) or Mamba-2 (``ssm``) as ``cfg.layer_kind`` says, and its FFN is
+the MoE block where ``cfg.layer_is_moe``, else the dense MLP.
+
+The same module serves the encoder-only family (hubert): ``causal=False``,
+frame features in place of tokens, and :func:`forward_hidden` with no
+decode entry points.
 """
 from __future__ import annotations
 
@@ -17,52 +24,51 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import Spec, rms_norm, stack_specs
-
-
-def _unported(cfg: ArchConfig) -> None:
-    if cfg.attn_every:
-        raise NotImplementedError(
-            f"{cfg.name}: hybrid attention/Mamba-2 periods (attn_every) come with "
-            "the remaining-model-families slice of the port"
-        )
-    if cfg.num_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers come with the remaining-model-families slice of the port"
-        )
-    if cfg.frontend != "none" or cfg.mlp_kind != "swiglu":
-        raise NotImplementedError(
-            f"{cfg.name}: modality frontends and GELU FFNs come with the "
-            "remaining-model-families slice of the port"
-        )
 
 
 # ---------------------------------------------------------------------------
 # Specs
 # ---------------------------------------------------------------------------
-def _block_specs(cfg: ArchConfig) -> dict:
+def _block_specs(cfg: ArchConfig, pos: int) -> dict:
+    """One block at position ``pos`` within a period."""
     specs: dict[str, Any] = {"ln1": Spec((cfg.d_model,), ("norm",), init="ones")}
-    if cfg.layer_kind(0) == "attn":
+    if cfg.layer_kind(pos) == "attn":
         specs["attn"] = attn.attention_specs(cfg)
     else:
         specs["ssm"] = m2.mamba2_specs(cfg)
     if cfg.d_ff:
         specs["ln2"] = Spec((cfg.d_model,), ("norm",), init="ones")
-        specs["mlp"] = mlp_mod.mlp_specs(cfg)
+        if cfg.layer_is_moe(pos):
+            specs["moe"] = moe_mod.moe_specs(cfg)
+        else:
+            specs["mlp"] = mlp_mod.mlp_specs(cfg)
     return specs
 
 
+def period_len(cfg: ArchConfig) -> int:
+    return cfg.attn_every if cfg.attn_every else 1
+
+
+def num_periods(cfg: ArchConfig) -> int:
+    return cfg.num_layers // period_len(cfg)
+
+
 def decoder_specs(cfg: ArchConfig) -> dict:
-    _unported(cfg)
+    period = {f"pos{i}": _block_specs(cfg, i) for i in range(period_len(cfg))}
     specs: dict[str, Any] = {
-        "periods": stack_specs({"pos0": _block_specs(cfg)}, cfg.num_layers),
+        "periods": stack_specs(period, num_periods(cfg)),
         "final_norm": Spec((cfg.d_model,), ("norm",), init="ones"),
     }
+    if cfg.frontend != "none":
+        specs["frontend_proj"] = Spec((cfg.frontend_dim, cfg.d_model), (None, "embed"))
     if cfg.vocab_size:
-        specs["embed"] = Spec(
-            (cfg.vocab_size, cfg.d_model), ("vocab", "embed"), scale=0.02
-        )
-        if not cfg.tie_embeddings:
+        if cfg.frontend != "audio":      # audio inputs are frames: no token embedding
+            specs["embed"] = Spec(
+                (cfg.vocab_size, cfg.d_model), ("vocab", "embed"), scale=0.02
+            )
+        if not cfg.tie_embeddings or cfg.frontend == "audio":
             specs["lm_head"] = Spec(
                 (cfg.d_model, cfg.vocab_size), ("embed", "vocab")
             )
@@ -70,18 +76,44 @@ def decoder_specs(cfg: ArchConfig) -> dict:
 
 
 def _layer(tree: Any, i: int) -> Any:
-    """Layer ``i``'s slice of a stacked parameter tree (views, no copies)."""
+    """Period ``i``'s slice of a stacked parameter tree (views, no copies)."""
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
 
 
+def blocks(params: dict, cfg: ArchConfig):
+    """(position in its period, block parameters) for every layer, in order."""
+    for p in range(num_periods(cfg)):
+        period = _layer(params["periods"], p)
+        for i in range(period_len(cfg)):
+            yield i, period[f"pos{i}"]
+
+
 # ---------------------------------------------------------------------------
-# Input embedding and head
+# Input embedding (modality adapters) and head
 # ---------------------------------------------------------------------------
 def embed_inputs(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
-    """{'tokens': (B, S)} → (B, S, d) residual stream input."""
-    return params["embed"][batch["tokens"].long()]
+    """batch → (B, S, d) residual stream input.
+
+    vlm  : {'tokens': (B, S−N), 'patch_embeds': (B, N, frontend_dim)}
+    audio: {'features': (B, S, frontend_dim)}
+    else : {'tokens': (B, S)}
+
+    Frontend inputs are rounded to bf16 first, as in the reference, then
+    multiply the projection in its own dtype (the reference's bf16 × fp32
+    promotes to fp32)."""
+    if cfg.frontend == "audio":
+        return _project_frontend(params, batch["features"])
+    tok = params["embed"][batch["tokens"].long()]
+    if cfg.frontend == "vision":
+        return torch.cat([_project_frontend(params, batch["patch_embeds"]), tok], dim=1)
+    return tok
+
+
+def _project_frontend(params: dict, x: torch.Tensor) -> torch.Tensor:
+    proj = params["frontend_proj"]
+    return x.to(torch.bfloat16).to(proj.dtype) @ proj
 
 
 def _lm_head(params: dict) -> torch.Tensor:
@@ -96,16 +128,71 @@ def logits_at(params: dict, hidden: torch.Tensor, cfg: ArchConfig) -> torch.Tens
 
 
 # ---------------------------------------------------------------------------
+# The per-position steps
+# ---------------------------------------------------------------------------
+def _ffn_residual(bp: dict, x: torch.Tensor, cfg: ArchConfig, pos: int):
+    """x + FFN(norm(x)) → (x, MoE aux loss or None)."""
+    if not cfg.d_ff:
+        return x, None
+    h = rms_norm(x, bp["ln2"], cfg.norm_eps)
+    if cfg.layer_is_moe(pos):
+        f, aux = moe_mod.moe_block(bp["moe"], h, cfg)
+        return x + f, aux
+    return x + mlp_mod.mlp_block(bp["mlp"], h, cfg), None
+
+
+def forward_block(bp: dict, x: torch.Tensor, cfg: ArchConfig, pos: int):
+    """The block at position ``pos`` over a full sequence, with no cache
+    → (x, MoE aux loss or None)."""
+    h = rms_norm(x, bp["ln1"], cfg.norm_eps)
+    if cfg.layer_kind(pos) == "attn":
+        mix = attn.attention_block(bp["attn"], h, cfg)
+    else:
+        mix = m2.mamba2_block(bp["ssm"], h, cfg)
+    return _ffn_residual(bp, x + mix, cfg, pos)
+
+
+def prefill_block(bp: dict, x: torch.Tensor, cfg: ArchConfig, pos: int, max_len: int):
+    """The block at position ``pos`` over a full sequence → (x, its decode
+    cache: a ``KVCache`` or an ``SSMCache``)."""
+    h = rms_norm(x, bp["ln1"], cfg.norm_eps)
+    if cfg.layer_kind(pos) == "attn":
+        mix, cache = attn.prefill_cache(bp["attn"], h, cfg, max_len)
+    else:
+        mix, cache = m2.mamba2_block(bp["ssm"], h, cfg, return_state=True)
+    x, _ = _ffn_residual(bp, x + mix, cfg, pos)
+    return x, cache
+
+
+def decode_block(bp: dict, x: torch.Tensor, cache, cfg: ArchConfig, pos: int):
+    """The block at position ``pos`` for one token (B, 1, d) → (x, cache)."""
+    h = rms_norm(x, bp["ln1"], cfg.norm_eps)
+    if cfg.layer_kind(pos) == "attn":
+        mix, cache = attn.attention_decode(bp["attn"], h, cache, cfg)
+    else:
+        mix, cache = m2.mamba2_decode(bp["ssm"], h, cache, cfg)
+    x, _ = _ffn_residual(bp, x + mix, cfg, pos)
+    return x, cache
+
+
+# ---------------------------------------------------------------------------
+# Forward (full sequence)
+# ---------------------------------------------------------------------------
+def forward_hidden(params: dict, x: torch.Tensor, cfg: ArchConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """Embedding-space input → final hidden states (+ summed aux loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for pos, bp in blocks(params, cfg):
+        x, a = forward_block(bp, x, cfg, pos)
+        if a is not None:
+            aux = aux + a
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+
+
+# ---------------------------------------------------------------------------
 # Serving: prefill + decode
 # ---------------------------------------------------------------------------
 class DecodeState(NamedTuple):
-    caches: list           # per layer: {"pos0": KVCache or SSMCache}
-
-
-def _mlp_residual(lp: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    if cfg.d_ff:
-        x = x + mlp_mod.mlp_block(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
-    return x
+    caches: list           # per period: {"pos{i}": KVCache or SSMCache}
 
 
 def prefill(
@@ -116,18 +203,12 @@ def prefill(
 ) -> tuple[torch.Tensor, DecodeState]:
     """Full-context forward that materializes decode caches.
     Returns (last-position logits (B, V), state)."""
-    _unported(cfg)
     x = embed_inputs(params, batch, cfg)
-    caches = []
-    for i in range(cfg.num_layers):
-        lp = _layer(params["periods"], i)["pos0"]
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        if "attn" in lp:
-            mix, cache = attn.prefill_cache(lp["attn"], h, cfg, max_len)
-        else:
-            mix, cache = m2.mamba2_block(lp["ssm"], h, cfg, return_state=True)
-        caches.append({"pos0": cache})
-        x = _mlp_residual(lp, x + mix, cfg)
+    caches: list = []
+    for pos, bp in blocks(params, cfg):
+        if pos == 0:
+            caches.append({})
+        x, caches[-1][f"pos{pos}"] = prefill_block(bp, x, cfg, pos, max_len)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = logits_at(params, x[:, -1:, :], cfg)[:, 0]
     return logits, DecodeState(caches=caches)
@@ -141,16 +222,12 @@ def decode_step(
 ) -> tuple[torch.Tensor, DecodeState]:
     """One decode step for every sequence in the batch → (logits (B,V), state)."""
     x = params["embed"][token.long()[:, None]]
-    new_caches = []
-    for i in range(cfg.num_layers):
-        lp = _layer(params["periods"], i)["pos0"]
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        if "attn" in lp:
-            mix, cache = attn.attention_decode(lp["attn"], h, state.caches[i]["pos0"], cfg)
-        else:
-            mix, cache = m2.mamba2_decode(lp["ssm"], h, state.caches[i]["pos0"], cfg)
-        new_caches.append({"pos0": cache})
-        x = _mlp_residual(lp, x + mix, cfg)
+    caches: list = []
+    for layer, (pos, bp) in enumerate(blocks(params, cfg)):
+        if pos == 0:
+            caches.append({})
+        old = state.caches[layer // period_len(cfg)][f"pos{pos}"]
+        x, caches[-1][f"pos{pos}"] = decode_block(bp, x, old, cfg, pos)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = logits_at(params, x, cfg)[:, 0]
-    return logits, DecodeState(caches=new_caches)
+    return logits, DecodeState(caches=caches)

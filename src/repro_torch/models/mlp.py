@@ -1,5 +1,9 @@
-"""Dense FFN: SwiGLU (port of ``repro.models.mlp``; the GELU FFN comes
-with the encoder family, in a later slice)."""
+"""Dense FFN: SwiGLU (3 matrices) or GELU (2 matrices) (port of
+``repro.models.mlp``).
+
+The GELU is ``jax.nn.gelu``'s default, the tanh approximation
+0.5·x·(1 + tanh(√(2/π)·(x + 0.044715·x³))): ``approximate="tanh"``.
+"""
 from __future__ import annotations
 
 import torch
@@ -11,13 +15,21 @@ from repro_torch.models.common import Spec
 
 def mlp_specs(cfg: ArchConfig) -> dict:
     d, f = cfg.d_model, cfg.d_ff
+    if cfg.mlp_kind == "swiglu":
+        return {
+            "w_gate": Spec((d, f), ("embed", "mlp")),
+            "w_up": Spec((d, f), ("embed", "mlp")),
+            "w_down": Spec((f, d), ("mlp", "embed")),
+        }
     return {
-        "w_gate": Spec((d, f), ("embed", "mlp")),
         "w_up": Spec((d, f), ("embed", "mlp")),
         "w_down": Spec((f, d), ("mlp", "embed")),
     }
 
 
 def mlp_block(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    if cfg.mlp_kind == "swiglu":
+        h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    else:
+        h = F.gelu(x @ params["w_up"], approximate="tanh")
     return h @ params["w_down"]

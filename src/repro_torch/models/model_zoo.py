@@ -1,5 +1,6 @@
-"""Model zoo: config → specs / params / serving steps (port of
-``repro.models.model_zoo``).
+"""Model zoo: config → specs / params / inputs / serving steps (port of
+``repro.models.model_zoo``, without the training loss and the dry run's
+abstract input specs).
 
 The parameter tree keeps the reference's pytree paths and stacked shapes
 (``periods/pos0/attn/wq`` of shape (L, d, q), ...), so a weight carried
@@ -49,6 +50,29 @@ def params_from_numpy(tree: Any, device="cpu", dtype=None) -> Any:
     return t.to(device)
 
 
+def make_batch(
+    cfg: ArchConfig, batch: int, seq_len: int, generator: torch.Generator
+) -> dict:
+    """A random prefill batch on ``generator.device``, in the reference's
+    input layout: token ids (int32) and, for a frontend, bf16 embeddings
+    drawn from a standard normal — frames ``features`` (B, S, frontend_dim)
+    for audio, which take the place of tokens; for vision, ``patch_embeds``
+    (B, frontend_tokens, frontend_dim) ahead of S − frontend_tokens tokens."""
+    dev = generator.device
+
+    def normal(*shape):
+        return torch.randn(shape, generator=generator, device=dev).to(torch.bfloat16)
+
+    if cfg.frontend == "audio":
+        return {"features": normal(batch, seq_len, cfg.frontend_dim)}
+    n_tok = seq_len - (cfg.frontend_tokens if cfg.frontend == "vision" else 0)
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, n_tok), generator=generator,
+                                   device=dev, dtype=torch.int32)}
+    if cfg.frontend == "vision":
+        out["patch_embeds"] = normal(batch, cfg.frontend_tokens, cfg.frontend_dim)
+    return out
+
+
 def prefill_fn(
     params: dict,
     batch: dict,
@@ -65,3 +89,11 @@ def decode_fn(
     cfg: ArchConfig,
 ):
     return decoder.decode_step(params, state, token, cfg)
+
+
+def encode_fn(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+    """Encoder-only forward → per-position logits (B, S, V) fp32 (hubert's
+    serving path)."""
+    x = decoder.embed_inputs(params, batch, cfg)
+    hidden, _ = decoder.forward_hidden(params, x, cfg)
+    return decoder.logits_at(params, hidden, cfg)

@@ -113,7 +113,7 @@ def test_jax_written_checkpoint_restores_bit_equal(zlib_reference, mode):
     blob = zlib_reference.serialize(tree, mode=mode)
     theirs = zlib_reference.deserialize(blob)
     before = dq.launches
-    ours = deserialize(blob)
+    ours = deserialize(blob, device="cpu")
     assert dq.launches == before          # CPU restore: the plain dequant
     assert set(ours) == set(theirs)
     for path, arr in theirs.items():
@@ -130,7 +130,7 @@ def test_jax_written_checkpoint_restores_bit_equal(zlib_reference, mode):
 def test_port_written_checkpoint_restores_bit_equal_in_jax(jser, mode):
     tree = _port_tree(_tree_np(3))
     blob = serialize(tree, mode=mode)
-    ours = deserialize(blob)
+    ours = deserialize(blob, device="cpu")
     theirs = jser.deserialize(blob)
     assert set(ours) == set(theirs) == set(_flat(tree))
     for path, arr in theirs.items():
@@ -149,7 +149,7 @@ def test_zstd_codec_blob_raises(jser):
         pytest.skip("the reference writes zstd only with 'zstandard' installed")
     blob = jser.serialize(_tree_np(5), mode="zstd")
     with pytest.raises(ModuleNotFoundError, match="zstd"):
-        deserialize(blob)
+        deserialize(blob, device="cpu")
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -159,7 +159,7 @@ def test_bf16_leaves_round_trip(mode):
         "w": (torch.randn((256, 256), generator=g) * 0.02).to(torch.bfloat16),
         "n": torch.randn((64,), generator=g).to(torch.bfloat16),
     }
-    back = deserialize(serialize(tree, mode=mode), tree)
+    back = deserialize(serialize(tree, mode=mode), tree, device="cpu")
     assert back["w"].dtype == torch.bfloat16 and back["n"].dtype == torch.bfloat16
     assert torch.equal(back["n"], tree["n"])
     if mode == "zstd+int8":
@@ -174,21 +174,39 @@ def test_restore_into_meta_target_casts_and_checks_paths():
     blob = serialize(tree, mode="zstd")
     target = {"a": torch.empty((4, 128), dtype=torch.bfloat16, device="meta"),
               "b": {"c": torch.empty(3, dtype=torch.int32, device="meta")}}
-    back = deserialize(blob, target)
+    back = deserialize(blob, target, device="cpu")
     assert back["a"].dtype == torch.bfloat16 and back["a"].device.type == "cpu"
     assert torch.equal(back["a"], tree["a"].to(torch.bfloat16))
     assert torch.equal(back["b"]["c"], tree["b"]["c"])
     with pytest.raises(KeyError):
-        deserialize(serialize({"a": tree["a"]}), target)
+        deserialize(serialize({"a": tree["a"]}), target, device="cpu")
 
 
 def test_manager_rotation_and_latest(tmp_path):
     m = CheckpointManager(str(tmp_path), keep=2, mode="zstd+int8")
-    assert m.restore_latest() == (None, None)
+    assert m.restore_latest(device="cpu") == (None, None)
     for step in range(4):
         m.save(step, {"w": torch.full((2, 4), float(step))})
     assert m.steps() == [2, 3]
-    step, back = m.restore_latest({"w": torch.empty((2, 4), device="meta")})
+    step, back = m.restore_latest({"w": torch.empty((2, 4), device="meta")}, device="cpu")
     assert step == 3 and torch.equal(back["w"], torch.full((2, 4), 3.0))
     (tmp_path / "step_9.ckpt.tmp").write_bytes(b"partial")
     assert m.steps() == [2, 3]
+
+
+def test_restore_defaults_to_the_card_and_raises_without_it(tmp_path, monkeypatch):
+    """``deserialize``, ``restore`` and ``restore_latest`` restore onto the
+    card unless the caller passes ``device="cpu"``; with no card they raise
+    instead of landing on the CPU."""
+    tree = {"w": torch.arange(8, dtype=torch.float32).reshape(2, 4)}
+    blob = serialize(tree)
+    m = CheckpointManager(str(tmp_path))
+    m.save(0, tree)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: deserialize(blob), lambda: m.restore(0), lambda: m.restore_latest()):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert torch.equal(deserialize(blob, device="cpu")["w"], tree["w"])
+    assert torch.equal(m.restore(0, device="cpu")["w"], tree["w"])
+    step, back = m.restore_latest(device="cpu")
+    assert step == 0 and back["w"].device.type == "cpu" and torch.equal(back["w"], tree["w"])

@@ -122,9 +122,10 @@ def emulate_bf16_kernel(q, k, v, *, causal, window, q_offset, bq=64, bk=64):
     blocks of ``bq`` rows that pack the H/KVH query heads of one kv head
     (row r = position r // group, head r % group), the block's key tiles of
     ``bk`` from its first to its last unmasked tile, S in fp32 from bf16
-    inputs, the online softmax in fp32 in base 2, P rounded to bf16 before
-    P·V, the denominator summed over the rounded P, fp32 sums, and l == 0
-    giving 0.  q, k, v are bf16 tensors; returns bf16."""
+    inputs, the online softmax in fp32 in base 2, P in two bf16 parts (its
+    rounding and the rounding of the rest) for P·V, the denominator summed
+    over the two parts, fp32 sums, and l == 0 giving 0.  q, k, v are bf16
+    tensors; returns bf16."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     group = h // kvh
@@ -161,9 +162,11 @@ def emulate_bf16_kernel(q, k, v, *, causal, window, q_offset, bq=64, bk=64):
                     mx = torch.maximum(m, s.max(dim=1).values)
                     mu = torch.where(mx == float("-inf"), 0.0, mx)
                     alpha = torch.exp2(m - mu)
-                    p = torch.exp2(s - mu[:, None]).to(torch.bfloat16).float()
-                    l = l * alpha + p.sum(dim=1)
-                    acc = acc * alpha[:, None] + p @ vt
+                    p = torch.exp2(s - mu[:, None])
+                    hi = p.to(torch.bfloat16).float()
+                    lo = (p - hi).to(torch.bfloat16).float()
+                    l = l * alpha + (hi + lo).sum(dim=1)
+                    acc = acc * alpha[:, None] + lo @ vt + hi @ vt
                     m = mx
                 o = acc * torch.where(l == 0, 0.0, 1.0 / l)[:, None]
                 pr = torch.arange(r0, r0 + n)
@@ -203,8 +206,8 @@ EMULATED = [
 
 @pytest.mark.parametrize("b,sq,sk,h,kvh,d,causal,window,q_offset", EMULATED)
 def test_bf16_kernel_numerics_match_jax_reference(jref, b, sq, sk, h, kvh, d, causal, window, q_offset):
-    """bf16 P before P·V, fp32 everywhere else, stays within the reference
-    tests' bf16 limit of the JAX package's plain attention."""
+    """P in two bf16 parts for P·V, fp32 everywhere else, stays within the
+    reference tests' bf16 limit of the JAX package's plain attention."""
     _, ref = jref
     (jq, jk, jv), (q, k, v) = make_qkv(7, b, sq, sk, h, kvh, d, "bfloat16")
     kw = dict(causal=causal, window=window, q_offset=q_offset)

@@ -97,6 +97,12 @@ def test_module_list_covers_the_slice():
         "repro_torch.configs.yi_6b",
         "repro_torch.configs.internlm2_20b",
         "repro_torch.configs.qwen3_32b",
+        "repro_torch.models.moe",
+        "repro_torch.configs.mixtral_8x7b",
+        "repro_torch.configs.qwen3_moe_235b_a22b",
+        "repro_torch.configs.jamba_1_5_large_398b",
+        "repro_torch.configs.hubert_xlarge",
+        "repro_torch.configs.llava_next_mistral_7b",
     ):
         assert name in mods
 
@@ -161,22 +167,22 @@ print("ran", simulate(paper_experiment()).n_items)
     assert "ran 771805" in out.stdout
 
 
-def test_later_slice_configs_raise_with_their_slice():
-    from repro_torch.configs import LATER_SLICES, get_config, list_archs
-    from repro_torch.configs.base import register
-
-    assert list_archs() == ["internlm2-20b", "mamba2-370m", "qwen3-1.7b", "qwen3-32b", "yi-6b"]
-    # the paper's LSTM is not an arch of the registry, as in the reference
-    assert "paper-lstm-h20" not in LATER_SLICES
-    with pytest.raises(KeyError, match="unknown arch"):
-        get_config("paper-lstm-h20")
-    with pytest.raises(NotImplementedError, match="MoE and hybrid"):
-        get_config("jamba-1.5-large-398b")
-    assert "mixtral-8x7b" in LATER_SLICES
-    assert not {"yi-6b", "internlm2-20b", "qwen3-32b"} & set(LATER_SLICES)
-    cfg = get_config("qwen3-1.7b")
-
+def test_registry_holds_every_config_of_the_reference():
+    """All ten of the reference's architectures, full and reduced; the
+    paper's LSTM is not an arch of the registry, as in the reference."""
     import dataclasses
 
-    with pytest.raises(NotImplementedError, match="remaining-model-families"):
-        register(lambda: dataclasses.replace(cfg, name="mixtral-8x7b"), lambda: cfg)
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.models import model_zoo as zoo
+
+    assert list_archs() == [
+        "hubert-xlarge", "internlm2-20b", "jamba-1.5-large-398b", "llava-next-mistral-7b",
+        "mamba2-370m", "mixtral-8x7b", "qwen3-1.7b", "qwen3-32b", "qwen3-moe-235b-a22b", "yi-6b",
+    ]
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("paper-lstm-h20")
+    for name in list_archs():
+        full, reduced = get_config(name), get_config(name, reduced=True)
+        assert reduced.name == f"{name}-reduced" and reduced.family == full.family
+        assert dataclasses.replace(reduced, name=full.name).mlp_kind == full.mlp_kind
+        assert zoo.param_shapes(reduced)["final_norm"].shape == (reduced.d_model,)

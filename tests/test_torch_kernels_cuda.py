@@ -46,6 +46,16 @@ TABLE = [
     (2, 32, 32, 48, 8, 128, True, 0, 0),      # group 6, internlm2-20b
     (1, 100, 100, 48, 8, 128, True, 0, 0),    # group 6, ragged
     (1, 2048, 2048, 64, 8, 128, True, 0, 0),  # group 8, a long qwen3-32b prefill
+    # the MoE, hybrid and frontend families' shapes
+    (2, 32, 32, 64, 4, 128, True, 0, 0),      # group 16, qwen3-moe's prefill
+    (1, 100, 100, 64, 4, 128, True, 0, 0),    # group 16, ragged
+    (1, 8192, 8192, 32, 8, 128, True, 4096, 0),   # mixtral's window 4096 at S 8192
+    (1, 4608, 4608, 32, 8, 128, True, 4096, 0),   # mixtral's prompt beyond its window
+    (2, 32, 32, 32, 8, 128, True, 4096, 0),   # mixtral's prefill: the window lets all through
+    (2, 512, 512, 16, 16, 80, False, 0, 0),   # hubert: head dim 80, bidirectional, MHA
+    (1, 77, 77, 16, 16, 80, False, 0, 0),     # head dim 80, bidirectional, ragged
+    (2, 608, 608, 32, 8, 128, True, 0, 0),    # llava: 576 patches + 32 tokens
+    (2, 32, 32, 64, 8, 128, True, 0, 0),      # jamba's attention position
 ]
 LSTM_TABLE = [
     (4, 32, 6, 20), (1, 16, 3, 7), (8, 64, 12, 20),   # tests/kernels/test_lstm.py
@@ -287,6 +297,9 @@ SSD_TABLE = [   # b, s, h, p, g, n, chunk, a = -1
     (1, 1024, 4, 64, 1, 128, 64, False),
     (1, 128, 4, 64, 1, 128, 128, True),
     (1, 256, 8, 64, 4, 128, 128, True),
+    # jamba's mixer: 256 heads, a prompt of 32 padded to one chunk of 128
+    (2, 128, 256, 64, 1, 128, 128, True),
+    (1, 256, 256, 64, 1, 128, 128, True),
 ]
 SSD_Y, SSD_STATE = 5e-4, 5e-5      # tests/kernels/test_ssd.py:49-50
 

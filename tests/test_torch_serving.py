@@ -183,14 +183,24 @@ def test_bring_up_defaults_to_cuda(jref, tmp_path, monkeypatch):
         bring_up_from_checkpoint(cfg, CheckpointManager(str(tmp_path)), 8)
 
 
-def test_unported_layer_kinds_raise(jref):
-    _, cfg = _configs(jref)
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        zoo.specs(dataclasses.replace(cfg, family="hybrid", ssm_state=16, attn_every=2))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        zoo.specs(dataclasses.replace(cfg, family="moe", num_experts=4, experts_per_token=2))
-    with pytest.raises(NotImplementedError, match="GELU"):
-        zoo.specs(dataclasses.replace(cfg, mlp_kind="gelu"))
+@pytest.mark.parametrize("reduced", [True, False])
+def test_every_config_matches_jax_field_and_tree(jref, reduced):
+    """Every architecture of the reference, full and reduced: the port's
+    config equal field for field, the same parameter count, and the same
+    parameter tree (every leaf's path and shape): hybrid periods, MoE
+    stacks, GELU FFNs and the frontends' projections included."""
+    from repro_torch.configs import get_config, list_archs
+
+    assert list_archs() == jref["base"].list_archs()
+    for name in list_archs():
+        jcfg, cfg = jref["base"].get_config(name, reduced), get_config(name, reduced)
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg), name
+        assert cfg.param_count() == jcfg.param_count()
+        jflat = {jax.tree_util.keystr(p): s.shape for p, s in
+                 jax.tree_util.tree_flatten_with_path(jref["zoo"].param_shapes(jcfg))[0]}
+        oflat = {jax.tree_util.keystr(p): tuple(t.shape) for p, t in
+                 jax.tree_util.tree_flatten_with_path(zoo.param_shapes(cfg))[0]}
+        assert oflat == jflat, name
 
 
 def test_generate_attends_through_the_kernel_wrapper_once_per_layer(monkeypatch):

@@ -268,7 +268,9 @@ def emulate_ssd_kernel(x, dt, a, b_mat, c_mat, d_vec, *, chunk, init_state=None)
        steps in order, the lane sums scanned as the shuffles do
        (Hillis–Steele), the lanes below's sum added; the score tile
        S[j][i] = B_j·C_i once per (batch, group, chunk);
-    2. each chunk's own state Σ_j ((x_j·dt_j)·exp(total − cs_j)) ⊗ B_j;
+    2. each chunk's own state Σ_j ((x_j·dt_j)·decay_j) ⊗ B_j, with decay_j
+       = exp(Σ_{i>j} a·dt_i) summed from the chunk's end: each lane's steps
+       from its last, the lanes above's sums scanned as the shuffles do;
     3. the states passed in order: slot c ← carry,
        carry ← exp(total_c)·carry + ΔH_c, from init_state or zeros;
     4. y = exp(cs_i)·(C_i·H_entering) + Σ_{j≤i} (S[j][i]·exp(cs_i − cs_j))·(x_j·dt_j)
@@ -305,7 +307,18 @@ def emulate_ssd_kernel(x, dt, a, b_mat, c_mat, d_vec, *, chunk, init_state=None)
     scores = torch.einsum("bcjgn,bcign->bcgji", bc, cc)             # once per group
     xbar = (xf * dtf[..., None]).reshape(bsz, nc, q, h, p)
     total = cs[:, :, -1]                                              # (B, NC, H)
-    decay = torch.exp(total[:, :, None] - cs)
+    after, run = [None] * per, torch.zeros((bsz, nc, lanes, h))
+    for k in reversed(range(per)):
+        after[k] = run                                                # the lane's steps after k
+        run = run + la[:, :, :, k]
+    incl = run
+    for off in (1, 2, 4, 8, 16):
+        above = torch.zeros_like(incl)
+        above[:, :, :-off] = incl[:, :, off:]
+        incl = incl + above
+    above = torch.zeros_like(incl)
+    above[:, :, :-1] = incl[:, :, 1:]
+    decay = torch.exp(torch.stack(after, dim=3) + above[:, :, :, None]).reshape(bsz, nc, q, h)
     bh, ch = bc.repeat_interleave(hpg, dim=3), cc.repeat_interleave(hpg, dim=3)
     own = torch.einsum("bcjhp,bcjhn->bchpn", xbar * decay[..., None], bh)
     carry = torch.zeros((bsz, h, p, n)) if init_state is None else init_state.float()
@@ -337,6 +350,7 @@ EMULATED = [   # b, s, h, p, g, n, chunk, a = -1
     (1, 1024, 4, 64, 1, 128, 64, False),         # many chunks, the state passed between them
     (1, 256, 8, 64, 4, 128, 128, True),          # four groups
     (2, 256, 32, 64, 1, 128, 128, True),         # the served prefill, the init's a = -1
+    (2, 128, 256, 64, 1, 128, 128, True),        # jamba's mixer: 256 heads, one chunk
 ]
 
 
