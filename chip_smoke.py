@@ -135,6 +135,7 @@ DENSE = {"yi-6b": 32, "internlm2-20b": 24, "qwen3-32b": 32}   # arch → depth o
 DENSE_DRAWS = 8                             # token draws (B 2, prompt 32) a dense model
 DENSE_DECIDED = 2                           # fewest bf16-decided rows its argmax check may hold
 MOE = {"mixtral-8x7b": (22, 11), "qwen3-moe-235b-a22b": (12, 6)}   # arch → depth in bf16, fp32
+MOE_DISPATCH_LIMIT = {"bfloat16": 3e-2, "float32": 1e-5}   # grouped dispatch vs dense oracle, one layer
 MOE_WINDOW_PROMPT = 4608                    # mixtral's request beyond its 4096 window
 CKPT_DIR_MOE = ROOT / "build" / "chip_smoke_ckpt_mixtral"
 JAMBA = "jamba-1.5-large-398b"
@@ -1444,15 +1445,6 @@ def _widen(tree):
     return {k: _widen(v) for k, v in tree.items()}
 
 
-def _step64(bp, x, cfg, pos):
-    """One block of the plain path in float64: the decoder's per-position
-    step on the block's widened weights."""
-    from repro_torch.models import decoder
-
-    with plain_path():
-        return decoder.forward_block(_widen(bp), x, cfg, pos)[0]
-
-
 def _head64(params, cfg, x):
     """Final norm and head in float64, 16384 vocabulary columns at a time."""
     import torch
@@ -1466,33 +1458,6 @@ def _head64(params, cfg, x):
     for c0 in range(0, head.shape[1], 16384):
         out[..., c0:c0 + 16384] = x @ head[:, c0:c0 + 16384].double()
     return out
-
-
-def _float64_forward(cfg, params, batch, all_positions=False):
-    """Logits of the plain path in float64 on the same weights, at the last
-    position (or at every position, for the encoder): every block through
-    the decoder's per-position step, its weights widened as it runs (a
-    64-layer float64 copy would not fit the card), an MoE layer's one expert
-    at a time; norms, RoPE, the softmax, the routing, the MoE combine and the
-    SSD's sums stay in fp32, as the model computes them."""
-    import torch
-
-    from repro_torch.models import decoder
-
-    small = {k: params[k] for k in ("embed",) if k in params}
-    if "frontend_proj" in params:
-        small["frontend_proj"] = params["frontend_proj"].double()
-    with torch.inference_mode():
-        x = decoder.embed_inputs(small, batch, cfg).double()
-        for pos, bp in decoder.blocks(params, cfg):
-            x = _step64(bp, x, cfg, pos)
-        return _head64(params, cfg, x if all_positions else x[:, -1])
-
-
-def _cat(batches: list) -> dict:
-    import torch
-
-    return {k: torch.cat([b[k] for b in batches]) for k in batches[0]}
 
 
 @contextlib.contextmanager
@@ -1562,14 +1527,22 @@ def _routing_flips(kernel: list, plain: list, cfg, label: str) -> int:
     return len(flips)
 
 
-def _float64_rule(a, b, ref) -> tuple[list, str, list]:
-    """The bf16 rule against the float64 forward's logits ``ref``: the rows
-    bf16 can decide (top-two margin in ``ref`` above twice the larger of the
-    two paths' errors on that row), the printed summary, and the gates: the
-    kernel path ``a`` no further from ``ref`` than 1.5 times the plain path
-    ``b``, at least ``DENSE_DECIDED`` decided rows, and both paths' argmax
-    equal to ``ref``'s on them → (decided rows, summary, gates)."""
+def _bf16_rule(a, b, ref, limit: float) -> tuple[list, str, list]:
+    """The bf16 gates against the float64 forward's logits ``ref``, in one
+    place: the kernel path ``a`` within ``limit`` of the plain path ``b``
+    (relative to the largest logit), or within twice the plain path's own
+    distance from ``ref`` where that is larger; ``a`` no further from ``ref``
+    than 1.5 times ``b``; at least ``DENSE_DECIDED`` rows that bf16 can
+    decide (top-two margin in ``ref`` above twice the larger of the two
+    paths' errors on that row), and both paths' argmax equal to ``ref``'s
+    on them → (decided rows, printed summary, gates).
+
+    Two bf16 paths that each lie d from the exact logits may lie 2d apart,
+    so a limit below 2d cannot tell a sound kernel from a broken one: at
+    full depth llava's plain path lay 3.3 % of the largest logit from the
+    float64 forward and jamba's period 6.7 % (PERF.md)."""
     n_rows, many = a.shape[0], a.shape[0] > 32
+    top = float(b.abs().max())
     e_kernel, e_plain = ((x.double() - ref).abs().amax(-1) for x in (a, b))
     top2 = ref.topk(2, dim=-1).values
     margin = (top2[:, 0] - top2[:, 1]).tolist()
@@ -1578,31 +1551,38 @@ def _float64_rule(a, b, ref) -> tuple[list, str, list]:
     by_row = "" if many else (f" (by row: kernel {[round(float(v), 4) for v in e_kernel]}, "
                               f"plain {[round(float(v), 4) for v in e_plain]})")
     e_kernel, e_plain = float(e_kernel.max()), float(e_plain.max())
-    line = (f"; against the float64 forward: kernel {e_kernel:.4g}, plain {e_plain:.4g} "
-            f"({e_kernel / e_plain:.3f}x){by_row}, top-2 margins "
+    err, bound = float((a - b).abs().max()) / top, max(limit, 2 * e_plain / top)
+    line = (f"; limit {bound:.4g} = max({limit}, twice the plain path's {e_plain / top:.4g} of the largest "
+            f"logit from the float64 forward); against the float64 forward: kernel {e_kernel:.4g}, plain "
+            f"{e_plain:.4g} ({e_kernel / e_plain:.3f}x){by_row}, top-2 margins "
             f"{f'smallest {min(margin):.4g}' if many else [round(m, 5) for m in margin]}, "
             f"rows bf16 can decide {f'{len(rows)} of {n_rows}' if many else rows}")
-    gates = [(e_kernel <= 1.5 * e_plain, f"kernel {e_kernel:.3g} from the float64 forward, plain {e_plain:.3g}"),
+    gates = [(err <= bound, f"kernel vs plain differ by {err:.3g} of the largest logit, limit {bound:.3g}"),
+             (e_kernel <= 1.5 * e_plain, f"kernel {e_kernel:.3g} from the float64 forward, plain {e_plain:.3g}"),
              (len(rows) >= DENSE_DECIDED, f"bf16 decides {len(rows)} of {n_rows} rows, fewer than {DENSE_DECIDED}"),
              (all(same_ref), "argmax differs from the float64 forward's on a row bf16 decides")]
     return rows, line, gates
 
 
-def _prefill_check(cfg, params, batches, label: str, limit: float, card: str,
-                   encode: bool = False) -> dict:
-    """Prefill (for the encoder, ``encode_fn``) through the kernels against
-    the plain path (the kernel ops swapped for their plain versions here
-    only) on the same weights, one call per input batch: within ``limit`` of
-    the largest logit, one flash launch per attention layer and one SSD
-    launch per Mamba-2 layer a call, and equal argmax.  In bf16 the argmax
-    is held on the rows that bf16 can decide: those whose top two logits in
-    the float64 forward of the same weights lie further apart than twice the
-    larger of the two paths' errors against it on that row (at 48 and 64
-    layers of random weights a row's top two logits lay 0.06 % and 0.14 % of
-    the largest logit apart, far inside either bf16 path's 2 % drift, and the
-    plain path's argmax itself left the float64 forward's), at least
-    ``DENSE_DECIDED`` of them; and the kernel path must lie no further from
-    the float64 forward than 1.5 times the plain path does.
+def _prefill_check(cfg, params, batches, label: str, limit: float, card: str, blocks=None) -> dict:
+    """Prefill (for the encoder, ``encode_fn``'s forward) through the
+    kernels against the plain path (the kernel ops swapped for their plain
+    versions here only) on the same weights, a block at a time over every
+    input batch: one flash launch per attention layer and one SSD launch per
+    Mamba-2 layer a batch, and the logits at the end.  In fp32 they agree
+    within ``limit`` of the largest logit, with equal argmax.  In bf16 they
+    are held by ``_bf16_rule`` against a float64 forward of the same weights
+    (each block widened as it runs, an MoE layer one expert at a time): at
+    48 and 64 layers of random weights a row's top two logits lay 0.06 % and
+    0.14 % of the largest logit apart, far inside either bf16 path's 2 %
+    drift, so the argmax is held on the rows bf16 can decide.
+
+    ``params`` is the whole model, first run twice through its entry point
+    (``prefill_fn``, or ``encode_fn``) for the timing; or, with ``blocks``
+    (an iterator of (position, block parameters) that draws each block when
+    asked for it), only its embedding, final norm and head: a model streamed
+    a block at a time, each block then also held alone in bf16, on the plain
+    path's input, against the plain path and the float64 forward.
 
     Where the model routes tokens (MoE), a routing flip moves a token's FFN
     output by a share of its size, and the flips of one layer change the
@@ -1617,56 +1597,118 @@ def _prefill_check(cfg, params, batches, label: str, limit: float, card: str,
 
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.ssd import ops as so
+    from repro_torch.models import decoder
     from repro_torch.models import model_zoo as zoo
+    from repro_torch.models.common import rms_norm
 
-    def run(batch):
+    encode = not cfg.decode_supported
+    bf16, moe, streamed = params["final_norm"].dtype == torch.bfloat16, bool(cfg.num_experts), blocks is not None
+
+    def steps(bp, xs, pos):
         if encode:
-            return zoo.encode_fn(params, batch, cfg).flatten(0, 1)
-        seq = sum(batch[k].shape[1] for k in ("tokens", "patch_embeds") if k in batch)
-        return zoo.prefill_fn(params, batch, cfg, max(48, seq))[0]
+            return [decoder.forward_block(bp, x, cfg, pos)[0] for x in xs]
+        return [decoder.prefill_block(bp, x, cfg, pos, max(48, x.shape[1]))[0] for x in xs]
 
-    def sweep():
-        return torch.cat([run(b) for b in batches])
+    def logits(xs):
+        return torch.cat([decoder.logits_at(params, rms_norm(x if encode else x[:, -1:], params["final_norm"],
+                                                               cfg.norm_eps), cfg).flatten(0, 1) for x in xs])
 
-    bf16, moe = params["final_norm"].dtype == torch.bfloat16, bool(cfg.num_experts)
+    small = {k: params[k] for k in ("embed",) if k in params}
+    if "frontend_proj" in params:
+        small["frontend_proj"] = params["frontend_proj"].double()
+    times, routes_of = [], {"kernel": [], "plain": [], "float64": []}     # per MoE layer, a route a batch
+    fa.launches = so.launches = 0
     with torch.inference_mode():
-        times = []
-        for _ in range(2):                      # the first call warms up cuBLAS
-            t0 = time.perf_counter()
-            run(batches[0])
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        fa.launches = so.launches = 0
-        with recorded_routes() as routes:
-            a = sweep()
-            n_fa, n_ssd = fa.launches, so.launches
-            kernel_routes = routes[:]
-            routes.clear()
-            with plain_path():
-                b = sweep()
-            plain_routes = routes[:]
-            routes.clear()
-            if bf16 and moe:                    # a call per batch, as the paths' calls
-                ref = torch.cat([_float64_forward(cfg, params, x) for x in batches])
-            elif bf16:
-                ref = _float64_forward(cfg, params, _cat(batches), all_positions=encode)
-                ref = ref.flatten(0, 1) if encode else ref
-            ref_routes = routes[:]
-        if moe:
-            pin = [ids for _, ids in (ref_routes if bf16 else kernel_routes)]
-            with pinned_routes(pin):
-                a_free, a = a, sweep()
-            with pinned_routes(pin), plain_path():
-                b_free, b = b, sweep()
+        if not streamed:
+            for _ in range(2):                  # the first call warms up cuBLAS
+                t0 = time.perf_counter()
+                if encode:
+                    zoo.encode_fn(params, batches[0], cfg)
+                else:
+                    seq = decoder.embed_inputs(params, batches[0], cfg).shape[1]
+                    zoo.prefill_fn(params, batches[0], cfg, max(48, seq))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            blocks = decoder.blocks(params, cfg)
+        n_fa, n_ssd = fa.launches, so.launches
+        x0 = [decoder.embed_inputs(params, x, cfg) for x in batches]
+        xs = {k: x0 for k in ("kernel", "plain", "kernel_free", "plain_free")}
+        if bf16:
+            xs["float64"] = [decoder.embed_inputs(small, x, cfg).double() for x in batches]
+    alone = []                                  # a streamed bf16 block held alone: (pos, e_kp, e_k, e_p)
+    for pos, bp in blocks:
+        with torch.inference_mode():
+            with recorded_routes() as routes:
+                fa0, ssd0, t0 = fa.launches, so.launches, time.perf_counter()
+                xs["kernel_free"] = steps(bp, xs["kernel_free"], pos)
+                torch.cuda.synchronize()
+                run_s = time.perf_counter() - t0
+                got = (fa.launches - fa0, so.launches - ssd0)
+                kernel_r = routes[:]
+                routes.clear()
+                with plain_path():
+                    xs["plain_free"] = steps(bp, xs["plain_free"], pos)
+                plain_r = routes[:]
+                routes.clear()
+                if bf16:
+                    wide = _widen(bp)
+                    with plain_path():
+                        xs["float64"] = [decoder.forward_block(wide, x, cfg, pos)[0] for x in xs["float64"]]
+                ref_r = routes[:]
+                routes.clear()
+                if streamed and bf16:
+                    inputs = xs["plain"]
+                    with plain_path():
+                        ref = [decoder.forward_block(wide, x.double(), cfg, pos)[0] for x in inputs]
+                    alone_pin = [ids for _, ids in routes]
+            if moe:                             # the gated paths, their routing pinned
+                pin = [ids for _, ids in (ref_r if bf16 else kernel_r)]
+                with pinned_routes(pin):
+                    xs["kernel"] = steps(bp, xs["kernel"], pos)
+                with pinned_routes(pin), plain_path():
+                    xs["plain"] = steps(bp, xs["plain"], pos)
+            else:
+                xs["kernel"], xs["plain"] = xs["kernel_free"], xs["plain_free"]
+            if streamed and bf16:
+                with pinned_routes(alone_pin):
+                    k1 = steps(bp, inputs, pos)
+                with pinned_routes(alone_pin), plain_path():
+                    p1 = steps(bp, inputs, pos)
+                c_k, c_p, c_r = (torch.cat([(y.double() - x.double()) for y, x in zip(ys, inputs)])
+                                 for ys in (k1, p1, ref))
+                alone.append((pos, float((c_k - c_p).abs().max()) / float(c_p.abs().max()),
+                              float((c_k - c_r).abs().max()), float((c_p - c_r).abs().max())))
+                del inputs, ref, k1, p1, c_k, c_p, c_r
+        for k, r in (("kernel", kernel_r), ("plain", plain_r), ("float64", ref_r)):
+            if r:
+                routes_of[k].append(r)
+        want = (len(batches), 0) if cfg.layer_kind(pos) == "attn" else (0, len(batches))
+        if streamed:
+            kind = ("attention" if cfg.layer_kind(pos) == "attn" else "mamba-2") + (
+                " + MoE" if cfg.layer_is_moe(pos) else " + dense FFN")
+            print(f"  {label}: position {pos} ({kind}, {_weight_gb(bp):.3f} GB): {len(batches)} kernel "
+                  f"prefill steps {run_s:.4f} s, flash / ssd launches {got}")
+        check(got == want, f"{label}: position {pos}: flash / ssd launches {got}, not {want}")
+        n_fa, n_ssd = n_fa + got[0], n_ssd + got[1]
+        bp = wide = None                        # a streamed block goes before the next is drawn
+    with torch.inference_mode():
+        a, b, a_free, b_free = (logits(xs[k]) for k in ("kernel", "plain", "kernel_free", "plain_free"))
+        if bf16:
+            ref = torch.cat([_head64(params, cfg, x if encode else x[:, -1]).flatten(0, -2)
+                             for x in xs["float64"]])
+    # the routes came a layer at a time; _routing_flips reads them a call at a time
+    kernel_routes, plain_routes, ref_routes = (
+        [layer[c] for c in range(len(batches)) for layer in routes_of[k]] for k in ("kernel", "plain", "float64"))
     n_rows = a.shape[0]
     finite = a.shape == (n_rows, cfg.vocab_size) and bool(torch.isfinite(a).all())
     err, top = float((a - b).abs().max()), float(b.abs().max())
     same = (a.argmax(-1) == b.argmax(-1)).int().tolist()
-    rows = list(range(n_rows))
     many = n_rows > 32
-    line, gates = "", []
     if bf16:
-        rows, line, gates = _float64_rule(a, b, ref)
+        rows, line, gates = _bf16_rule(a, b, ref, limit)
+    else:
+        rows, line = list(range(n_rows)), f", limit {limit}"
+        gates = [(err / top <= limit, f"kernel vs plain differ by {err / top:.3g} of the largest logit")]
     if moe:
         free = float((a_free - b_free).abs().max())
         line = (f"; routing pinned to the {'float64 forward' if bf16 else 'kernel path'}'s choices{line}; "
@@ -1682,21 +1724,29 @@ def _prefill_check(cfg, params, batches, label: str, limit: float, card: str,
               else [round(float(v), 4) for v in std])
     attn_layers = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.num_layers))
     ssm_layers = cfg.num_layers - attn_layers
+    calls = len(batches) + (0 if streamed else 2)
     by_row = "" if many else f" (by row {[round(float(v) / top, 4) for v in (a - b).abs().amax(-1)]})"
-    print(f"  {label}: two calls {[round(t, 4) for t in times]} s, then one for each of {len(batches)} "
-          f"input draws; flash launches {n_fa}, ssd launches {n_ssd}; logits, kernel vs plain path: "
-          f"max_abs_err {err:.3g}, relative error {err / top:.3g}{by_row} (max |logit| {top:.4g}, limit "
-          f"{limit}), argmax equal in {sum(same)} of {n_rows} rows, logit std {spread}{line} [{card}]")
+    timing = "" if streamed else f"two calls {[round(t, 4) for t in times]} s, then "
+    print(f"  {label}: {timing}one for each of {len(batches)} input draws, a block at a time; flash launches "
+          f"{n_fa}, ssd launches {n_ssd}; logits, kernel vs plain path: max_abs_err {err:.3g}, relative "
+          f"error {err / top:.3g}{by_row} (max |logit| {top:.4g}), argmax equal in {sum(same)} of {n_rows} "
+          f"rows, logit std {spread}{line} [{card}]")
+    for pos, e_kp, e_k, e_p in alone:
+        print(f"  {label}: position {pos} alone on the plain path's input, routing pinned to the float64 "
+              f"forward's: its contribution (output − input), kernel vs plain path, relative error "
+              f"{e_kp:.3g} (limit {limit}); against the float64 forward: kernel {e_k:.4g}, plain {e_p:.4g} "
+              f"({e_k / e_p:.3f}x)")
+        gates += [(e_kp <= limit, f"position {pos}: kernel vs plain differ by {e_kp:.3g}"),
+                  (e_k <= 1.5 * e_p, f"position {pos}: kernel {e_k:.3g} from the float64 forward, plain {e_p:.3g}")]
     flips = _routing_flips(kernel_routes, plain_routes, cfg, label) if moe else 0
     check(finite, f"{label}: logits of shape {tuple(a.shape)} or non-finite")
     for ok, msg in gates:
         check(ok, f"{label}: {msg}")
-    check(n_fa == len(batches) * attn_layers and n_ssd == len(batches) * ssm_layers,
-          f"{label}: {n_fa} flash and {n_ssd} ssd launches for {len(batches)} calls of {cfg.num_layers} layers")
-    check(err / top <= limit, f"{label}: kernel vs plain differ by {err / top:.3g} of the largest logit")
+    check(n_fa == calls * attn_layers and n_ssd == calls * ssm_layers,
+          f"{label}: {n_fa} flash and {n_ssd} ssd launches for {calls} calls of {cfg.num_layers} layers")
     check(all(same[r] for r in rows), f"{label}: argmax differs between the paths on a row bf16 decides")
-    return dict(prefill_s=times[-1], rel_err=err / top, flips=flips,
-                flash_launches=n_fa + 2 * attn_layers, ssd_launches=n_ssd + 2 * ssm_layers)
+    return dict(prefill_s=times[-1] if times else None, rel_err=err / top, flips=flips,
+                flash_launches=n_fa, ssd_launches=n_ssd)
 
 
 def _route_differences(one: list, other: list) -> int:
@@ -1856,33 +1906,43 @@ def _window_request(cfg, params, label, card) -> int:
     return n_fa
 
 
-def _moe_times(cfg, params, label, card) -> dict:
-    """One MoE layer's FFN on a normal input at the prefill's 64 tokens and a
-    decode step's 2: the grouped dispatch (the model's path; it reads the
-    per-expert counts on the host) against the dense oracle, beside the
-    bound of reading the weights of the experts the tokens touch."""
+def _moe_layer(cfg, params, label, card) -> dict:
+    """The first MoE layer's FFN on a normal input at the prefill's 64
+    tokens and a decode step's 2: the grouped dispatch (the model's path; it
+    reads the per-expert counts on the host) held to the dense oracle on the
+    same input, within ``MOE_DISPATCH_LIMIT`` of the oracle's largest
+    output, and timed beside it and beside the bound of reading the weights
+    of the experts the tokens touch."""
     import torch
 
     from repro_torch.models import decoder, moe
 
-    bp = decoder._layer(params["periods"], 0)["pos0"]["moe"]
+    bp = next(bp for pos, bp in decoder.blocks(params, cfg) if cfg.layer_is_moe(pos))["moe"]
+    dtype = params["final_norm"].dtype
+    limit = MOE_DISPATCH_LIMIT[str(dtype)[6:]]
     gen = torch.Generator("cuda").manual_seed(9)
     out = {}
     for name, tokens in (("prefill", 32), ("decode", 1)):
-        h = torch.randn((2, tokens, cfg.d_model), generator=gen, device="cuda").to(params["final_norm"].dtype)
+        h = torch.randn((2, tokens, cfg.d_model), generator=gen, device="cuda").to(dtype)
         with torch.inference_mode():
             _, ids, _ = moe.route(h.reshape(-1, cfg.d_model), bp["router"], cfg.experts_per_token)
             touched = len(set(ids.flatten().tolist()))
+            got, want = moe.moe_block(bp, h, cfg)[0], moe.moe_reference(bp, h, cfg)[0]
             k_ms = time_ms(lambda: moe.moe_block(bp, h, cfg))
             d_ms = time_ms(lambda: moe.moe_reference(bp, h, cfg))
+        err, top = float((got.float() - want.float()).abs().max()), float(want.float().abs().max())
         expert_bytes = 3 * cfg.d_model * cfg.d_ff * h.element_size()
         b_ms, b_by = bound_ms(touched * expert_bytes, 6.0 * 2 * tokens * cfg.experts_per_token * cfg.d_model
-                              * cfg.d_ff, "bfloat16")
+                              * cfg.d_ff, str(dtype)[6:])
         print(f"  {label}: one MoE layer at {2 * tokens} tokens ({touched} of {cfg.num_experts} experts "
-              f"touched): grouped dispatch {k_ms:.4f} ms a call, dense oracle {d_ms:.4f} ms, bound "
-              f"{b_ms:.4f} ms by {b_by} (the touched experts' weights, {touched * expert_bytes / 1e9:.3f} GB) "
-              f"[{card}]")
+              f"touched): grouped dispatch vs dense oracle max_abs_err {err:.3g}, relative error "
+              f"{err / top:.3g} (max |output| {top:.4g}, limit {limit}); grouped dispatch {k_ms:.4f} ms a "
+              f"call, dense oracle {d_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} (the touched experts' "
+              f"weights, {touched * expert_bytes / 1e9:.3f} GB) [{card}]")
+        check(got.shape == h.shape and bool(torch.isfinite(got).all()) and err / top <= limit,
+              f"{label}: grouped dispatch and dense oracle differ by {err / top:.3g} at {2 * tokens} tokens")
         out[f"moe_{name}_ms"], out[f"moe_{name}_dense_ms"], out[f"moe_{name}_bound_ms"] = k_ms, d_ms, b_ms
+        out[f"moe_{name}_rel_err"] = err / top
     return out
 
 
@@ -1909,12 +1969,12 @@ def moe_phase(card: str) -> tuple[int, dict]:
             label = f"{arch} {str(dtype)[6:]} at {layers} of {cfg.num_layers} layers"
             print(f"  {label}: {_weight_gb(params):.3f} GB of weights drawn on the card in {init_s:.3f} s")
             row = _prefill_check(c, params, draws, label, limit, card)
+            row.update(_moe_layer(c, params, label, card))
             total += row["flash_launches"]
             if dtype == torch.bfloat16:
                 out, n_fa, _ = _generate(c, params, draws[0], 48, label, card)
                 check(n_fa == layers, f"{label}: {n_fa} flash launches for a prefill")
                 row["decode_step_s"] = out.decode_s / 8
-                row.update(_moe_times(c, params, label, card))
                 total += n_fa
                 if c.sliding_window:
                     total += _window_request(c, params, label, card)
@@ -1927,152 +1987,54 @@ def moe_phase(card: str) -> tuple[int, dict]:
 # ---------------------------------------------------------------------------
 # Phase 13: jamba, streamed a layer at a time
 # ---------------------------------------------------------------------------
+def _draw_block(cfg, pos: int, gen, dtype, label: str) -> dict:
+    """The parameters of the block at position ``pos``, drawn on the card."""
+    import torch
+
+    from repro_torch.models import decoder
+    from repro_torch.models.common import init_from_specs, stack_specs
+
+    t0 = time.perf_counter()
+    bp = decoder._layer(init_from_specs(stack_specs({"b": decoder._block_specs(cfg, pos)}, 1), gen, dtype), 0)["b"]
+    torch.cuda.synchronize()
+    print(f"  {label}: position {pos} drawn on the card in {time.perf_counter() - t0:.3f} s")
+    return bp
+
+
 def jamba_phase(card: str) -> tuple[int, int]:
     """One period of jamba-1.5-large-398b at its published widths, which no
-    card holds whole (88.1 GB in bf16): each of its eight layers is drawn on
-    the card in turn, run through the decoder's per-position prefill step
-    (the SSD kernel at positions 0-3 and 5-7 with 256 heads, flash at 4, the
-    MoE dispatch at the odd positions) on every token draw (B 2, prompt 32
-    padded to one chunk of 128), on the plain path and, in bf16, on the
-    float64 forward (an expert at a time), then freed; in fp32 (a 40.3 GB
-    MoE layer) and bf16 (20.2 GB).  The logits after the period are held as
-    ``_prefill_check`` holds a model's (the routing flips of the paths' own
-    runs on near-ties, the gated comparisons with the routing pinned); in
-    bf16 each layer is also held alone, on the plain path's input, at the
-    same limits and against the float64 forward, and the 3e-2 limit holds
-    the layers (the plain path's own bf16 error after the period is larger
-    than it: PERF.md).  Then
-    the reduced jamba through ``ServingEngine.generate``: prefill and 8
-    decode steps, kernel against plain path → (flash, ssd launches)."""
+    card holds whole (88.1 GB in bf16), streamed through ``_prefill_check``:
+    each of its eight layers drawn on the card in turn, run through the
+    decoder's per-position prefill step (the SSD kernel at positions 0-3 and
+    5-7 with 256 heads, flash at 4, the MoE dispatch at the odd positions)
+    on every token draw (B 2, prompt 32 padded to one chunk of 128), on the
+    plain path and, in bf16, on the float64 forward (an expert at a time),
+    then freed; in fp32 (a 40.3 GB MoE layer) and bf16 (20.2 GB).  Then the
+    reduced jamba through ``ServingEngine.generate``: prefill and 8 decode
+    steps, kernel against plain path → (flash, ssd launches)."""
     import dataclasses
 
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.kernels.ssd import ops as so
     from repro_torch.models import decoder
-    from repro_torch.models.common import init_from_specs, rms_norm, stack_specs
+    from repro_torch.models.common import init_from_specs
 
     cfg = dataclasses.replace(get_config(JAMBA), num_layers=8)
     draws = _token_draws(cfg, 300)
-
-    def stream(dtype, limit) -> tuple[int, int]:
-        """The period in ``dtype``, held as above → (flash, ssd launches);
-        its tensors go when it returns."""
-        n_fa = n_ssd = 0
+    outer_specs = {k: v for k, v in decoder.decoder_specs(cfg).items() if k != "periods"}
+    n_fa = n_ssd = 0
+    for dtype, limit in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
         label = f"{JAMBA} {str(dtype)[6:]}, one period streamed"
         gen = torch.Generator("cuda").manual_seed(30)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        specs = decoder.decoder_specs(cfg)
-        outer = init_from_specs({k: v for k, v in specs.items() if k != "periods"}, gen, dtype)
-        bf16 = dtype == torch.bfloat16
-        first = [outer["embed"][d["tokens"].long()] for d in draws]
-        xs = {k: list(first) for k in ("kernel", "plain", "kernel_free", "plain_free")}
-        if bf16:
-            xs["float64"] = [x.double() for x in first]
-        kernel_routes, plain_routes = [], []
-
-        def step(name, bp, pos, inputs=None):
-            xs[name] = [decoder.prefill_block(bp, x, cfg, pos, 48)[0] for x in (inputs or xs[name])]
-
-        layer_rows = []
-
-        for pos in range(8):
-            t0 = time.perf_counter()
-            bp = decoder._layer(init_from_specs(
-                stack_specs({"b": decoder._block_specs(cfg, pos)}, 1), gen, dtype), 0)["b"]
-            torch.cuda.synchronize()
-            drawn = time.perf_counter() - t0
-            with torch.inference_mode():
-                with recorded_routes() as routes:
-                    fa0, ssd0, t0 = fa.launches, so.launches, time.perf_counter()
-                    step("kernel_free", bp, pos)
-                    torch.cuda.synchronize()
-                    run_s = time.perf_counter() - t0
-                    got = (fa.launches - fa0, so.launches - ssd0)
-                    kernel_routes += routes[:]
-                    pin = [ids for _, ids in routes]
-                    routes.clear()
-                    with plain_path():
-                        step("plain_free", bp, pos)
-                    plain_routes += routes[:]
-                    routes.clear()
-                    if bf16:
-                        xs["float64"] = [_step64(bp, x, cfg, pos) for x in xs["float64"]]
-                        pin = [ids for _, ids in routes]
-                    routes.clear()
-                    if bf16:                    # this layer alone, on the plain path's input
-                        inputs = xs["plain"]
-                        ref = [_step64(bp, x.double(), cfg, pos) for x in inputs]
-                        layer_pin = [ids for _, ids in routes]
-                with pinned_routes(pin):
-                    step("kernel", bp, pos)
-                with pinned_routes(pin), plain_path():
-                    step("plain", bp, pos)
-                if bf16:
-                    with pinned_routes(layer_pin):
-                        k1 = [decoder.prefill_block(bp, x, cfg, pos, 48)[0] for x in inputs]
-                    with pinned_routes(layer_pin), plain_path():
-                        p1 = [decoder.prefill_block(bp, x, cfg, pos, 48)[0] for x in inputs]
-                    c_k, c_p, c_r = (torch.cat([(y.double() - x.double()) for y, x in zip(ys, inputs)])
-                                     for ys in (k1, p1, ref))
-                    e_kp = float((c_k - c_p).abs().max()) / float(c_p.abs().max())
-                    e_k, e_p = float((c_k - c_r).abs().max()), float((c_p - c_r).abs().max())
-                    layer_rows.append((pos, e_kp, e_k, e_p))
-                    del k1, p1, ref, c_k, c_p, c_r
-            layer_gb = _weight_gb(bp)
-            del bp
-            kind = ("attention" if cfg.layer_kind(pos) == "attn" else "mamba-2") + (
-                " + MoE" if cfg.layer_is_moe(pos) else " + dense FFN")
-            want = (len(draws), 0) if cfg.layer_kind(pos) == "attn" else (0, len(draws))
-            print(f"  {label}: position {pos} ({kind}, {layer_gb:.3f} GB) drawn in {drawn:.3f} s, "
-                  f"{len(draws)} prefill steps {run_s:.4f} s, flash / ssd launches {got}")
-            check(got == want, f"{label}: position {pos}: flash / ssd launches {got}, not {want}")
-            n_fa, n_ssd = n_fa + got[0], n_ssd + got[1]
-        with torch.inference_mode():
-            a, b, a_free, b_free = (
-                torch.cat([decoder.logits_at(outer, rms_norm(x[:, -1:], outer["final_norm"], cfg.norm_eps),
-                                             cfg)[:, 0] for x in xs[k]])
-                for k in ("kernel", "plain", "kernel_free", "plain_free"))
-        err, top = float((a - b).abs().max()), float(b.abs().max())
-        free = float((a_free - b_free).abs().max())
-        same = (a.argmax(-1) == b.argmax(-1)).int().tolist()
-        rows, line, gates = list(range(a.shape[0])), "", []
-        if bf16:
-            ref = torch.cat([_head64(outer, cfg, x[:, -1]) for x in xs["float64"]])
-            rows, line, gates = _float64_rule(a, b, ref)
-        print(f"  {label}: logits after the period, routing pinned to the "
-              f"{'float64 forward' if bf16 else 'kernel path'}'s choices, kernel vs plain path: "
-              f"max_abs_err {err:.3g}, relative error {err / top:.3g} (max |logit| {top:.4g}"
-              f"{', limit ' + str(limit) if not bf16 else ''}), argmax equal {same}{line}; unpinned: "
-              f"max_abs_err {free:.3g}, relative error {free / top:.3g} [{card}]")
-        for pos, e_kp, e_k, e_p in layer_rows:
-            print(f"  {label}: position {pos} alone on the plain path's input, routing pinned to the float64 "
-                  f"forward's: its contribution (output − input), kernel vs plain path, relative error "
-                  f"{e_kp:.3g} (limit {limit}); against the float64 forward: kernel {e_k:.4g}, plain {e_p:.4g} "
-                  f"({e_k / e_p:.3f}x)")
-            gates += [(e_kp <= limit, f"position {pos}: kernel vs plain differ by {e_kp:.3g}"),
-                      (e_k <= 1.5 * e_p, f"position {pos}: kernel {e_k:.3g} from the float64 forward, plain {e_p:.3g}")]
-        check(bool(torch.isfinite(a).all()), f"{label}: non-finite logits")
-        for ok, msg in gates:
-            check(ok, f"{label}: {msg}")
-        # in bf16 the limit holds each layer (above): after eight bf16 layers of
-        # these widths the plain path itself lies 6.7 % of the largest logit
-        # from the float64 forward, so two bf16 paths can differ by 3 % there
-        check(bf16 or err / top <= limit, f"{label}: kernel vs plain differ by {err / top:.3g} of the largest logit")
-        check(all(same[r] for r in rows), f"{label}: argmax differs between the paths on a decided row")
-        # the routes came position by position; _routing_flips reads them call by call
-        by_call = [m * len(draws) + d for d in range(len(draws)) for m in range(len(kernel_routes) // len(draws))]
-        _routing_flips([kernel_routes[i] for i in by_call], [plain_routes[i] for i in by_call], cfg, label)
-        return n_fa, n_ssd
-
-    n_fa = n_ssd = 0
-    for dtype, limit in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
-        got = stream(dtype, limit)
-        n_fa, n_ssd = n_fa + got[0], n_ssd + got[1]
-        _released(f"{JAMBA} {str(dtype)[6:]}, one period streamed", card)
+        outer = init_from_specs(outer_specs, gen, dtype)
+        row = _prefill_check(cfg, outer, draws, label, limit, card,
+                             blocks=((pos, _draw_block(cfg, pos, gen, dtype, label)) for pos in range(8)))
+        n_fa, n_ssd = n_fa + row["flash_launches"], n_ssd + row["ssd_launches"]
+        del outer
+        _released(label, card)
 
     small = get_config(JAMBA, reduced=True)
     params, _ = _draw_on_card(small, 31, torch.float32)
@@ -2097,30 +2059,39 @@ def frontends_phase(card: str) -> int:
     and llava-next-mistral-7b at full depth (32 layers) with 576 patch
     tokens and 32 text tokens, prefill held to the plain path and then
     through ``ServingEngine.generate`` (8 decode steps): in bf16 by the dense
-    families' rule, in fp32 within 1e-4 → flash launches."""
+    families' rule, in fp32 within 1e-4 → flash launches.  llava in bf16
+    runs on two weight draws and a second set of inputs: the spread of its
+    readings against the bf16 limit (PERF.md)."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models import model_zoo as zoo
 
+    bf16, fp32 = (torch.bfloat16, 3e-2), (torch.float32, 1e-4)
+    runs = {HUBERT: [(bf16, 40, (400,)), (fp32, 40, (400,))],      # (dtype and limit, weights, inputs)
+            LLAVA: [(bf16, 41, (401, 411)), (bf16, 51, (411,)), (fp32, 41, (401,))]}
     total = 0
-    for i, arch in enumerate((HUBERT, LLAVA)):
+    for arch, arch_runs in runs.items():
         cfg = get_config(arch)
-        for dtype, limit in ((torch.bfloat16, 3e-2), (torch.float32, 1e-4)):
-            gen = torch.Generator("cuda").manual_seed(400 + i)    # the same inputs in both dtypes
-            if arch == HUBERT:
-                batches = [zoo.make_batch(cfg, 2, HUBERT_FRAMES, gen)]
-            else:
-                batches = [zoo.make_batch(cfg, 2, cfg.frontend_tokens + 32, gen) for _ in range(DENSE_DRAWS)]
-            params, init_s = _draw_on_card(cfg, 40 + i, dtype)
+        served = not cfg.decode_supported
+        for (dtype, limit), weights, inputs in arch_runs:
+            params, init_s = _draw_on_card(cfg, weights, dtype)
             label = f"{arch} {str(dtype)[6:]} at {cfg.num_layers} layers"
-            print(f"  {label}: {_weight_gb(params):.3f} GB of weights drawn on the card in {init_s:.3f} s")
-            total += _prefill_check(cfg, params, batches, label, limit, card,
-                                    encode=not cfg.decode_supported)["flash_launches"]
-            if cfg.decode_supported and dtype == torch.bfloat16:
+            print(f"  {label}: {_weight_gb(params):.3f} GB of weights (seed {weights}) drawn on the card in "
+                  f"{init_s:.3f} s")
+            for seed in inputs:
+                gen = torch.Generator("cuda").manual_seed(seed)
+                if arch == HUBERT:
+                    batches = [zoo.make_batch(cfg, 2, HUBERT_FRAMES, gen)]
+                else:
+                    batches = [zoo.make_batch(cfg, 2, cfg.frontend_tokens + 32, gen) for _ in range(DENSE_DRAWS)]
+                total += _prefill_check(cfg, params, batches, f"{label}, weights {weights}, inputs {seed}",
+                                        limit, card)["flash_launches"]
+            if not served:
                 _, n_fa, _ = _generate(cfg, params, batches[0], cfg.frontend_tokens + 48, label, card)
                 check(n_fa == cfg.num_layers, f"{label}: {n_fa} flash launches for a prefill")
                 total += n_fa
+                served = True
             del params, batches
             _released(label, card)
     return total
