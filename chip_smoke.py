@@ -92,15 +92,36 @@ Phases, in order; any failure exits non-zero:
    a ``zstd+int8`` checkpoint whose 4-D expert stacks are the dequant
    kernel's first 4-D leaves (bit-exact against its plain version), the
    card's memory checked after the release;
-16. the phases' seconds, the ``kernels`` JSON line, the card line, and the
+16. sweep — ``core/batch_eval.sweep_batch`` over the full Table-1 strategy
+   grid (both devices × 3 buswidths × 11 clocks × 2 compression × request
+   periods 1–1000 ms × 3 idle methods × 16 budgets, 6,336,000 points) on
+   the card: every field held bit for bit to the scalar oracle on 2400
+   points covering every axis and to the CPU on every tenth period; the
+   configuration and strategy Pareto frontiers (~10^5 points) and the
+   crossover surface equal to the CPU's; the paper item's crossover
+   499.0607 ms;
+17. fleet — ``python -m repro_torch.launch.fleet`` (4096 devices, 10 s
+   routed, round-robin, the strategy mix, the looped baseline and the N=1
+   self-check) as a subprocess; N=1 against ``simulate(mode="step")`` and
+   ``simulate_trace``; the CUDA-graph tick loop against the eager one and
+   the card against the CPU at 4096 devices (three routers, direct
+   streams, periodic), a chunked continuation; 1,048,576 devices periodic
+   at a 2 J budget until every device has died, and routed with
+   power_aware at load 0.5 with requests conserved exactly; the batched
+   Poisson and MMPP samplers at 10^5 streams against their moments, and
+   their tick bins card against CPU; ticks/s and device-steps/s of both
+   loops at both sizes;
+18. the phases' seconds, the ``kernels`` JSON line, the card line, and the
    last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -142,6 +163,7 @@ JAMBA = "jamba-1.5-large-398b"
 HUBERT, LLAVA = "hubert-xlarge", "llava-next-mistral-7b"
 HUBERT_FRAMES = 512                         # frames of each of hubert's two inputs
 AFTER_RELEASE_GB = 0.07                     # the card's memory once a model's weights are dropped
+GRAPH_WARM = 70                             # ticks of the 1M routed warm-up run
 # Experiments 1-3 as the reference quickstart prints them
 EXPERIMENT_LINES = [
     "== Experiment 1: configuration-phase parameter optimization ==",
@@ -2165,6 +2187,418 @@ def moe_serving_phase(card: str) -> tuple[int, int, dict]:
                             bound_ms=b_ms, bound_by=b_by)
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: sweep (the vectorized closed forms and Pareto frontiers)
+# ---------------------------------------------------------------------------
+DEV = "cuda"                                # the device of the sweep and fleet phases
+
+
+def torch_device():
+    import torch
+
+    return torch.device(DEV)
+
+
+def _sync():
+    from repro_torch.device import synchronize
+
+    synchronize(torch_device())
+
+
+def _reset_peak():
+    import torch
+
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak() -> int:
+    import torch
+
+    return torch.cuda.max_memory_allocated() if DEV == "cuda" else 0
+
+
+def _allocated() -> int:
+    import torch
+
+    return torch.cuda.memory_allocated() if DEV == "cuda" else 0
+
+
+SWEEP_PERIODS_MS = tuple(float(t) for t in range(1, 1001))   # 1–1000 ms in steps of 1
+SWEEP_BUDGETS_J = 16                        # budgets from 1 J to 4147 J, geometric
+SWEEP_SAMPLE = 2400                         # grid points held to the scalar oracle
+SWEEP_CPU_STRIDE = 10                       # the CPU reruns every 10th request period
+PARETO_PERIOD_STEP = 4                      # strategy frontier over ~10^5 points
+CROSSOVER_IDLE_MW = (134.3, 34.2, 24.0)     # launch/sweep.py's default idle powers
+
+
+def _sweep_oracle(grid, ix) -> dict:
+    """Every GRID_QUANTITIES value at grid point ``ix`` through the port's
+    scalar closed forms, on the per-point constructed WorkloadItem."""
+    from repro_torch.core import energy_model as em
+    from repro_torch.core.config_phase import ConfigParams
+    from repro_torch.core.phases import CONFIGURATION, WorkloadItem
+    from repro_torch.core.strategies import IdleWaitingStrategy, OnOffStrategy
+
+    d, w, f, c, t, m, b = ix
+    base = grid.item()
+    params = ConfigParams(grid.buswidths[w], grid.clocks_mhz[f], grid.compression[c])
+    item = WorkloadItem(base.name, (grid.devices[d].config_phase(params),)
+                        + tuple(p for p in base.phases if p.name != CONFIGURATION), base.idle_power_mw)
+    period, budget, ovh = grid.request_periods_ms[t], grid.e_budgets_mj[b], grid.powerup_overhead_mj
+    iw_strat = IdleWaitingStrategy(item, ovh, method=grid.idle_methods[m])
+    iw, oo = iw_strat.evaluate(period, budget), OnOffStrategy(item, ovh).evaluate(period, budget)
+    cross = em.crossover_period_ms(item, iw_strat.idle_power_mw, ovh)
+    pick = period <= cross
+    return {
+        "config_time_ms": item.config_time_ms, "config_energy_mj": grid.devices[d].config_energy_mj(params),
+        "onoff_n_max": oo.n_max, "onoff_lifetime_ms": oo.lifetime_ms,
+        "onoff_energy_per_item_mj": oo.energy_per_item_mj, "onoff_feasible": oo.feasible,
+        "iw_n_max": iw.n_max, "iw_lifetime_ms": iw.lifetime_ms,
+        "iw_energy_per_item_mj": iw.energy_per_item_mj, "iw_feasible": iw.feasible,
+        "crossover_ms": cross, "adaptive_n_max": iw.n_max if pick else oo.n_max,
+        "adaptive_lifetime_ms": iw.lifetime_ms if pick else oo.lifetime_ms, "adaptive_picks_iw": pick,
+    }
+
+
+def sweep_phase(card: str) -> None:
+    """The full Table-1 strategy grid (both devices × 3 buswidths × 11 clocks
+    × 2 compression × request periods 1–1000 ms × 3 idle methods × 16
+    budgets, 6,336,000 points) through ``sweep_batch`` on the card: every
+    field held bit for bit to the scalar oracle on a sample over every axis
+    and to the port's CPU run on a strided tenth; the Pareto frontiers and
+    the crossover surface against the CPU's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import batch_eval as be
+    from repro_torch.core import energy_model as em
+    from repro_torch.core import pareto
+    from repro_torch.core.config_phase import DEVICES
+    from repro_torch.core.phases import paper_lstm_item
+    from repro_torch.core.strategies import IdlePowerMethod
+
+    cal = em.CALIBRATED_POWERUP_OVERHEAD_MJ
+    budgets = tuple(float(b) for b in np.geomspace(1000.0, em.PAPER_ENERGY_BUDGET_MJ, SWEEP_BUDGETS_J))
+    grid = be.SweepGrid(devices=tuple(DEVICES.values()), request_periods_ms=SWEEP_PERIODS_MS,
+                        idle_methods=tuple(IdlePowerMethod), e_budgets_mj=budgets, powerup_overhead_mj=cal)
+    check(grid.size == 6_336_000, f"sweep grid has {grid.size} points")
+    be.sweep_batch(grid, device=DEV)        # warm-up: allocator and kernels
+    _sync()
+    _reset_peak()
+    base_mem = _allocated()
+    t0 = time.perf_counter()
+    res = be.sweep_batch(grid, device=DEV)
+    _sync()
+    card_s = time.perf_counter() - t0
+    held = sum(v.untyped_storage().nbytes() for v in res.arrays.values())
+    print(f"  sweep_batch: {grid.size} points in {card_s * 1e3:.3f} ms on the card, "
+          f"{grid.size / card_s:.4e} points/s; result {held / 1e9:.4f} GB held (the quantities "
+          f"that vary over fewer axes stay broadcast views), peak {(_peak() - base_mem) / 1e9:.4f} GB [{card}]")
+
+    # the scalar oracle on a sample that covers every value of every axis
+    primes = (1, 7, 13, 17, 389, 5, 11)
+    sample = [tuple((i * p + i // 97) % n for p, n in zip(primes, grid.shape)) for i in range(SWEEP_SAMPLE)]
+    for k, n in enumerate(grid.shape):
+        check(len({ix[k] for ix in sample}) == min(n, SWEEP_SAMPLE), f"sweep sample misses values of axis {k}")
+    idx = tuple(torch.tensor([ix[k] for ix in sample], device=DEV) for k in range(len(grid.shape)))
+    got = {k: v.expand(grid.shape)[idx].cpu().numpy() for k, v in res.arrays.items()}
+    t0 = time.perf_counter()
+    bad = 0
+    for j, ix in enumerate(sample):
+        want = _sweep_oracle(grid, ix)
+        bad += sum(got[k][j] != want[k] for k in be.GRID_QUANTITIES)
+    print(f"  scalar oracle at {SWEEP_SAMPLE} points over every axis: {bad} of "
+          f"{SWEEP_SAMPLE * len(be.GRID_QUANTITIES)} values differ ({time.perf_counter() - t0:.2f} s)")
+    check(bad == 0, f"sweep_batch on the card differs from the scalar oracle in {bad} values")
+
+    # the port's CPU run on every SWEEP_CPU_STRIDE-th period
+    tenth = dataclasses.replace(grid, request_periods_ms=SWEEP_PERIODS_MS[::SWEEP_CPU_STRIDE])
+    t0 = time.perf_counter()
+    cpu = be.sweep_batch(tenth, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    diff = 0
+    for k in be.GRID_QUANTITIES:
+        card_k = res[k].expand(grid.shape)[:, :, :, :, ::SWEEP_CPU_STRIDE].cpu()
+        diff += int((card_k != cpu[k].expand(tenth.shape)).sum())
+    print(f"  against the CPU on every {SWEEP_CPU_STRIDE}th period ({tenth.size} points, CPU "
+          f"{tenth.size / cpu_s:.4e} points/s): {diff} values differ")
+    check(diff == 0, f"sweep_batch: the card and the CPU differ in {diff} values")
+    del res, cpu
+
+    # frontiers and the crossover surface, card against CPU
+    front = {dev: pareto.config_pareto(tuple(DEVICES.values()), device=dev) for dev in (DEV, "cpu")}
+    check(front[DEV] == front["cpu"], "config_pareto: the card's frontier differs from the CPU's")
+    sub = dataclasses.replace(grid, request_periods_ms=SWEEP_PERIODS_MS[::PARETO_PERIOD_STEP], e_budgets_mj=(budgets[-1],))
+    for strategy in ("iw", "adaptive"):
+        t0 = time.perf_counter()
+        on_card = pareto.strategy_pareto(be.sweep_batch(sub, device=DEV), strategy)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        on_cpu = pareto.strategy_pareto(be.sweep_batch(sub, device="cpu"), strategy)
+        print(f"  strategy_pareto({strategy}) over {sub.size} points: {len(on_card)} on the frontier, "
+              f"card {card_s:.3f} s, CPU {time.perf_counter() - t0:.3f} s")
+        check(on_card and on_card == on_cpu, f"strategy_pareto({strategy}): card and CPU frontiers differ")
+    print(f"  config_pareto: {len(front[DEV])} settings on the frontier, equal on card and CPU")
+    item = paper_lstm_item()
+    surf = {dev: pareto.crossover_surface(item, tuple(DEVICES.values()), CROSSOVER_IDLE_MW,
+                                          powerup_overhead_mj=cal, device=dev)["crossover_ms"].cpu()
+            for dev in (DEV, "cpu")}
+    check(torch.equal(surf[DEV], surf["cpu"]), "crossover_surface: card and CPU differ")
+    cell = float(surf[DEV][0, -1, -1, 1, 2])
+    want = _sweep_oracle(be.SweepGrid(buswidths=(4,), clocks_mhz=(66,), compression=(True,),
+                                      idle_methods=(IdlePowerMethod.METHOD1_2,), powerup_overhead_mj=cal),
+                         (0,) * 7)["crossover_ms"]
+    paper = float(be.crossover_batch(item, [24.0], cal, device=DEV)[0])
+    print(f"  crossover surface {tuple(surf[DEV].shape)}: the paper's cell (xc7s15, quad, 66 MHz, "
+          f"compressed, 24 mW) {cell!r} ms from the device model (scalar oracle {want!r}); the paper "
+          f"item's Table-2 phases give {paper:.4f} ms")
+    check(cell == want, f"crossover surface cell {cell!r} != scalar oracle {want!r}")
+    check(round(paper, 4) == 499.0607, f"crossover_batch of the paper item {paper!r} != 499.0607 ms")
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: fleet (periodic and routed tick loops, CUDA graphs)
+# ---------------------------------------------------------------------------
+FLEET_N = 4096                              # launch/fleet.py's default fleet
+FLEET_BIG = 1 << 20                         # 1,048,576 devices
+FLEET_BIG_BUDGET_J = 2.0                    # the reference's acceptance budget
+FLEET_BIG_TICKS = 250                       # 10 s of 40 ms ticks
+ARRIVAL_STREAMS = 100_000
+ARRIVAL_GAPS = 400                          # gaps a stream, as tests/test_arrivals_stats.py draws
+
+
+def _timed(fn):
+    from repro_torch.device import synchronize
+
+    synchronize(torch_device())
+    t0 = time.perf_counter()
+    out = fn()
+    synchronize(torch_device())
+    return out, time.perf_counter() - t0
+
+
+def _same(a, b, fields, label):
+    import torch
+
+    for f in fields:
+        x, y = getattr(a, f), getattr(b, f)
+        check(torch.equal(x.cpu(), y.cpu()), f"{label}: {f} differs")
+
+
+def _rates(label, n_dev, ticks, eager_s, graph_s, card):
+    print(f"  {label}: eager {ticks / eager_s:.1f} ticks/s, {n_dev * ticks / eager_s:.4e} device-steps/s; "
+          f"graph {ticks / graph_s:.1f} ticks/s, {n_dev * ticks / graph_s:.4e} device-steps/s "
+          f"({eager_s / graph_s:.2f}x) [{card}]")
+
+
+def _fleet_cli(card: str) -> None:
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    out_path = ROOT / "build" / "chip_smoke_fleet.json"
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.fleet", "--device", DEV,
+                           "--out", str(out_path)],
+                          capture_output=True, text=True, timeout=600, cwd=str(ROOT), env=env)
+    print("\n".join(f"  {line}" for line in proc.stdout.strip().splitlines()))
+    check(proc.returncode == 0, f"python -m repro_torch.launch.fleet failed: {proc.stderr[-2000:]}")
+    payload = json.loads(out_path.read_text())
+    sc = payload["oracle_self_check"]
+    tp = payload["throughput"]
+    print(f"  the CLI's default ({time.perf_counter() - t0:.1f} s with start-up): self-check "
+          f"{json.dumps(sc)}; periodic {tp['periodic']['fleet']['device_steps_per_s']} and routed "
+          f"{tp['routed']['fleet']['device_steps_per_s']} device-steps/s [{card}]")
+    check(DEV == "cpu" or payload["manifest"]["card"] is not None, "the fleet CLI's manifest has no card")
+    check(all(v["agrees"] and not v["energy_abs_diff_mj"] for v in sc.values()),
+          f"the fleet CLI's oracle self-check failed: {sc}")
+
+
+def fleet_phase(card: str) -> None:
+    """The fleet CLI's default run; N=1 against the scalar simulators; the
+    CUDA-graph tick loop against the eager one and the card against the CPU
+    at 4096 devices; a chunked continuation; 1,048,576 devices periodic
+    until every device has died and routed with power_aware at load 0.5;
+    the batched arrival samplers at 10^5 streams."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import arrivals as pa
+    from repro_torch.core import energy_model as em
+    from repro_torch.core.adaptive import FixedTimeoutPolicy, StaticPolicy, break_even_timeout_ms
+    from repro_torch.core.phases import paper_lstm_item
+    from repro_torch.core.simulator import simulate, simulate_trace
+    from repro_torch.core.strategies import IdlePowerMethod
+    from repro_torch.core.workload import ExperimentSpec, WorkloadSpec
+    from repro_torch.fleet import DeviceSpec, FleetParams, FleetState, run_periodic, run_routed, uniform_fleet
+
+    cal = em.CALIBRATED_POWERUP_OVERHEAD_MJ
+    item = paper_lstm_item()
+    state_fields = [f.name for f in dataclasses.fields(FleetState)]
+    per_fields = ("n_items", "energy_mj", "lifetime_ms", "alive", "alive_over_time")
+
+    _fleet_cli(card)
+
+    # ---- N = 1 against the scalar simulators, on the card --------------------
+    worst = 0.0
+    for strategy in ("on_off", "idle_waiting"):
+        for period in (40.0, 89.0, 120.0):
+            spec = ExperimentSpec(workload=WorkloadSpec(41.47, period), item=item, strategy_kind=strategy,
+                                  method=IdlePowerMethod.METHOD1_2, powerup_overhead_mj=cal)
+            step = simulate(spec, mode="step")
+            fl = run_periodic(FleetParams.from_specs([DeviceSpec.from_experiment(spec)], DEV), step.n_items + 10)
+            check(int(fl.n_items[0]) == step.n_items and float(fl.energy_mj[0]) == step.energy_used_mj
+                  and float(fl.lifetime_ms[0]) == step.lifetime_ms,
+                  f"N=1 periodic {strategy} at {period} ms differs from simulate(mode='step')")
+        for period, budget in ((80.0, 3000.0), (120.0, 1e6)):
+            policy = StaticPolicy(strategy, item)
+            oracle = simulate_trace(item, [i * period for i in range(400)], policy, budget)
+            counts = np.zeros(int(400 * period / 40.0), np.int32)
+            counts[:: int(period / 40.0)] = 1
+            p1 = FleetParams.from_specs([DeviceSpec(item, strategy=strategy, request_period_ms=period,
+                                                    e_budget_mj=budget)], DEV)
+            st = run_routed(p1, counts, 40.0).state
+            check(int(st.n_served[0]) == oracle.n_items and int(st.n_configs[0]) == oracle.configurations
+                  and int(st.n_released[0]) == oracle.releases,
+                  f"N=1 routed {strategy} at {period} ms: counts differ from simulate_trace")
+            worst = max(worst, abs(float(st.energy_mj[0]) - oracle.energy_used_mj))
+    adaptive = FixedTimeoutPolicy(break_even_timeout_ms(item, item.idle_power_mw), item.idle_power_mw)
+    oracle = simulate_trace(item, [i * 80.0 for i in range(400)], adaptive, 3000.0)
+    counts = np.zeros(800, np.int32)
+    counts[::2] = 1
+    st = run_routed(FleetParams.from_specs([DeviceSpec(item, strategy="adaptive", request_period_ms=80.0,
+                                                       e_budget_mj=3000.0)], DEV), counts, 40.0).state
+    check(int(st.n_served[0]) == oracle.n_items and int(st.n_released[0]) == oracle.releases,
+          "N=1 routed adaptive: counts differ from simulate_trace")
+    worst = max(worst, abs(float(st.energy_mj[0]) - oracle.energy_used_mj))
+    print(f"  N=1: periodic equals simulate(mode='step') bit for bit (6 cases); routed counts equal "
+          f"simulate_trace's exactly, energies within {worst:.3e} mJ (phase-by-phase sums; limit 1e-9)")
+    check(worst <= 1e-9, f"N=1 routed energies {worst} mJ from simulate_trace")
+
+    # ---- 4096 devices: graph against eager, card against CPU -----------------
+    def fleet(n, dev, budget):
+        return uniform_fleet(n, strategies=("on_off", "idle_waiting", "adaptive"),
+                             method=IdlePowerMethod.METHOD1_2, e_budget_mj=budget, powerup_overhead_mj=cal,
+                             device=dev)
+
+    params = fleet(FLEET_N, DEV, 300.0)
+    rng = np.random.default_rng(0)
+    glob = rng.poisson(0.5 * FLEET_N, FLEET_BIG_TICKS).astype(np.int32)
+    for router in ("round_robin", "least_loaded", "power_aware"):
+        kw = dict(router=router, collect_events=True)
+        run_routed(params, glob, 40.0, **kw)                       # capture and caches once
+        graph, g_s = _timed(lambda: run_routed(params, glob, 40.0, **kw))
+        eager, e_s = _timed(lambda: run_routed(params, glob, 40.0, jit=False, **kw))
+        _same(graph.state, eager.state, state_fields, f"graph vs eager ({router})")
+        _same(graph, eager, ("alive_over_time", "served_over_time", "queued_over_time", "latency_ms",
+                             "served_mask", "reconfig_mask", "released_mask", "queue_depth",
+                             "dropped_per_tick"), f"graph vs eager ({router})")
+        cpu = run_routed(fleet(FLEET_N, "cpu", 300.0), glob, 40.0, **kw)
+        _same(graph.state, cpu.state, state_fields, f"card vs CPU ({router})")
+        _same(graph, cpu, ("alive_over_time", "served_over_time", "latency_ms"), f"card vs CPU ({router})")
+        e_card, e_cpu = float(graph.energy_mj.sum()), float(cpu.energy_mj.sum())
+        check(abs(e_card - e_cpu) <= 1e-12 * abs(e_cpu), f"fleet energy card {e_card!r} vs CPU {e_cpu!r}")
+        _rates(f"routed {router}, {FLEET_N} devices, {FLEET_BIG_TICKS} ticks", FLEET_N, FLEET_BIG_TICKS,
+               e_s, g_s, card)
+    direct = torch.from_numpy(rng.poisson(0.4, (FLEET_BIG_TICKS, FLEET_N)).astype(np.int32))
+    graph = run_routed(params, direct, 40.0, router=None)
+    _same(graph.state, run_routed(params, direct, 40.0, router=None, jit=False).state, state_fields,
+          "graph vs eager (direct)")
+    _same(graph.state, run_routed(fleet(FLEET_N, "cpu", 300.0), direct, 40.0, router=None).state,
+          state_fields, "card vs CPU (direct)")
+    state, start = None, 0
+    for size in (100, 37, 113):
+        state = run_routed(params, glob[start:start + size], 40.0, router="power_aware", state0=state,
+                           start_tick=start).state
+        start += size
+    _same(state, run_routed(params, glob, 40.0, router="power_aware").state, state_fields,
+          "chunked continuation")
+    periodic = fleet(FLEET_N, DEV, 2000.0)
+    steps = 2500
+    run_periodic(periodic, steps)
+    graph, g_s = _timed(lambda: run_periodic(periodic, steps))
+    eager, e_s = _timed(lambda: run_periodic(periodic, steps, jit=False))
+    _same(graph, eager, per_fields, "periodic graph vs eager")
+    _same(graph, run_periodic(fleet(FLEET_N, "cpu", 2000.0), steps), per_fields, "periodic card vs CPU")
+    _rates(f"periodic, {FLEET_N} devices, {steps} steps", FLEET_N, steps, e_s, g_s, card)
+    print(f"  {FLEET_N} devices: graph = eager and card = CPU in every per-device field and trajectory "
+          f"(three routers, direct streams, periodic); a 100 + 37 + 113-tick continuation = one run")
+
+    # ---- 1,048,576 devices, periodic at 2 J until every device has died -------
+    _reset_peak()
+    big = fleet(FLEET_BIG, DEV, FLEET_BIG_BUDGET_J * 1000.0)
+    limit = (big.e_budget_mj + em.FLOOR_EPS * (big.e_item_mj + big.e_idle_mj)).cpu().numpy()
+    e_item, e_idle = big.e_item_mj.cpu().numpy(), big.e_idle_mj.cpu().numpy()
+    per = np.where(big.is_onoff.cpu().numpy(), e_item, e_item + e_idle)
+    n_cap = -(-(int(np.ceil(np.max((limit + e_idle) / per))) + 2) // 4096) * 4096
+    run_periodic(big, n_cap)
+    graph, g_s = _timed(lambda: run_periodic(big, n_cap))
+    eager, e_s = _timed(lambda: run_periodic(big, n_cap, jit=False))
+    _same(graph, eager, per_fields, "1M periodic graph vs eager")
+    check(not bool(graph.alive.any()), "1M periodic: devices still alive at the step cap")
+    n_items = graph.n_items.cpu().numpy()
+    want = {"on_off": em.onoff_n_max(item, FLEET_BIG_BUDGET_J * 1000.0, cal),
+            "idle_waiting": em.idlewait_n_max(item, 40.0, FLEET_BIG_BUDGET_J * 1000.0, 24.0, cal)}
+    want["adaptive"] = want["idle_waiting"]      # 40 ms lies below the crossover: Idle-Waiting
+    for k, name in enumerate(("on_off", "idle_waiting", "adaptive")):
+        check(bool((n_items[k::3] == want[name]).all()), f"1M periodic {name}: counts differ from the closed form")
+    led_err = graph.ledger().assert_conserves(graph.energy_mj.cpu().numpy())
+    _rates(f"periodic, {FLEET_BIG} devices, {n_cap} steps (all dead after "
+           f"{int((graph.alive_over_time > 0).sum())})", FLEET_BIG, n_cap, e_s, g_s, card)
+    print(f"  1M periodic at {FLEET_BIG_BUDGET_J} J: items {want} per strategy as the closed forms; ledger "
+          f"conservation {led_err:.3e}; peak {_peak() / 1e9:.4f} GB [{card}]")
+    del graph, eager
+
+    # ---- 1,048,576 devices routed: power_aware, Poisson at load 0.5 -----------
+    _reset_peak()
+    big = fleet(FLEET_BIG, DEV, em.PAPER_ENERGY_BUDGET_MJ)
+    glob = np.random.default_rng(1).poisson(0.5 * FLEET_BIG, FLEET_BIG_TICKS).astype(np.int32)
+    kw = dict(router="power_aware", queue_capacity=16, collect_latency=False)
+    run_routed(big, glob[:GRAPH_WARM], 40.0, **kw)            # allocator and sort workspaces
+    graph, g_s = _timed(lambda: run_routed(big, glob, 40.0, **kw))
+    eager, e_s = _timed(lambda: run_routed(big, glob, 40.0, jit=False, **kw))
+    _same(graph.state, eager.state, state_fields, "1M routed graph vs eager")
+    s = graph.state
+    served, queued, dropped = int(s.n_served.sum()), int(s.q_len.sum()), int(s.n_dropped.sum())
+    arrived = int(glob.astype(np.int64).sum())
+    print(f"  1M routed power_aware: arrived {arrived} = served {served} + queued {queued} + dropped "
+          f"{dropped}; peak {_peak() / 1e9:.4f} GB")
+    check(arrived == served + queued + dropped, "1M routed: requests not conserved")
+    _rates(f"routed power_aware, {FLEET_BIG} devices, {FLEET_BIG_TICKS} ticks", FLEET_BIG,
+           FLEET_BIG_TICKS, e_s, g_s, card)
+    del big, graph, eager, s
+
+    # ---- batched arrivals at 10^5 streams -------------------------------------
+    gen = torch.Generator(DEV)
+    g = pa.PoissonArrivals(40.0).sample_gaps(gen.manual_seed(0), ARRIVAL_STREAMS, ARRIVAL_GAPS).cpu().numpy().ravel()
+    check(abs(g.mean() - 40.0) < 4.0 * 40.0 / math.sqrt(g.size), f"Poisson mean {g.mean()}")
+    check(abs(g.var(ddof=1) - 1600.0) < 5.0 * 1600.0 * math.sqrt(8.0 / g.size), f"Poisson variance {g.var()}")
+    mmpp = pa.MMPPArrivals(5.0, 500.0, mean_burst_len=8.0, mean_quiet_len=2.0)
+    gm = mmpp.sample_gaps(gen.manual_seed(1), ARRIVAL_STREAMS, ARRIVAL_GAPS).cpu().numpy().ravel()
+    pb = 0.8
+    m1, m2 = pb * 5.0 + 0.2 * 500.0, pb * 2.0 * 25.0 + 0.2 * 2.0 * 250_000.0
+    cv2 = gm.var(ddof=1) / gm.mean() ** 2
+    check(abs(gm.mean() / mmpp.mean_period_ms() - 1.0) < 0.05 and abs(cv2 / (m2 / m1**2 - 1.0) - 1.0) < 0.2,
+          f"MMPP mean {gm.mean()} / CV² {cv2}")
+    print(f"  10^5 streams: Poisson mean {g.mean():.4f} (40), variance {g.var(ddof=1):.2f} (1600); MMPP mean "
+          f"{gm.mean():.4f} ({mmpp.mean_period_ms():.4f}), CV² {cv2:.4f} ({m2 / m1**2 - 1.0:.4f})")
+    for proc in (pa.PoissonArrivals(40.0), mmpp):
+        horizon, m = 4000.0, 192
+        draws = proc._draws(gen.manual_seed(2), ARRIVAL_STREAMS, m - 1)
+        t_card = torch.cat([torch.zeros((ARRIVAL_STREAMS, 1), dtype=torch.float64, device=DEV),
+                            torch.cumsum(proc._gaps_from_draws(*draws), dim=1)], dim=1).cpu()
+        gaps_cpu = proc._gaps_from_draws(*(d.cpu() for d in draws))
+        t_cpu = torch.cat([torch.zeros((ARRIVAL_STREAMS, 1), dtype=torch.float64), torch.cumsum(gaps_cpu, 1)], 1)
+        inside = (t_cpu < horizon) | (t_card < horizon)
+        moved = inside & (torch.floor(t_card / 40.0) != torch.floor(t_cpu / 40.0))
+        edge = torch.abs(t_cpu - 40.0 * torch.round(t_cpu / 40.0)) < 1e-9
+        bins = int((pa.bin_arrival_counts(torch.where(t_card < horizon, t_card, torch.inf), horizon, 40.0)
+                    != pa.bin_arrival_counts(torch.where(t_cpu < horizon, t_cpu, torch.inf), horizon, 40.0)).sum())
+        rel = float(((t_card - t_cpu).abs() / t_cpu.clamp_min(1e-300))[inside].max())
+        print(f"  {proc.name}: card against CPU from the same draws, {int(inside.sum())} arrivals: times "
+              f"within {rel:.3e} relative; {int(moved.sum())} arrivals change tick ({int((moved & edge).sum())} "
+              f"within 1e-9 ms of an edge), {bins} bin counts differ")
+        check(bool((moved <= edge).all()), f"{proc.name}: an arrival away from a tick edge changed tick")
+
 @contextlib.contextmanager
 def timed_phase(name: str, seconds: dict):
     """Print the phase's header, and its seconds when it ends."""
@@ -2266,6 +2700,12 @@ def main() -> None:
         dq_entry["launches"] += n_dq
         fa_entry["launches"] += n_fa
         check(n_dq > 0 and n_fa > 0, "a kernel of the MoE serving path was never launched")
+
+    with timed_phase("sweep", seconds):
+        sweep_phase(card)
+
+    with timed_phase("fleet", seconds):
+        fleet_phase(card)
 
     print(f"phase seconds: {json.dumps(seconds)}")
     print(card)

@@ -13,9 +13,14 @@
                    controller with hysteresis-guarded ski-rental hybrid)
 - planner        : deployment planner, the analytical model inverted
 - duty_cycle     : runnable duty-cycle controller for the serving engine
+- batch_eval     : vectorized (torch) batch sweep engine — whole design
+                   grids per call on the card, bit-exact vs the scalar
+                   closed forms
+- pareto         : Pareto frontiers + crossover surfaces over batch grids
 
-Not ported yet: the batched ``jax.random`` sampling of ``arrivals``,
-``batch_eval`` and ``pareto`` (ROADMAP A6), and ``tpu_energy`` (ROADMAP A9).
+``arrivals`` also samples one stream per device in a batch
+(``sample_batch``, from a ``torch.Generator``).  Not ported yet:
+``tpu_energy`` (ROADMAP A9).
 """
 from repro_torch.core.phases import (
     CONFIGURATION,
@@ -95,5 +100,7 @@ from repro_torch.core.adaptive import (
     StaticPolicy,
     break_even_timeout_ms,
 )
+
+from repro_torch.core import batch_eval, pareto  # noqa: E402  (after the scalar core they build on)
 
 __all__ = [k for k in dir() if not k.startswith("_")]

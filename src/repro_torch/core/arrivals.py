@@ -27,10 +27,17 @@ in the reference, so the two packages agree sample for sample.  Times are
 milliseconds, matching :mod:`repro_torch.core.phases`; the first request
 arrives at t = 0.
 
-:func:`bin_arrival_counts` histograms per-device arrival times onto a tick
-grid as an int32 tensor.  The reference's batched sampling
-(``sample_gaps``/``sample_batch``, one ``jax.random`` stream per device)
-comes with the vectorized closed-forms slice of the port (ROADMAP A6).
+Fleet-scale vectorization (:mod:`repro_torch.fleet`):
+:meth:`ArrivalProcess.sample_batch` draws **one independent stream per
+device** as a padded float64 tensor — no Python loop over devices — and
+:func:`bin_arrival_counts` histograms those streams onto the fleet
+stepper's tick grid.  The reference's ``jax.random`` key becomes a
+``torch.Generator``: the tensors land on its device.  Each sampler is a
+draw stage (:meth:`ArrivalProcess._draws`, the random numbers) and a
+transform stage (:meth:`ArrivalProcess._gaps_from_draws`, the process), so
+the same draws can be fed to both packages.  The chained processes (MMPP,
+diurnal, flash crowd) advance every device at once in a loop over the gap
+index, where the reference runs a ``lax.scan``.
 """
 from __future__ import annotations
 
@@ -42,10 +49,21 @@ from typing import Union
 import numpy as np
 import torch
 
-_BATCHED = (
-    "batched arrival sampling (sample_gaps, sample_batch) comes with the "
-    "vectorized closed-forms slice of the port (ROADMAP A6)"
-)
+_F64 = torch.float64
+
+
+def _uniform(g: torch.Generator, shape) -> torch.Tensor:
+    return torch.rand(shape, generator=g, dtype=_F64, device=g.device)
+
+
+def _exponential(g: torch.Generator, shape) -> torch.Tensor:
+    return torch.empty(shape, dtype=_F64, device=g.device).exponential_(generator=g)
+
+
+def _const(x: float, like: torch.Tensor) -> torch.Tensor:
+    """A 0-d float64 tensor on ``like``'s device: ``torch.where`` of two
+    Python floats would give the default (float32) dtype."""
+    return torch.full((), float(x), dtype=_F64, device=like.device)
 
 
 def _require_positive_rate(name: str, value: float, what: str = "rate") -> None:
@@ -82,15 +100,83 @@ class ArrivalProcess:
         """Expected inter-arrival gap (ms)."""
         raise NotImplementedError
 
-    def _batch_gaps(self, key, n_devices: int, n_gaps: int):
-        raise NotImplementedError(_BATCHED)
+    # ---- vectorized batch sampling (fleet substrate) ------------------------
+    def _draws(self, generator: torch.Generator, n_devices: int, n_gaps: int) -> tuple:
+        """The random numbers one batch consumes, drawn from ``generator``
+        (the draw stage); subclasses override."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no vectorized batch sampler"
+        )
 
-    def sample_gaps(self, key, n_streams: int, n_gaps: int):
-        raise NotImplementedError(_BATCHED)
+    def _gaps_from_draws(self, *draws: torch.Tensor) -> torch.Tensor:
+        """``(n_devices, n_gaps)`` float64 gaps from :meth:`_draws`' output
+        (the transform stage), on the draws' device.  The draws have the
+        reference's shapes, so ``jax.random``'s own output fed here gives
+        the reference's gaps."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no vectorized batch sampler"
+        )
 
-    def sample_batch(self, key, n_devices: int, horizon_ms: float,
-                     max_arrivals: int | None = None, include_origin: bool = True):
-        raise NotImplementedError(_BATCHED)
+    def _batch_gaps(self, generator: torch.Generator, n_devices: int, n_gaps: int) -> torch.Tensor:
+        """``(n_devices, n_gaps)`` float64 inter-arrival gaps, one
+        independent stream per row."""
+        return self._gaps_from_draws(*self._draws(generator, n_devices, n_gaps))
+
+    def sample_gaps(self, generator: torch.Generator, n_streams: int, n_gaps: int) -> torch.Tensor:
+        """``(n_streams, n_gaps)`` float64 inter-arrival gaps (ms), one
+        independent stream per row, on ``generator``'s device — the raw-gap
+        companion of :meth:`sample_batch` (no horizon padding)."""
+        if n_streams <= 0:
+            raise ValueError(f"n_streams must be positive, got {n_streams}")
+        if n_gaps < 0:
+            raise ValueError(f"n_gaps must be non-negative, got {n_gaps}")
+        return self._batch_gaps(generator, n_streams, n_gaps)
+
+    def sample_batch(
+        self,
+        generator: torch.Generator,
+        n_devices: int,
+        horizon_ms: float,
+        max_arrivals: int | None = None,
+        include_origin: bool = True,
+    ) -> torch.Tensor:
+        """``(n_devices, M)`` float64 **arrival times** (ms), one stream per
+        device, padded with ``+inf`` past the horizon, on ``generator``'s
+        device.
+
+        Each stream starts at exactly 0.0 (the scalar convention); pass
+        ``include_origin=False`` to drop that deterministic first arrival
+        (e.g. for thinned per-replica streams).  ``M`` is ``max_arrivals``
+        or a mean-rate estimate with headroom; streams that would exceed
+        ``M`` arrivals inside the horizon are truncated at ``M``.  The same
+        generator state always yields the same batch on one device, and
+        different rows are independent.  The times are a ``torch.cumsum``
+        of the gaps: on the card it sums in another order than on the CPU,
+        so a time can differ in its last bits between the two.
+        """
+        if n_devices <= 0:
+            raise ValueError(f"n_devices must be positive, got {n_devices}")
+        if not horizon_ms > 0:
+            raise ValueError(f"horizon_ms must be positive, got {horizon_ms}")
+        mean = self.mean_period_ms()
+        if max_arrivals is None:
+            # mean-rate estimate + 4·sqrt headroom for stochastic streams
+            est = horizon_ms / mean
+            max_arrivals = int(est + 4.0 * math.sqrt(est) + 8.0)
+        if max_arrivals < 1:
+            raise ValueError(f"max_arrivals must be ≥ 1, got {max_arrivals}")
+        if include_origin:
+            gaps = self._batch_gaps(generator, n_devices, max_arrivals - 1)
+            times = torch.cat(
+                [torch.zeros((n_devices, 1), dtype=_F64, device=gaps.device),
+                 torch.cumsum(gaps, dim=1)],
+                dim=1,
+            )
+        else:
+            times = torch.cumsum(self._batch_gaps(generator, n_devices, max_arrivals), dim=1)
+        # half-open horizon [0, horizon_ms): consistent with
+        # bin_arrival_counts, which bins ticks [k·dt, (k+1)·dt)
+        return torch.where(times < horizon_ms, times, torch.inf)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,6 +194,13 @@ class DeterministicArrivals(ArrivalProcess):
 
     def mean_period_ms(self) -> float:
         return self.period_ms
+
+    def _draws(self, generator, n_devices, n_gaps):
+        # no randomness: a carrier of the batch's shape and device
+        return (torch.empty((n_devices, n_gaps), dtype=_F64, device=generator.device),)
+
+    def _gaps_from_draws(self, shape_like):
+        return torch.full_like(shape_like, self.period_ms)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,6 +236,13 @@ class JitteredArrivals(ArrivalProcess):
     def mean_period_ms(self) -> float:
         return self.period_ms
 
+    def _draws(self, generator, n_devices, n_gaps):
+        return (torch.randn((n_devices, n_gaps), generator=generator, dtype=_F64,
+                            device=generator.device),)
+
+    def _gaps_from_draws(self, eps):
+        return self.period_ms * torch.clamp_min(1.0 + self.jitter * eps, 0.0)
+
 
 @dataclasses.dataclass(frozen=True)
 class PoissonArrivals(ArrivalProcess):
@@ -160,6 +260,12 @@ class PoissonArrivals(ArrivalProcess):
 
     def mean_period_ms(self) -> float:
         return self.mean_ms
+
+    def _draws(self, generator, n_devices, n_gaps):
+        return (_exponential(generator, (n_devices, n_gaps)),)
+
+    def _gaps_from_draws(self, u_exp):
+        return u_exp * self.mean_ms
 
 
 @dataclasses.dataclass(frozen=True)
@@ -208,6 +314,23 @@ class MMPPArrivals(ArrivalProcess):
         # stationary fraction of arrivals in each state ∝ mean dwell length
         b, q = self.mean_burst_len, self.mean_quiet_len
         return (b * self.burst_ms + q * self.quiet_ms) / (b + q)
+
+    def _draws(self, generator, n_devices, n_gaps):
+        return (_exponential(generator, (n_gaps, n_devices)),
+                _uniform(generator, (n_gaps, n_devices)))
+
+    def _gaps_from_draws(self, u_exp, u_flip):
+        # Same 2-state chain as the scalar generator: the per-arrival state
+        # flips run in a loop over the gap index with every device advanced
+        # at once (the chain is sequential in i, never in d).
+        burst, quiet = _const(self.burst_ms, u_exp), _const(self.quiet_ms, u_exp)
+        p_b, p_q = _const(1.0 / self.mean_burst_len, u_exp), _const(1.0 / self.mean_quiet_len, u_exp)
+        in_burst = torch.ones(u_exp.shape[1], dtype=torch.bool, device=u_exp.device)
+        gaps = torch.empty_like(u_exp)
+        for i in range(u_exp.shape[0]):
+            gaps[i] = u_exp[i] * torch.where(in_burst, burst, quiet)
+            in_burst = in_burst ^ (u_flip[i] < torch.where(in_burst, p_b, p_q))
+        return gaps.T
 
 
 @dataclasses.dataclass(frozen=True)
@@ -287,6 +410,35 @@ class DiurnalArrivals(ArrivalProcess):
         b, q = self.mean_burst_len, self.mean_quiet_len
         return (b * self.burst_ms + q * self.mean_ms) / (b + q)
 
+    def _draws(self, generator, n_devices, n_gaps):
+        return (_exponential(generator, (n_gaps, n_devices)),
+                _uniform(generator, (n_gaps, n_devices)))
+
+    def _gaps_from_draws(self, u_exp, u_flip):
+        # One loop over the gap index, carrying (cumulative time, burst
+        # state) per device — the diurnal phase is a function of the carried
+        # clock, so rows advance through their own day cycles independently.
+        # sin (and the reference's compiled scan, which may multiply by
+        # 1/day_ms) leave the gaps equal to the reference's within 1e-12
+        # relative, not bit for bit.
+        has_bursts = self.burst_ms is not None
+        burst = _const(self.burst_ms if has_bursts else self.mean_ms, u_exp)
+        p_b = _const(1.0 / self.mean_burst_len if has_bursts else 0.0, u_exp)
+        p_q = _const(1.0 / self.mean_quiet_len if has_bursts else 0.0, u_exp)
+        mean, day = _const(self.mean_ms, u_exp), _const(self.day_ms, u_exp)
+        two_pi = 2.0 * math.pi
+        n_devices = u_exp.shape[1]
+        t = torch.zeros(n_devices, dtype=_F64, device=u_exp.device)
+        in_burst = torch.zeros(n_devices, dtype=torch.bool, device=u_exp.device)
+        gaps = torch.empty_like(u_exp)
+        for i in range(u_exp.shape[0]):
+            phase = two_pi * (torch.div(t, day) + self.phase_frac)
+            quiet_mean = torch.div(mean, 1.0 + self.amplitude * torch.sin(phase))
+            gaps[i] = u_exp[i] * torch.where(in_burst, burst, quiet_mean)
+            t = t + gaps[i]
+            in_burst = in_burst ^ (u_flip[i] < torch.where(in_burst, p_b, p_q))
+        return gaps.T
+
 
 @dataclasses.dataclass(frozen=True)
 class FlashCrowdArrivals(ArrivalProcess):
@@ -340,6 +492,27 @@ class FlashCrowdArrivals(ArrivalProcess):
         return (
             self.flash_every * self.quiet_ms + self.flash_len * self.flash_gap_ms
         ) / (self.flash_every + self.flash_len)
+
+    def _draws(self, generator, n_devices, n_gaps):
+        return (_exponential(generator, (n_gaps, n_devices)),
+                _uniform(generator, (n_gaps, n_devices)))
+
+    def _gaps_from_draws(self, u_exp, u_trig):
+        # a loop over the gap index carrying the per-device countdown of
+        # remaining flash arrivals (0 = quiet state)
+        flash, quiet = _const(self.flash_gap_ms, u_exp), _const(self.quiet_ms, u_exp)
+        p_trigger = _const(1.0 / self.flash_every, u_exp)
+        remaining = torch.zeros(u_exp.shape[1], dtype=torch.int32, device=u_exp.device)
+        flash_len = torch.full_like(remaining, self.flash_len)
+        gaps = torch.empty_like(u_exp)
+        for i in range(u_exp.shape[0]):
+            in_flash = remaining > 0
+            gaps[i] = u_exp[i] * torch.where(in_flash, flash, quiet)
+            triggered = ~in_flash & (u_trig[i] < p_trigger)
+            remaining = torch.where(
+                in_flash, remaining - 1, torch.where(triggered, flash_len, 0)
+            )
+        return gaps.T
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,0 +1,369 @@
+"""Fleet simulation CLI — thousands of devices advanced tick by tick on the
+card (port of ``repro.launch.fleet``).
+
+Runs a mixed-strategy fleet under routed traffic (or the paper's periodic
+duty-cycle mode), reduces it with :mod:`repro_torch.fleet.metrics`, and
+emits a ``BENCH_fleet.json`` artifact containing the summary plus a
+throughput comparison against the *looped* scalar baseline (one Python
+``simulate_trace`` per device over the identical arrival streams), and an
+N=1 self-check against the scalar ``simulate()`` oracle.
+
+Usage::
+
+    PYTHONPATH=src python -m repro_torch.launch.fleet --devices 4096 --horizon 10
+    PYTHONPATH=src python -m repro_torch.launch.fleet --devices 64 --horizon 10 --smoke
+    PYTHONPATH=src python -m repro_torch.launch.fleet --mode periodic \
+        --devices 1024 --horizon 60 --budget-j 50
+    PYTHONPATH=src python -m repro_torch.launch.fleet --router power_aware \
+        --process poisson --load 0.5
+
+Runs on the card (``--device cuda``, the default, with the tick loop in
+CUDA graphs; raises on a host without one); ``--device cpu`` runs the same
+program on the host.  ``--smoke`` shrinks the looped baseline and
+self-check so the whole thing finishes in seconds.  Not ported yet:
+``--models`` and ``--n-seeds`` (the cost zoo and Monte Carlo, ROADMAP A9),
+``--mesh`` other than 1 and ``--acceptance-devices`` (the sharded runner,
+ROADMAP A13); each raises.
+"""
+from __future__ import annotations
+
+import argparse
+import math
+import sys
+import time
+
+from repro_torch.launch._cli import emit, make_parser, powerup_overhead_mj
+
+
+def _build_params(args, device):
+    from repro_torch.core.phases import paper_lstm_item
+    from repro_torch.core.strategies import IdlePowerMethod
+    from repro_torch.fleet import uniform_fleet
+
+    strategies = (
+        ("on_off", "idle_waiting", "adaptive")
+        if args.strategy == "mix"
+        else (args.strategy,)
+    )
+    return uniform_fleet(
+        args.devices,
+        item=paper_lstm_item(),
+        strategies=strategies,
+        method=IdlePowerMethod(args.method),
+        request_period_ms=args.period_ms,
+        e_budget_mj=args.budget_j * 1000.0,
+        powerup_overhead_mj=powerup_overhead_mj(args),
+        device=device,
+    )
+
+
+def _global_stream(args, n_steps: int):
+    """Per-tick global request counts at ``--load`` requests/device/period."""
+    import numpy as np
+
+    rate_per_tick = args.devices * args.load * args.dt_ms / args.period_ms
+    if args.process == "poisson":
+        rng = np.random.default_rng(args.seed)
+        return rng.poisson(rate_per_tick, n_steps).astype(np.int32)
+    if args.process == "mmpp":
+        # global stream modulated 2-state: bursts at 16x the quiet rate,
+        # normalized so the mixture mean equals the requested --load
+        rng = np.random.default_rng(args.seed)
+        burst = rng.random(n_steps) < 0.25
+        lam = np.where(burst, 4.0, 0.25) * (rate_per_tick / 1.1875)
+        return rng.poisson(lam).astype(np.int32)
+    # deterministic: Bresenham on the cumulative count → exact totals
+    cum = np.floor(rate_per_tick * np.arange(1, n_steps + 1) + 1e-9)
+    return np.diff(cum, prepend=0.0).astype(np.int32)
+
+
+def _baseline_loop(args, counts, n_baseline: int) -> tuple[float, int]:
+    """Python loop: one scalar ``simulate_trace`` per device over the same
+    routed streams.  Returns (elapsed_s, requests_served)."""
+    import numpy as np
+
+    from repro_torch.core.adaptive import StaticPolicy
+    from repro_torch.core.phases import paper_lstm_item
+    from repro_torch.core.simulator import simulate_trace
+    from repro_torch.core.strategies import IdlePowerMethod
+
+    item = paper_lstm_item()
+    powerup = powerup_overhead_mj(args)
+    strategies = (
+        ("on_off", "idle_waiting", "adaptive")
+        if args.strategy == "mix"
+        else (args.strategy,)
+    )
+    method = IdlePowerMethod(args.method)
+    # pre-split the global stream request-wise round-robin across the
+    # baseline devices (outside the timed region: routing is the fleet
+    # kernel's job) — with counts == n_baseline per tick this gives every
+    # device exactly one request per period, the fleet devices' workload
+    k = np.arange(len(counts), dtype=np.float64)
+    tick_times = k * args.dt_ms
+    req_times = np.repeat(tick_times, counts)
+    dev_of_req = np.arange(req_times.size) % max(n_baseline, 1)
+
+    from repro_torch.core.adaptive import FixedTimeoutPolicy, break_even_timeout_ms
+    from repro_torch.core.strategies import IdleWaitingStrategy
+
+    p_idle = IdleWaitingStrategy(item, powerup, method=method).idle_power_mw
+
+    served = 0
+    t0 = time.perf_counter()
+    for d in range(n_baseline):
+        strat = strategies[d % len(strategies)]
+        if strat == "adaptive":
+            policy = FixedTimeoutPolicy(
+                break_even_timeout_ms(item, p_idle, powerup), p_idle
+            )
+        else:
+            policy = StaticPolicy(strat, item, method=method)
+        res = simulate_trace(
+            item,
+            req_times[dev_of_req == d],
+            policy,
+            e_budget_mj=args.budget_j * 1000.0,
+            powerup_overhead_mj=powerup,
+        )
+        served += res.n_items
+    return time.perf_counter() - t0, served
+
+
+def _oracle_self_check(args, max_steps: int, device) -> dict:
+    """N=1 periodic fleet vs the scalar ``simulate()`` oracle (artifact
+    self-verification; cheap)."""
+    from repro_torch.core.phases import paper_lstm_item
+    from repro_torch.core.simulator import simulate
+    from repro_torch.core.strategies import IdlePowerMethod
+    from repro_torch.core.workload import ExperimentSpec, WorkloadSpec
+    from repro_torch.fleet import DeviceSpec, FleetParams, run_periodic
+
+    item = paper_lstm_item()
+    powerup = powerup_overhead_mj(args)
+    out = {}
+    for strat in ("on_off", "idle_waiting"):
+        spec = ExperimentSpec(
+            workload=WorkloadSpec(args.budget_j, args.period_ms),
+            item=item,
+            strategy_kind=strat,
+            method=IdlePowerMethod(args.method),
+            powerup_overhead_mj=powerup,
+        )
+        oracle = simulate(spec)
+        fleet = run_periodic(
+            FleetParams.from_specs([DeviceSpec.from_experiment(spec)], device),
+            n_steps=min(max(oracle.n_items + 1, 1), max_steps),
+        )
+        horizon_limited = fleet.n_steps <= oracle.n_items
+        n_fleet, e_fleet = int(fleet.n_items[0]), float(fleet.energy_mj[0])
+        out[strat] = {
+            "n_oracle": oracle.n_items,
+            "n_fleet": n_fleet,
+            "energy_abs_diff_mj": (
+                None if horizon_limited else abs(e_fleet - oracle.energy_used_mj)
+            ),
+            "agrees": horizon_limited or (
+                n_fleet == oracle.n_items and e_fleet == oracle.energy_used_mj
+            ),
+        }
+    return out
+
+
+def main(argv=None) -> int:
+    ap = make_parser(
+        prog="python -m repro_torch.launch.fleet",
+        description="Fleet-scale vectorized duty-cycle simulation (one tick loop on the card).",
+        calibrated_default=True,
+        out_default="BENCH_fleet.json",
+    )
+    ap.add_argument("--devices", type=int, default=4096)
+    ap.add_argument("--models", default=None,
+                    help="heterogeneous fleet from the cost zoo (not ported yet: "
+                         "ROADMAP A9)")
+    ap.add_argument("--horizon", type=float, default=10.0, help="simulated seconds")
+    ap.add_argument("--mode", choices=["routed", "periodic"], default="routed")
+    ap.add_argument("--router", default="round_robin",
+                    choices=["round_robin", "least_loaded", "power_aware"])
+    ap.add_argument("--strategy", default="mix",
+                    choices=["mix", "on_off", "idle_waiting", "adaptive"])
+    ap.add_argument("--method", default="method1+2",
+                    choices=["baseline", "method1", "method1+2"])
+    ap.add_argument("--process", default="deterministic",
+                    choices=["deterministic", "poisson", "mmpp"],
+                    help="shape of the global request stream (routed mode)")
+    ap.add_argument("--period-ms", type=float, default=40.0,
+                    help="per-device request period / mean-rate basis")
+    ap.add_argument("--load", type=float, default=1.0,
+                    help="offered load, requests per device per period")
+    ap.add_argument("--dt-ms", type=float, default=None,
+                    help="routed-mode tick (default: one tick per request "
+                         "period; set smaller for finer queueing resolution)")
+    ap.add_argument("--budget-j", type=float, default=4147.0,
+                    help="per-device energy budget (J)")
+    ap.add_argument("--queue-capacity", type=int, default=16)
+    ap.add_argument("--no-latency", dest="collect_latency", action="store_false",
+                    help="skip per-tick latency trajectories (saves K x N "
+                         "memory on very long routed horizons)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--n-seeds", type=int, default=None,
+                    help="Monte Carlo replications (not ported yet: ROADMAP A9)")
+    ap.add_argument("--jitter", type=float, default=0.0,
+                    help="relative Gaussian request-timing jitter for the "
+                         "uncertainty section (deterministic process only; "
+                         "0 = exact duty-cycle limit)")
+    ap.add_argument("--baseline-devices", type=int, default=None,
+                    help="devices in the looped baseline (default min(N, 64))")
+    ap.add_argument("--mesh", default="1",
+                    help="device mesh for the sharded periodic kernel; only '1' "
+                         "(the sharded runner comes with ROADMAP A13)")
+    ap.add_argument("--acceptance-devices", type=int, default=None,
+                    help="the sharded full-budget lifetime acceptance scan "
+                         "(not ported yet: ROADMAP A13)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="CI-sized run: tiny baseline + self-check caps")
+    args = ap.parse_args(argv)
+
+    if args.devices <= 0:
+        raise SystemExit("--devices must be positive")
+    for flag, value, item in (("--models", args.models, "A9"), ("--n-seeds", args.n_seeds, "A9"),
+                              ("--acceptance-devices", args.acceptance_devices, "A13")):
+        if value:
+            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP {item})")
+    if args.mesh != "1":
+        raise NotImplementedError("--mesh other than 1 needs the sharded runner (ROADMAP A13)")
+    if args.dt_ms is None:
+        args.dt_ms = args.period_ms
+
+    import numpy as np
+
+    from repro_torch.device import resolve_device, synchronize
+    from repro_torch.fleet import fleet_summary, run_periodic, run_routed
+
+    device = resolve_device(args.device)
+    horizon_ms = args.horizon * 1000.0
+    params = _build_params(args, device)
+    payload: dict = {
+        "kind": "fleet",
+        "config": {
+            k: getattr(args, k)
+            for k in ("devices", "horizon", "mode", "router", "strategy", "method",
+                      "process", "period_ms", "load", "dt_ms", "budget_j",
+                      "queue_capacity", "collect_latency", "seed", "n_seeds",
+                      "jitter", "calibrated", "smoke")
+        },
+    }
+
+    if args.mode == "periodic":
+        n_steps = max(1, int(math.ceil(horizon_ms / args.period_ms)))
+        run = lambda: run_periodic(params, n_steps)  # noqa: E731
+        counts = None
+    else:
+        n_steps = max(1, int(math.ceil(horizon_ms / args.dt_ms)))
+        counts = _global_stream(args, n_steps)
+        run = lambda: run_routed(  # noqa: E731
+            params, counts, args.dt_ms, router=args.router,
+            queue_capacity=args.queue_capacity,
+            collect_latency=args.collect_latency,
+        )
+
+    def timed(fn):
+        synchronize(device)
+        t0 = time.perf_counter()
+        out = fn()
+        synchronize(device)
+        return out, time.perf_counter() - t0
+
+    run()                                   # warm-up: capture and caches once
+    result, fleet_elapsed = timed(run)
+
+    payload["summary"] = fleet_summary(result)
+    payload["n_steps"] = n_steps
+
+    # ---- throughput: vectorized fleet vs looped scalar baseline ------------
+    # The baseline loops one Python `simulate_trace` per device over that
+    # device's *fair share* of traffic (the identical per-device workload a
+    # fleet device sees), so devices/sec extrapolates honestly to the full
+    # fleet.  The headline comparison runs the periodic kernel — the mode
+    # whose per-device semantics equal the scalar oracle's — and, when the
+    # routed mode was requested, its numbers are reported alongside.
+    n_baseline = args.baseline_devices or min(args.devices, 8 if args.smoke else 64)
+
+    def _tp(elapsed_s, n_devices, steps):
+        per_s = n_devices / elapsed_s if elapsed_s > 0 else float("inf")
+        return {
+            "elapsed_s": round(elapsed_s, 6),
+            "devices": n_devices,
+            "devices_per_s": round(per_s, 1),
+            "device_steps_per_s": round(n_devices * steps / elapsed_s, 1)
+            if elapsed_s > 0 else None,
+        }
+
+    n_steps_p = max(1, int(math.ceil(horizon_ms / args.period_ms)))
+    if args.mode == "periodic":
+        periodic_elapsed = fleet_elapsed
+        periodic_result = result
+    else:
+        run_periodic(params, n_steps_p)     # warm-up
+        periodic_result, periodic_elapsed = timed(lambda: run_periodic(params, n_steps_p))
+
+    fleet_tp = _tp(periodic_elapsed, args.devices, n_steps_p)
+    saved_dt = args.dt_ms
+    args.dt_ms = args.period_ms
+    base_elapsed, base_served = _baseline_loop(
+        args, np.full(n_steps_p, n_baseline, dtype=np.int32), n_baseline
+    )
+    args.dt_ms = saved_dt
+
+    base_tp = _tp(base_elapsed, n_baseline, n_steps_p)
+    base_tp["requests_served"] = base_served
+    payload["throughput"] = {
+        "periodic": {
+            "fleet": fleet_tp,
+            "looped_baseline": base_tp,
+            "speedup_devices_per_s": round(
+                fleet_tp["devices_per_s"] / base_tp["devices_per_s"], 1
+            ) if base_tp["devices_per_s"] else None,
+        },
+    }
+    if args.mode == "routed":
+        base_args = argparse.Namespace(**vars(args))
+        base_args.devices = n_baseline
+        rbase_elapsed, rbase_served = _baseline_loop(
+            args, _global_stream(base_args, n_steps), n_baseline
+        )
+        rfleet_tp = _tp(fleet_elapsed, args.devices, n_steps)
+        rbase_tp = _tp(rbase_elapsed, n_baseline, n_steps)
+        rbase_tp["requests_served"] = rbase_served
+        payload["throughput"]["routed"] = {
+            "fleet": rfleet_tp,
+            "looped_baseline": rbase_tp,
+            "speedup_devices_per_s": round(
+                rfleet_tp["devices_per_s"] / rbase_tp["devices_per_s"], 1
+            ) if rbase_tp["devices_per_s"] else None,
+        }
+
+    payload["oracle_self_check"] = _oracle_self_check(
+        args, max_steps=2_000 if args.smoke else 6_000_000, device=device
+    )
+
+    emit(payload, args.out, label="fleet summary", device=device)
+    tp = payload["throughput"]["periodic"]
+    print(
+        f"fleet[{args.mode}] {args.devices} devices x {n_steps} steps on {device} | "
+        f"periodic kernel: {tp['fleet']['devices_per_s']} devices/s vs looped "
+        f"baseline ({n_baseline} devices) {tp['looped_baseline']['devices_per_s']} "
+        f"devices/s -> speedup {tp['speedup_devices_per_s']}x"
+    )
+    if "routed" in payload["throughput"]:
+        rt = payload["throughput"]["routed"]
+        print(
+            f"routed[{args.router}]: {rt['fleet']['devices_per_s']} devices/s "
+            f"vs looped {rt['looped_baseline']['devices_per_s']} devices/s -> "
+            f"speedup {rt['speedup_devices_per_s']}x"
+        )
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

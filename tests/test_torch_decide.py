@@ -214,9 +214,14 @@ def test_trace_files_and_record_as_jax(jref, tmp_path):
 
 @pytest.mark.parametrize("method", ["_batch_gaps", "sample_gaps", "sample_batch"])
 def test_batched_sampling_raises_until_its_slice(method):
-    proc = arrivals.PoissonArrivals(10.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        getattr(proc, method)(None, 4, 8)
+    """The batched sampling came with its slice (ROADMAP A6): it samples
+    from a ``torch.Generator`` now; only the trace replay, which has no
+    batched sampler in the reference either, still raises."""
+    g = torch.Generator().manual_seed(0)
+    out = getattr(arrivals.PoissonArrivals(10.0), method)(g, 4, 8)
+    assert out.dtype == torch.float64 and out.shape[0] == 4
+    with pytest.raises(NotImplementedError, match="no vectorized batch sampler"):
+        getattr(arrivals.TraceArrivals((1.0, 2.0)), method)(g, 4, 8)
 
 
 @pytest.mark.parametrize(

@@ -1,0 +1,144 @@
+"""The port's CLIs, ``repro_torch.launch.sweep`` and
+``repro_torch.launch.fleet``, against the JAX package's on the same
+arguments, on the CPU (``--device cpu``).
+
+The payloads carry the same keys and values; timing and manifest keys are
+excepted (``meta``, ``manifest``, the throughput blocks' times and rates),
+and so is the reference fleet CLI's ``throughput.sharded`` block, which
+comes with the sharded runner (ROADMAP A13).  The sweep payloads' phase-sum
+quantities follow the scalar oracle where the reference departs from it
+(ROADMAP C-ref-6, ``tests/test_torch_batch_eval.py``)."""
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import batch_eval as be
+from repro_torch.core import energy_model as em
+from repro_torch.core.config_phase import DEVICES
+from repro_torch.launch import _cli, fleet, sweep
+from test_torch_batch_eval import (
+    _departs,
+    _derived_item,
+    assert_records_equal_to_reference,
+)
+
+TIMING = ("elapsed_s", "devices_per_s", "device_steps_per_s", "speedup_devices_per_s")
+
+
+@pytest.fixture(scope="module")
+def jref():
+    """The JAX package's CLIs, imported under jax 0.9.0, where
+    ``jax.experimental.enable_x64`` is gone but ``jax.enable_x64`` remains."""
+    import jax
+    import jax.experimental
+
+    if not hasattr(jax.experimental, "enable_x64"):
+        jax.experimental.enable_x64 = jax.enable_x64
+    from repro.launch import fleet as jfleet, sweep as jsweep
+
+    return dict(sweep=jsweep, fleet=jfleet)
+
+
+def _run(main, argv, path) -> dict:
+    assert main(argv + ["--out", str(path)]) == 0
+    return json.loads(path.read_text())
+
+
+def _grid(argv) -> be.SweepGrid:
+    ap = _cli.make_parser("x", "x")
+    for flag, default in (("--kind", "strategies"), ("--devices", "spartan7-xc7s15"),
+                          ("--buswidths", None), ("--clocks", None), ("--periods", "10:120:10"),
+                          ("--methods", "baseline,method1,method1+2"), ("--budgets-j", "4147"),
+                          ("--idle-powers", "134.3,34.2,24.0"), ("--limit", None)):
+        ap.add_argument(flag, default=default)
+    return sweep.build_grid(ap.parse_args(argv))
+
+
+SWEEPS = {
+    "config": ["--kind", "config", "--devices", "both"],
+    "strategies": ["--kind", "strategies", "--calibrated", "--periods", "10:200:10"],
+    "strategies_both": ["--kind", "strategies", "--devices", "both", "--buswidths", "1,4",
+                        "--clocks", "3,33,66", "--budgets-j", "2,4147", "--limit", "500"],
+    "pareto": ["--kind", "pareto", "--calibrated", "--methods", "baseline,method1+2"],
+    "crossover": ["--kind", "crossover", "--devices", "both", "--calibrated"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(SWEEPS))
+def test_sweep_cli_gives_the_reference_payload(jref, tmp_path, name):
+    argv = SWEEPS[name]
+    ours = _run(sweep.main, argv + ["--device", "cpu"], tmp_path / "ours.json")
+    ref = _run(jref["sweep"].main, argv, tmp_path / "ref.json")
+    assert ours.keys() == ref.keys()
+    assert ours["meta"].keys() - {"device"} == ref["meta"].keys() - {"jit"}
+    assert ours["manifest"]["backend"] == "cpu" and ours["manifest"]["versions"]["torch"]
+    grid = _grid(argv)
+    for key in ours.keys() - {"meta", "manifest"}:
+        a, b = ours[key], ref[key]
+        if key in ("records", "strategy_frontier"):
+            assert_records_equal_to_reference(grid, a, b)
+        elif key == "crossover_ms":
+            a, b = np.asarray(a), np.asarray(b)
+            powers = [134.3, 34.2, 24.0]
+            for d, w, f, c, p in map(tuple, np.argwhere(a != b)):
+                item = _derived_item(be.SweepGrid(devices=tuple(DEVICES.values())), d, w, f, c)
+                want = em.crossover_period_ms(item, powers[p], em.CALIBRATED_POWERUP_OVERHEAD_MJ)
+                assert _departs(a[d, w, f, c, p], b[d, w, f, c, p], want)
+        else:
+            assert a == b, key
+
+
+def _strip(throughput: dict) -> dict:
+    return {mode: {k: ({kk: vv for kk, vv in v.items() if kk not in TIMING} if isinstance(v, dict) else v)
+                   for k, v in block.items() if k not in TIMING}
+            for mode, block in throughput.items() if mode != "sharded"}
+
+
+FLEETS = {
+    "routed": ["--smoke", "--devices", "48"],
+    "routed_power_aware": ["--smoke", "--devices", "40", "--router", "power_aware", "--process",
+                           "poisson", "--load", "0.5", "--dt-ms", "20", "--budget-j", "2"],
+    "periodic": ["--smoke", "--devices", "30", "--mode", "periodic", "--budget-j", "5",
+                 "--strategy", "idle_waiting", "--horizon", "40"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(FLEETS))
+def test_fleet_cli_gives_the_reference_payload(jref, tmp_path, name):
+    argv = FLEETS[name]
+    ours = _run(fleet.main, argv + ["--device", "cpu"], tmp_path / "ours.json")
+    ref = _run(jref["fleet"].main, argv, tmp_path / "ref.json")
+    assert ours.keys() == ref.keys()
+    for key in ("kind", "config", "summary", "n_steps", "oracle_self_check"):
+        assert ours[key] == ref[key], key
+    assert _strip(ours["throughput"]) == _strip(ref["throughput"])
+    assert all(v["agrees"] for v in ours["oracle_self_check"].values())
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["--models", "mixtral-8x7b"], "A9"),
+    (["--n-seeds", "4"], "A9"),
+    (["--mesh", "2"], "A13"),
+    (["--acceptance-devices", "1000"], "A13"),
+])
+def test_fleet_cli_features_not_ported_raise(argv, item):
+    with pytest.raises(NotImplementedError, match=item):
+        fleet.main(["--device", "cpu", "--smoke", "--devices", "8"] + argv)
+
+
+def test_clis_default_to_the_card_and_raise_without_it(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for main in (sweep.main, fleet.main):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main([])
+    assert capsys.readouterr().out == ""
+
+
+def test_parse_axis_and_manifest():
+    assert _cli.parse_axis("10:40:10") == [10.0, 20.0, 30.0, 40.0]
+    assert _cli.parse_axis("3,6,9") == [3.0, 6.0, 9.0]
+    m = _cli.run_manifest(seed=3, device="cpu")
+    assert m["seed"] == 3 and m["card"] is None and "jax" not in m["versions"]
+    assert m["versions"]["torch"] == torch.__version__

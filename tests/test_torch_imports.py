@@ -103,6 +103,18 @@ def test_module_list_covers_the_slice():
         "repro_torch.configs.jamba_1_5_large_398b",
         "repro_torch.configs.hubert_xlarge",
         "repro_torch.configs.llava_next_mistral_7b",
+        "repro_torch.launch._cli",
+        "repro_torch.core.batch_eval",
+        "repro_torch.core.pareto",
+        "repro_torch.launch.sweep",
+        "repro_torch.fleet",
+        "repro_torch.fleet.state",
+        "repro_torch.fleet.router",
+        "repro_torch.fleet.step",
+        "repro_torch.fleet.dtypes",
+        "repro_torch.fleet.metrics",
+        "repro_torch.serving.fleet_backend",
+        "repro_torch.launch.fleet",
     ):
         assert name in mods
 
@@ -149,6 +161,43 @@ def test_serving_examples_default_to_cuda_and_raise_without_it(monkeypatch, caps
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         mod.main([])
     assert "requests" not in capsys.readouterr().out      # nothing was served
+
+
+@pytest.mark.parametrize("cli", ["sweep", "fleet"])
+def test_analytics_clis_default_to_cuda_and_raise_without_it(monkeypatch, capsys, cli):
+    import importlib
+
+    mod = importlib.import_module(f"repro_torch.launch.{cli}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main([])
+    assert capsys.readouterr().out == ""      # nothing ran on the CPU
+
+
+def test_analytics_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    """The vectorized closed forms, the Pareto frontiers, the fleet and its
+    backend: each runs on the card unless given ``device="cpu"``."""
+    from repro_torch.core import batch_eval, pareto
+    from repro_torch.core.config_phase import SPARTAN7_XC7S15
+    from repro_torch.core.phases import paper_lstm_item
+    from repro_torch.fleet import DeviceSpec, FleetParams, FleetState, uniform_fleet
+    from repro_torch.serving.fleet_backend import FleetBackend, FleetTenantSpec
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [
+        lambda: batch_eval.sweep_batch(batch_eval.SweepGrid()),
+        lambda: batch_eval.grid_axes([1.0]),
+        lambda: batch_eval.crossover_batch(paper_lstm_item()),
+        lambda: pareto.crossover_surface(paper_lstm_item(), SPARTAN7_XC7S15, [24.0]),
+        lambda: pareto.pareto_mask([[1.0, 2.0]]),
+        lambda: uniform_fleet(3),
+        lambda: FleetParams.from_specs([DeviceSpec(paper_lstm_item())]),
+        lambda: FleetState.init(3),
+        lambda: FleetBackend([FleetTenantSpec("t", 1, 1, 1, 1, 1)]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
 
 
 def test_workload_imports_yaml_only_for_the_round_trip():
