@@ -111,7 +111,32 @@ Phases, in order; any failure exits non-zero:
    Poisson and MMPP samplers at 10^5 streams against their moments, and
    their tick bins card against CPU; ticks/s and device-steps/s of both
    loops at both sizes;
-18. the phases' seconds, the ``kernels`` JSON line, the card line, and the
+18. obs — an On-Off request pair of full-width qwen3-1.7b from the serving
+   phase's checkpoint with a ``MetricsRegistry`` on the engine: bring-ups,
+   generate calls, tokens, releases and residency held to the
+   controller's, the latency histograms' p50 and p99 printed, the dequant
+   and flash launches counted; then ``python -m repro_torch.launch.obs`` at
+   its defaults (256 devices, 10 s), every conservation self-check within
+   1e-9 and its Chrome trace valid;
+19. mc — ``python -m repro_torch.launch.mc`` at its defaults (1024 seeds,
+   9 devices, 2000 steps): the zero-jitter band exactly 499.0607 ms and
+   12.4108×, delta and MC within 10 %; the periodic ensemble at 1024 seeds
+   × 4096 devices × 2000 steps (seeds/s, device-steps/s, peak memory), a
+   strided slice of its seeds held to the CPU on the same gaps bit for
+   bit; a one-seed routed ensemble held to ``run_routed``;
+20. costs — ``python -m repro_torch.launch.costs`` at its defaults (every
+   zoo model at batches 1 and 8, the 64-device model mix with 64 seeds,
+   the golden section: Table 2's item, 499.06 ms and 12.41×) whose
+   calibration section times the four kernels at the reference's pinned
+   benchmark shapes against the card's ceilings; each kernel held to its
+   plain version there (``launch.costs.calibration_accuracy``: dequant
+   bit-exact, LSTM 1e-5, flash and the SSD in bf16 within twice the plain
+   version's own distance from float64, relative to the largest output,
+   the SSD also on fp32 inputs against a float64 recurrence), no kernel
+   faster than its bound, each timed beside its device time, its plain
+   version and the library call (SDPA, ``nn.LSTM``); the calibration's
+   launches go into the ``kernels`` line;
+21. the phases' seconds, the ``kernels`` JSON line, the card line, and the
    last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -2599,6 +2624,244 @@ def fleet_phase(card: str) -> None:
               f"within 1e-9 ms of an edge), {bins} bin counts differ")
         check(bool((moved <= edge).all()), f"{proc.name}: an arrival away from a tick edge changed tick")
 
+# ---------------------------------------------------------------------------
+# Observability, Monte Carlo and the cost zoo
+# ---------------------------------------------------------------------------
+OBS_REQUESTS = 2                            # one On-Off request pair
+OBS_NEW = 8                                 # tokens a request generates (launch.serve's default)
+MC_SEEDS = 1024
+MC_DEVICES = 4096
+MC_STEPS = 2000
+MC_CHUNK = 128                              # seeds a chunk: a 8.4 GB gap buffer
+MC_CPU_STRIDE = 16                          # the CPU reruns every 16th seed of chunk 0
+
+
+def _launcher(module: str, out: Path, *extra: str, timeout: int = 600) -> dict:
+    """``python -m repro_torch.launch.<module>`` at its defaults on the card
+    (``DEV``), its JSON written to ``out`` → the payload."""
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    out.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"repro_torch.launch.{module}", "--device", DEV,
+                           "--out", str(out), *extra],
+                          capture_output=True, text=True, timeout=timeout, cwd=str(ROOT), env=env)
+    print("\n".join(f"  {line}" for line in proc.stdout.strip().splitlines()))
+    check(proc.returncode == 0, f"python -m repro_torch.launch.{module} failed: {proc.stderr[-2000:]}")
+    print(f"  launch.{module}: {time.perf_counter() - t0:.1f} s with start-up")
+    payload = json.loads(out.read_text())
+    check(DEV == "cpu" or payload["manifest"]["card"] is not None, f"the {module} CLI's manifest has no card")
+    return payload
+
+
+def obs_phase(card: str) -> tuple[int, int]:
+    """An On-Off request pair of full-width qwen3-1.7b from the serving
+    phase's checkpoint with a ``MetricsRegistry`` on the engine, its counts
+    held to the controller's; then ``launch.obs`` at its defaults and its
+    Chrome trace validated → (dequant, flash launches)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core.duty_cycle import DutyCycleController, PowerModel
+    from repro_torch.kernels.dequant import ops as dq
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.obs import MetricsRegistry, validate_chrome_trace
+    from repro_torch.serving.engine import bring_up_from_checkpoint
+    from repro_torch.serving.scheduler import run_schedule
+
+    cfg = get_config(ARCH)
+    manager = CheckpointManager(str(CKPT_DIR), mode="zstd+int8")
+    check(bool(manager.steps()), f"no serving-phase checkpoint in {CKPT_DIR}")
+    reg = MetricsRegistry()
+    rng = np.random.default_rng(7)
+    batch = 2
+    requests = [{"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, 32)),
+                                           dtype=torch.int32, device="cuda")}
+                for _ in range(OBS_REQUESTS)]
+    controller = DutyCycleController(
+        lambda: bring_up_from_checkpoint(cfg, manager, 96, device="cuda", metrics=reg),
+        lambda engine, request: engine.generate(request, n_new=OBS_NEW),
+        lambda engine: engine.release(),
+        PowerModel(config_mw=90_000.0, infer_mw=200_000.0, idle_mw=65_000.0),
+        "on_off",
+    )
+    dq.launches = 0
+    fa.launches = 0
+    res = run_schedule(controller, iter(requests), period_s=PERIOD_S)
+    n_dq, n_fa = dq.launches, fa.launches
+    torch.cuda.synchronize()
+    d = reg.to_dict()
+    print(f"  {res.n_requests} On-Off requests, {res.n_configurations} configurations; registry: "
+          + ", ".join(f"{k} {m['value']}" for k, m in d.items() if m["type"] != "histogram"))
+    for k, m in d.items():
+        if m["type"] == "histogram":
+            print(f"  {k}: n {m['total']}, mean {m['mean']:.3f} ms, p50 {m['p50']:.3f} ms, "
+                  f"p99 {m['p99']:.3f} ms [{card}]")
+    calls = d["engine_generate_calls"]["value"]
+    check(res.n_requests == OBS_REQUESTS and calls == OBS_REQUESTS, f"generate calls {calls}")
+    check(d["engine_bring_ups"]["value"] == res.n_configurations == OBS_REQUESTS,
+          f"engine_bring_ups {d['engine_bring_ups']['value']} for {res.n_configurations} configurations")
+    check(d["engine_tokens_generated"]["value"] == batch * OBS_NEW * calls,
+          f"engine_tokens_generated {d['engine_tokens_generated']['value']}")
+    check(d["engine_releases"]["value"] == res.n_configurations and d["engine_resident"]["value"] == 0,
+          "engine_releases / engine_resident after the release")
+    check(all(d[k]["total"] == n for k, n in (("engine_prefill_ms", calls), ("engine_decode_ms", calls),
+                                              ("engine_bring_up_ms", res.n_configurations))),
+          "histogram totals")
+    check(n_dq == 8 * res.n_configurations and n_fa == 28 * calls,
+          f"{n_dq} dequant and {n_fa} flash launches for {res.n_configurations} bring-ups, {calls} prefills")
+    check(torch.cuda.memory_allocated() < 1e8, "memory still allocated after the release")
+
+    out, trace = ROOT / "build" / "chip_smoke_obs.json", ROOT / "build" / "chip_smoke_obs_trace.json"
+    payload = _launcher("obs", out, "--trace-out", str(trace))
+    cons = payload["conservation"]
+    check(all(err <= 1e-9 for err in cons.values()), f"obs self-checks: {cons}")
+    problems = validate_chrome_trace(json.loads(trace.read_text()))
+    check(problems == [], f"the obs Chrome trace is malformed: {problems[:3]}")
+    tp = payload["throughput"]["periodic"]["fleet"]
+    print(f"  launch.obs: conservation {json.dumps(cons)} (limit 1e-9); trace {payload['trace']['n_events']} "
+          f"events on {payload['trace']['n_tracks']} tracks, valid; observability-off periodic "
+          f"{tp['device_steps_per_s']} device-steps/s [{card}]")
+    return n_dq, n_fa
+
+
+def mc_phase(card: str) -> None:
+    """``launch.mc`` at its defaults; the periodic ensemble at 1024 seeds ×
+    4096 devices × 2000 steps, a strided slice of its seeds held to the CPU
+    on the same gaps; a one-seed routed ensemble held to ``run_routed``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import energy_model as em
+    from repro_torch.core.arrivals import PoissonArrivals
+    from repro_torch.core.strategies import IdlePowerMethod
+    from repro_torch.fleet import run_routed, uniform_fleet
+    from repro_torch.mc import periodic_ensemble, routed_ensemble, run_periodic_ensemble
+    from repro_torch.mc.ensemble import chunk_seed
+
+    payload = _launcher("mc", ROOT / "build" / "chip_smoke_mc.json")
+    h = payload["headline"]
+    ref = h["deterministic_reference"]
+    check(round(ref["crossover_ms"], 4) == 499.0607 and round(ref["lifetime_ratio"], 4) == 12.4108,
+          f"zero-jitter band {ref['crossover_ms']} ms, {ref['lifetime_ratio']}x")
+    check(all(ref[k] for k in ("crossover_exact", "lifetime_ratio_exact", "energy_per_request_exact")),
+          f"zero-jitter exactness: {ref}")
+    agree = {k: v["delta"]["rel_disagreement"] for k, v in h.items() if isinstance(v, dict) and "delta" in v}
+    check(all(x < 0.10 for x in agree.values()), f"delta and MC disagree: {agree}")
+    tp = payload["throughput"]
+    print(f"  launch.mc: zero-jitter {ref['crossover_ms']!r} ms and {ref['lifetime_ratio']!r}x exact; "
+          f"delta/MC disagreement {json.dumps({k: round(v, 4) for k, v in agree.items()})} (limit 0.10); "
+          f"ensemble {tp['ensemble']['seeds_per_s']} seeds/s against the looped baseline's "
+          f"{tp['looped_baseline']['seeds_per_s']} ({tp['speedup_seeds_per_s']}x) [{card}]")
+
+    def fleet(n, dev, budget_mj=1500.0):
+        return uniform_fleet(n, strategies=("on_off", "idle_waiting", "adaptive"),
+                             method=IdlePowerMethod.METHOD1_2, e_budget_mj=budget_mj,
+                             powerup_overhead_mj=em.CALIBRATED_POWERUP_OVERHEAD_MJ, device=dev)
+
+    params, process = fleet(MC_DEVICES, DEV), PoissonArrivals(40.0)
+    run_periodic_ensemble(params, process, 64, MC_CHUNK, seed_chunk=MC_CHUNK)    # caches and captures
+    _reset_peak()
+    ens, s = _timed(lambda: run_periodic_ensemble(params, process, MC_STEPS, MC_SEEDS, seed=0,
+                                                  seed_chunk=MC_CHUNK))
+    steps = MC_SEEDS * MC_DEVICES * MC_STEPS
+    print(f"  periodic ensemble, {MC_SEEDS} seeds x {MC_DEVICES} devices x {MC_STEPS} steps "
+          f"(Poisson 40 ms, 1.5 J, the strategy mix; {MC_CHUNK} seeds a chunk, sampling included): "
+          f"{s:.3f} s, {MC_SEEDS / s:.1f} seeds/s, {steps / s:.4e} device-steps/s, peak "
+          f"{_peak() / 1e9:.3f} GB; lifetime {ens.lifetime_ms.mean():.2f} ms mean over seeds "
+          f"(std {ens.lifetime_ms.std(ddof=1):.3f}), {int(ens.total_items.sum())} requests [{card}]")
+    check(ens.n_seeds == MC_SEEDS and bool(np.isfinite(ens.lifetime_ms).all()), "ensemble aggregates")
+    ens.ledger.assert_conserves(ens.total_energy_mj)
+
+    # chunk 0's gaps again, from its generator: a strided slice of its seeds on the card and the CPU
+    gen = torch.Generator(DEV).manual_seed(chunk_seed(0, 0))
+    gaps = process.sample_gaps(gen, MC_CHUNK * MC_DEVICES, MC_STEPS).view(MC_CHUNK, MC_DEVICES, MC_STEPS)
+    idx = np.arange(0, MC_CHUNK, MC_CPU_STRIDE)
+    sl = gaps[idx].permute(0, 2, 1).contiguous()
+    card_s = periodic_ensemble(params, sl, keep_device_samples=True)
+    cpu_s = periodic_ensemble(fleet(MC_DEVICES, "cpu"), sl.cpu(), keep_device_samples=True)
+    for f in ("per_device_items", "per_device_energy_mj", "per_device_lifetime_ms"):
+        check(np.array_equal(getattr(card_s, f), getattr(cpu_s, f)), f"ensemble card vs CPU: {f} differs")
+    for f in ("lifetime_ms", "total_items", "total_energy_mj"):
+        check(np.array_equal(getattr(ens, f)[idx], getattr(card_s, f)), f"ensemble slice vs the full run: {f}")
+    print(f"  {idx.size} seeds of chunk 0 (every {MC_CPU_STRIDE}th): card = CPU bit for bit in counts, "
+          f"energies and lifetimes, and = the full run's per-seed aggregates")
+    del gaps, sl
+
+    counts = np.random.default_rng(2).poisson(0.4, (1, FLEET_BIG_TICKS, MC_DEVICES)).astype(np.int32)
+    r_params = fleet(MC_DEVICES, DEV, em.PAPER_ENERGY_BUDGET_MJ)
+    one = routed_ensemble(r_params, counts, 40.0, keep_device_samples=True)
+    direct = run_routed(r_params, counts[0], 40.0, router=None)
+    lat = direct.latency_ms.cpu().numpy().astype(np.float64)[direct.served_mask.cpu().numpy()]
+    check(np.array_equal(one.per_device_served[0], direct.n_served.cpu().numpy())
+          and np.array_equal(one.per_device_energy_mj[0], direct.energy_mj.cpu().numpy())
+          and one.p99_latency_ms[0] == np.percentile(lat, 99.0),
+          "one-seed routed ensemble differs from run_routed")
+    print(f"  one-seed routed ensemble, {MC_DEVICES} devices x {FLEET_BIG_TICKS} ticks = run_routed bit for "
+          f"bit (served {int(one.served[0])}, p99 {one.p99_latency_ms[0]:.3f} ms)")
+
+
+def costs_phase(card: str) -> dict:
+    """``launch.costs`` at its defaults (its calibration section times the
+    four kernels at the reference's pinned shapes); each kernel held to its
+    plain version at that shape and timed beside it and the library call →
+    the calibration's launches and rows, by kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.launch import costs as costs_cli
+
+    payload = _launcher("costs", ROOT / "build" / "chip_smoke_costs.json")
+    g = payload["golden"]
+    check(g["item_matches_table2"] and g["crossover_ms"] == 499.06 and g["lifetime_ratio_40ms"] == 12.41,
+          f"golden section {g}")
+    cal = payload["calibration"]
+    check(cal["device"] == "cuda" and cal["card"] is not None, f"calibration ran on {cal['device']}")
+    fl = payload["fleet"]
+    print(f"  launch.costs: {payload['size']} (model x batch) costs; fleet {fl['devices']} devices x "
+          f"{fl['n_steps']} steps, ensemble {fl['ensemble']['n_seeds']} seeds; golden {json.dumps(g)}; "
+          f"calibration on {cal['card']}")
+
+    rows = {}
+    for name, row in cal["kernels"].items():
+        checks = costs_cli.calibration_accuracy(name, DEV)
+        torch.cuda.synchronize()
+        for what, c in checks.items():
+            rel = f", rel_err {c['rel_err']:.4g} of max |plain|" if "rel_err" in c else ""
+            print(f"  {name} at the pinned shape, {what}: {c['measure']}: max_abs_err {c['max_abs_err']:.4g}"
+                  f"{rel} (limit {c['limit']:.4g} on {c['limit_on']})"
+                  + "".join(f", {k} {c[k]:.4g}" for k in ("kernel_vs_float64", "plain_vs_float64",
+                                                          "kernel_vs_plain", "max_abs_y") if k in c)
+                  + f" [{card}]")
+            check(c["ok"], f"{name} at the pinned shape ({what}): {c}")
+        kernel, plain = costs_cli.calibration_inputs(name, DEV)
+        k_ms, k_dev, p_ms = time_ms(kernel), graph_ms(kernel), time_ms(plain)
+        lib_ms = None
+        if name == "flash_attention":
+            q, kk, v = (torch.randn((1, 1024, hh, 64), device=DEV, dtype=torch.bfloat16).transpose(1, 2)
+                        for hh in (8, 2, 2))
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, kk, v, is_causal=True, enable_gqa=True))
+        elif name == "lstm":
+            net = torch.nn.LSTM(6, 20, batch_first=True).cuda()
+            x = torch.randn((1, 64, 6), device=DEV)
+            with torch.no_grad():
+                lib_ms = time_ms(lambda: net(x))
+        bound = row["bound_us"] / 1e3
+        print(f"  {name} {json.dumps(row['shape'])}: CLI {row['us']:.3f} us, kernel {k_ms:.5f} ms "
+              f"({k_dev:.5f} ms of device time, CUDA graph), plain {p_ms:.5f} ms, library "
+              f"{'none exists' if lib_ms is None else f'{lib_ms:.5f} ms'}, bound {bound:.6f} ms by "
+              f"{row['bound_by']} ({row['flops'] / 1e9:.4f} G{row['op_dtype']} operations, "
+              f"{row['hbm_bytes'] / 1e6:.4f} MB), efficiency {row['efficiency']:.4f} (at device time "
+              f"{bound / k_dev:.4f}), launches {row['launches']} [{card}]")
+        check(row["efficiency"] <= 1.0 and bound <= k_dev, f"{name}: faster than its bound, a count is wrong")
+        main_check = checks["fp32" if name == "lstm" else "bf16"]
+        rows[name] = dict(row, max_abs_err=main_check["max_abs_err"], limit=main_check["limit"],
+                          limit_on=main_check["limit_on"], accuracy=checks, ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=lib_ms)
+    check(all(r["launches"] > 0 for r in rows.values()), "a kernel was not launched by the calibration")
+    return rows
+
+
 @contextlib.contextmanager
 def timed_phase(name: str, seconds: dict):
     """Print the phase's header, and its seconds when it ends."""
@@ -2660,7 +2923,6 @@ def main() -> None:
     with timed_phase("multi-tenant", seconds):
         fa_entry["launches"] += multi_tenant_example(card)
         n_dq, n_fa = multi_tenant_full_width(card)
-        shutil.rmtree(CKPT_DIR, ignore_errors=True)
         dq_entry["launches"] += n_dq
         fa_entry["launches"] += n_fa
         check(n_dq > 0 and n_fa > 0, "a kernel of the multi-tenant path was never launched")
@@ -2706,6 +2968,23 @@ def main() -> None:
 
     with timed_phase("fleet", seconds):
         fleet_phase(card)
+
+    with timed_phase("obs", seconds):
+        n_dq, n_fa = obs_phase(card)
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+        dq_entry["launches"] += n_dq
+        fa_entry["launches"] += n_fa
+        check(n_dq > 0 and n_fa > 0, "a kernel of the engine-metrics path was never launched")
+
+    with timed_phase("mc", seconds):
+        mc_phase(card)
+
+    with timed_phase("costs", seconds):
+        cal = costs_phase(card)
+        for entry, name in ((dq_entry, "dequant"), (fa_entry, "flash_attention"), (lstm_entry, "lstm"),
+                            (ssd_entry, "ssd")):
+            entry["launches"] += cal[name]["launches"]
+            entry["calibration"] = cal[name]
 
     print(f"phase seconds: {json.dumps(seconds)}")
     print(card)

@@ -11,6 +11,7 @@
                    MMPP/diurnal/flash-crowd/trace), their scalar streams
 - adaptive       : adaptive power policy (crossover decision rule + online
                    controller with hysteresis-guarded ski-rental hybrid)
+- tpu_energy     : TPU-pod adaptation of the phase/energy model
 - planner        : deployment planner, the analytical model inverted
 - duty_cycle     : runnable duty-cycle controller for the serving engine
 - batch_eval     : vectorized (torch) batch sweep engine — whole design
@@ -19,8 +20,7 @@
 - pareto         : Pareto frontiers + crossover surfaces over batch grids
 
 ``arrivals`` also samples one stream per device in a batch
-(``sample_batch``, from a ``torch.Generator``).  Not ported yet:
-``tpu_energy`` (ROADMAP A9).
+(``sample_batch``, from a ``torch.Generator``).
 """
 from repro_torch.core.phases import (
     CONFIGURATION,
@@ -101,6 +101,6 @@ from repro_torch.core.adaptive import (
     break_even_timeout_ms,
 )
 
-from repro_torch.core import batch_eval, pareto  # noqa: E402  (after the scalar core they build on)
+from repro_torch.core import batch_eval, pareto, tpu_energy  # noqa: E402  (after the scalar core they build on)
 
 __all__ = [k for k in dir() if not k.startswith("_")]

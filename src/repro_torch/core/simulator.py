@@ -353,10 +353,9 @@ def simulate_trace(
     The per-phase breakdown (``energy_by_phase_mj`` / ``.ledger``) reports
     the calibrated power-up overhead on its own ``powerup`` /
     ``initial_powerup`` rows, separate from the configuration phase.  A
-    ``recorder`` (anything with the reference's ``TraceRecorder`` methods
-    ``instant`` and ``complete``) captures the state-transition timeline
-    (arrivals, idle spans, timeout releases, reconfigurations, service
-    spans); the port's recorder comes with observability (ROADMAP A8).
+    :class:`repro_torch.obs.trace.TraceRecorder` as ``recorder`` captures
+    the state-transition timeline (arrivals, idle spans, timeout releases,
+    reconfigurations, service spans), exportable as Chrome-trace JSON.
     """
     # Validate the trace up front: a negative or non-monotonic timestamp
     # would silently corrupt the idle-gap accounting (gaps are differences

@@ -29,9 +29,12 @@ Example::
       method: baseline            # baseline | method1 | method1+2
       powerup_overhead_mj: 0.12375
 
-An item that names a cost-zoo model (``item: {model: mixtral-8x7b}``) is
-not ported yet: the cost zoo comes with the costs slice (ROADMAP A9), and
-such an item raises ``NotImplementedError``.
+An item may instead name a cost-zoo model (`repro_torch.costs`) — the
+phases are then the model's roofline-calibrated request cost::
+
+    item:
+      model: mixtral-8x7b
+      batch: 8
 """
 from __future__ import annotations
 
@@ -120,13 +123,24 @@ class ExperimentSpec:
 
 
 def _item_from_dict(d: Mapping) -> WorkloadItem:
-    """Item from explicit phases.  The reference's other form, a cost-zoo
-    model reference (``model: mixtral-8x7b``), waits for the costs slice."""
+    """Item from either explicit phases or a cost-zoo model reference.
+
+    The model form prices the item through :mod:`repro_torch.costs`::
+
+        item:
+          model: mixtral-8x7b      # registered arch or the paper LSTM
+          batch: 8                 # optional; plus prefill_len, decode_len,
+          profile: tpu-v5e-like    # profile, efficiency
+    """
     if "model" in d:
-        raise NotImplementedError(
-            f"item: model {d['model']!r}: the cost-zoo item form is not ported "
-            "yet; it comes with the costs slice (ROADMAP A9)"
-        )
+        if "phases" in d:
+            raise ValueError("item: give either 'model' or 'phases', not both")
+        from repro_torch.costs import model_workload_item  # deferred: costs imports core
+
+        kwargs = {k: d[k] for k in
+                  ("batch", "prefill_len", "decode_len", "profile", "efficiency")
+                  if k in d}
+        return model_workload_item(str(d["model"]), **kwargs)
     return WorkloadItem.from_dict(d)
 
 

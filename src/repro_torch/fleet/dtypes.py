@@ -28,8 +28,7 @@ This module pins the audited dtype contract:
 
 The reference reads carry dtypes through JAX's abstract evaluation; torch
 has none, so the port runs one real step of the body (on a tiny fleet, the
-audit costs nothing).  The Monte Carlo ensemble's carry comes with its
-module (ROADMAP A9).
+audit costs nothing), the Monte Carlo ensemble's over a one-seed carry.
 """
 from __future__ import annotations
 
@@ -41,16 +40,23 @@ from repro_torch.fleet.state import FleetParams, FleetState
 
 __all__ = [
     "PERIODIC_CARRY_DTYPES",
+    "ENSEMBLE_CARRY_DTYPES",
     "ROUTED_CARRY_DTYPES",
     "scan_carry_dtypes",
     "audit_scan_body",
     "periodic_carry_dtypes",
+    "ensemble_carry_dtypes",
     "routed_carry_dtypes",
 ]
 
 #: Pinned carry dtypes of the periodic admission loop
 #: (:func:`repro_torch.fleet.step._periodic_body`): ``(n, alive)``.
 PERIODIC_CARRY_DTYPES = ("int32", "bool")
+
+#: Pinned carry dtypes of the gap-driven ensemble loop
+#: (:func:`repro_torch.mc.ensemble._periodic_ens_loop`):
+#: ``(n, alive, cum_mj, lifetime_ms, idle_mj)``.
+ENSEMBLE_CARRY_DTYPES = ("int32", "bool", "float64", "float64", "float64")
 
 #: Pinned carry dtypes of the routed tick's :class:`FleetState`, in field
 #: order.  The i64 counters are deliberate (see module docstring).
@@ -129,6 +135,17 @@ def periodic_carry_dtypes(params: FleetParams) -> tuple[str, ...]:
 
     carry = _periodic_carry0(params)
     audit_scan_body(_periodic_body(params, _periodic_limit(params)), carry, None, name="periodic")
+    return tuple(_dtype_name(c) for c in carry)
+
+
+def ensemble_carry_dtypes(params: FleetParams) -> tuple[str, ...]:
+    """Audited carry dtypes of the gap-driven ensemble loop (stable, else
+    raises)."""
+    from repro_torch.mc.ensemble import _ens_body, _ens_carry0, _ens_limit
+
+    carry = _ens_carry0(params)
+    g = torch.zeros((1, params.n_devices), dtype=torch.float64, device=params.device)
+    audit_scan_body(_ens_body(params, _ens_limit(params)), carry, (g, g), name="ensemble")
     return tuple(_dtype_name(c) for c in carry)
 
 

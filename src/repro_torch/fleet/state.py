@@ -104,12 +104,24 @@ class DeviceSpec:
 
     @staticmethod
     def from_model(model: str, **kwargs) -> "DeviceSpec":
-        """A device serving one model from the cost zoo: needs the port's
-        cost zoo (``costs/``, ROADMAP A9), which is not ported yet."""
-        raise NotImplementedError(
-            "DeviceSpec.from_model needs the cost zoo (repro_torch.costs), "
-            "which comes with the Monte Carlo and costs slice (ROADMAP A9)"
-        )
+        """A device serving one model from the cost zoo (`repro_torch.costs`).
+
+        ``model`` is a registered architecture name (or the paper LSTM);
+        the workload item is the model's roofline-calibrated request cost.
+        Keyword arguments forward to :func:`repro_torch.costs.model_device_spec`
+        (``strategy``, ``request_period_ms``, ``utilization``,
+        ``e_budget_mj``, ``batch``, ``prefill_len``, ``decode_len``,
+        ``profile``, ``efficiency``, ...).
+
+        >>> spec = DeviceSpec.from_model("mixtral-8x7b", utilization=0.5)
+        >>> spec.strategy
+        'adaptive'
+        >>> spec.request_period_ms >= spec.item.execution_time_ms
+        True
+        """
+        from repro_torch.costs import model_device_spec  # deferred: costs imports fleet
+
+        return model_device_spec(model, **kwargs)
 
     def with_budget(self, e_budget_mj: float) -> "DeviceSpec":
         """This spec under a different energy budget — convenience for

@@ -400,10 +400,16 @@ def _routed_body(params: FleetParams, dt_ms, router_code: Optional[int],
 
     ``collect_events=True`` appends per-tick state-transition outputs
     (reconfigure / release masks, queue depth, drops) after the latency
-    outputs.  Existing output indices are unchanged."""
+    outputs.  Existing output indices are unchanged.
+
+    With per-device counts the carry may hold leading axes before the
+    device axis — the Monte Carlo ensemble's ``(S, N)`` seeds × devices
+    (:func:`repro_torch.mc.ensemble.routed_ensemble`): every per-device op
+    is elementwise or acts on the last axis, and the fleet-wide outputs sum
+    over the device axis only, so each seed stays its own fleet."""
     dev = params.device
     dt = torch.full((), float(dt_ms), dtype=torch.float64, device=dev)
-    slots = torch.arange(capacity, dtype=torch.int32, device=dev)[None, :]
+    slots = torch.arange(capacity, dtype=torch.int32, device=dev)
     no_drops = torch.zeros((), dtype=torch.int64, device=dev)
 
     def body(carry, x):
@@ -422,18 +428,18 @@ def _routed_body(params: FleetParams, dt_ms, router_code: Optional[int],
             )
             # requests no alive device could take (counts sums to the global
             # stream otherwise); queue overflow is tracked per device below
-            unrouted = arr.to(torch.int64) - counts.sum(dtype=torch.int64)
+            unrouted = arr.to(torch.int64) - counts.sum(dim=-1, dtype=torch.int64)
 
         # ---- enqueue: masked ring-buffer fill (all arrivals stamp `now`) ----
         space = capacity - state.q_len
         acc = torch.minimum(counts, space)
-        rel = (slots - (state.q_head + state.q_len)[:, None]) % capacity
-        queue_ms = torch.where(rel < acc[:, None], now, state.queue_ms)
+        rel = (slots - (state.q_head + state.q_len)[..., None]) % capacity
+        queue_ms = torch.where(rel < acc[..., None], now, state.queue_ms)
         q_len = state.q_len + acc
 
         # ---- serve at most one queued request per device this tick ---------
         free = state.alive & (q_len > 0) & (now >= state.completion_ms)
-        head_ts = torch.gather(queue_ms, 1, state.q_head[:, None].to(torch.int64))[:, 0]
+        head_ts = torch.gather(queue_ms, -1, state.q_head[..., None].to(torch.int64))[..., 0]
         # The *policy-managed* idle span is the time the device sat with an
         # empty queue: from its last completion until the head request
         # *arrived* (simulate_trace's start = max(a, completion)) — only
@@ -485,9 +491,9 @@ def _routed_body(params: FleetParams, dt_ms, router_code: Optional[int],
             rr_ptr=rr_next,
         )
         ys = (
-            alive.sum(dtype=torch.int32),
-            serve.sum(dtype=torch.int32),
-            q_len_next.sum(dtype=torch.int32),
+            alive.sum(dim=-1, dtype=torch.int32),
+            serve.sum(dim=-1, dtype=torch.int32),
+            q_len_next.sum(dim=-1, dtype=torch.int32),
             unrouted,
         )
         if collect_latency:

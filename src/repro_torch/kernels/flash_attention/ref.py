@@ -26,7 +26,8 @@ def _attend(
     window: int,
     scale: float,
 ) -> torch.Tensor:
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    ct = torch.promote_types(q.dtype, torch.float32)     # fp32, or float64 for float64 inputs
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(ct), k.to(ct)) * scale
     mask = (kv_positions >= 0)[None, :]
     if causal:
         mask = mask & (kv_positions[None, :] <= q_positions[:, None])
@@ -36,7 +37,7 @@ def _attend(
     probs = torch.softmax(logits, dim=-1)
     # fully-masked rows (padded queries) → zeros, not NaN
     probs = torch.where(torch.any(mask, dim=-1)[None, None, :, None], probs, 0.0)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.to(ct))
     return out.to(q.dtype)
 
 
@@ -52,7 +53,8 @@ def attention_reference(
                                                #  (ring-buffer caches); -1 invalid
     scale: float | None = None,
 ) -> torch.Tensor:
-    """Softmax attention in fp32 with optional causal/sliding-window mask.
+    """Softmax attention in fp32 (float64 for float64 inputs) with optional
+    causal/sliding-window mask.
 
     Returns (B, Sq, H, D) in q.dtype.
     """

@@ -16,8 +16,9 @@ Semantics (per head h, state dim n, head dim p):
     y_t = C_t · h_t + D_h · x_t
 
 B_t, C_t are shared across heads within a group (g groups, h heads,
-heads-per-group = h/g).  Every sum is in fp32; y comes out in x's dtype and
-the final state in fp32.
+heads-per-group = h/g).  Every sum is in fp32 (in float64 in the recurrent
+oracle when x is float64); y comes out in x's dtype and the final state in
+fp32.
 """
 from __future__ import annotations
 
@@ -32,11 +33,12 @@ def _expand_groups(bc: torch.Tensor, num_heads: int) -> torch.Tensor:
     return torch.repeat_interleave(bc, num_heads // g, dim=2)
 
 
-def _init_state(x: torch.Tensor, n: int, init_state: torch.Tensor | None) -> torch.Tensor:
+def _init_state(x: torch.Tensor, n: int, init_state: torch.Tensor | None,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
     bsz, _, h, p = x.shape
     if init_state is None:
-        return torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
-    return init_state.float()
+        return torch.zeros((bsz, h, p, n), dtype=dtype, device=x.device)
+    return init_state.to(dtype)
 
 
 def ssd_recurrent_reference(
@@ -48,19 +50,21 @@ def ssd_recurrent_reference(
     d_vec: torch.Tensor,  # (H,)
     init_state: torch.Tensor | None = None,   # (B, H, P, N)
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Sequential oracle.  Returns (y (B,S,H,P), final_state (B,H,P,N))."""
+    """Sequential oracle, in fp32 (float64 when x is float64).  Returns
+    (y (B,S,H,P), final_state (B,H,P,N))."""
     h = x.shape[2]
-    bm = _expand_groups(b_mat, h).float()
-    cm = _expand_groups(c_mat, h).float()
-    xf, dtf, af = x.float(), dt.float(), a.float()
-    state = _init_state(x, b_mat.shape[-1], init_state)
+    ct = torch.promote_types(x.dtype, torch.float32)
+    bm = _expand_groups(b_mat, h).to(ct)
+    cm = _expand_groups(c_mat, h).to(ct)
+    xf, dtf, af = x.to(ct), dt.to(ct), a.to(ct)
+    state = _init_state(x, b_mat.shape[-1], init_state, ct)
     ys = []
     for t in range(x.shape[1]):
         decay = torch.exp(af[None, :] * dtf[:, t])                       # (B,H)
         upd = torch.einsum("bhp,bhn->bhpn", xf[:, t] * dtf[:, t, :, None], bm[:, t])
         state = state * decay[..., None, None] + upd
         ys.append(torch.einsum("bhpn,bhn->bhp", state, cm[:, t]))
-    y = torch.stack(ys, dim=1) + xf * d_vec.float()[None, None, :, None]
+    y = torch.stack(ys, dim=1) + xf * d_vec.to(ct)[None, None, :, None]
     return y.to(x.dtype), state
 
 

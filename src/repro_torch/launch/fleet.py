@@ -20,10 +20,11 @@ Usage::
 Runs on the card (``--device cuda``, the default, with the tick loop in
 CUDA graphs; raises on a host without one); ``--device cpu`` runs the same
 program on the host.  ``--smoke`` shrinks the looped baseline and
-self-check so the whole thing finishes in seconds.  Not ported yet:
-``--models`` and ``--n-seeds`` (the cost zoo and Monte Carlo, ROADMAP A9),
-``--mesh`` other than 1 and ``--acceptance-devices`` (the sharded runner,
-ROADMAP A13); each raises.
+self-check so the whole thing finishes in seconds.  ``--models`` runs a
+heterogeneous fleet from the cost zoo (:mod:`repro_torch.costs`) and
+``--n-seeds`` adds an ``uncertainty`` section from the Monte Carlo engine
+(:mod:`repro_torch.mc`).  Not ported yet: ``--mesh`` other than 1 and
+``--acceptance-devices`` (the sharded runner, ROADMAP A13); each raises.
 """
 from __future__ import annotations
 
@@ -40,6 +41,20 @@ def _build_params(args, device):
     from repro_torch.core.strategies import IdlePowerMethod
     from repro_torch.fleet import uniform_fleet
 
+    if args.models:
+        # heterogeneous model fleet from the cost zoo; each device's request
+        # period comes from its model's latency (see repro_torch.costs)
+        from repro_torch.costs import model_mix_fleet
+        from repro_torch.launch.costs import parse_models
+
+        return model_mix_fleet(
+            parse_models(args.models),
+            n_devices=args.devices,
+            device=device,
+            strategy="adaptive" if args.strategy == "mix" else args.strategy,
+            e_budget_mj=args.budget_j * 1000.0,
+            powerup_overhead_mj=powerup_overhead_mj(args),
+        )
     strategies = (
         ("on_off", "idle_waiting", "adaptive")
         if args.strategy == "mix"
@@ -130,6 +145,49 @@ def _baseline_loop(args, counts, n_baseline: int) -> tuple[float, int]:
     return time.perf_counter() - t0, served
 
 
+def _uncertainty_section(args, params, n_steps: int) -> dict:
+    """CI-banded fleet metrics: ``--n-seeds`` periodic-mode replications
+    through the Monte Carlo engine (:mod:`repro_torch.mc`), with the request
+    stream matching ``--process`` (plus ``--jitter`` timing noise in the
+    deterministic case — 0 keeps every band collapsed on the exact
+    duty-cycle numbers)."""
+    import numpy as np
+
+    from repro_torch.core.arrivals import JitteredArrivals, MMPPArrivals, PoissonArrivals
+    from repro_torch.fleet.step import _np
+    from repro_torch.mc import ci_dict, run_periodic_ensemble, welford_interval
+
+    # heterogeneous model fleets: the process carries the traffic *shape*
+    # at the fleet-mean period; per-device rates come from rescaling
+    t = float(_np(params.period_ms).mean()) if args.models else args.period_ms
+    if args.process == "poisson":
+        process = PoissonArrivals(t)
+    elif args.process == "mmpp":
+        # stationary mean pinned at the device period: (8·t/2 + 5t)/9 = t
+        process = MMPPArrivals(burst_ms=t / 2.0, quiet_ms=5.0 * t)
+    else:
+        process = JitteredArrivals(t, args.jitter)
+    ens = run_periodic_ensemble(
+        params, process, n_steps, args.n_seeds, seed=args.seed,
+        scale_to_device_periods=bool(args.models),
+    )
+
+    dev = welford_interval(ens.device_lifetime_ms)
+    return {
+        "process": process.name,
+        "jitter": args.jitter if process.name == "jittered" else None,
+        "n_seeds": ens.n_seeds,
+        "n_steps": ens.n_steps,
+        "lifetime_ms": ci_dict(ens.lifetime_ms),
+        "energy_per_request_mj": ci_dict(ens.energy_per_request_mj),
+        "total_items": ci_dict(ens.total_items),
+        "per_device_lifetime_ms": {
+            "mean_range": [float(np.min(dev["mean"])), float(np.max(dev["mean"]))],
+            "std_range": [float(np.min(dev["std"])), float(np.max(dev["std"]))],
+        },
+    }
+
+
 def _oracle_self_check(args, max_steps: int, device) -> dict:
     """N=1 periodic fleet vs the scalar ``simulate()`` oracle (artifact
     self-verification; cheap)."""
@@ -179,8 +237,10 @@ def main(argv=None) -> int:
     )
     ap.add_argument("--devices", type=int, default=4096)
     ap.add_argument("--models", default=None,
-                    help="heterogeneous fleet from the cost zoo (not ported yet: "
-                         "ROADMAP A9)")
+                    help="heterogeneous fleet from the cost zoo: name[:replicas] "
+                         "comma list (e.g. mixtral-8x7b,mamba2-370m:2); each "
+                         "device runs at its own model's request period, and "
+                         "the paper-item looped baseline is skipped")
     ap.add_argument("--horizon", type=float, default=10.0, help="simulated seconds")
     ap.add_argument("--mode", choices=["routed", "periodic"], default="routed")
     ap.add_argument("--router", default="round_robin",
@@ -207,7 +267,8 @@ def main(argv=None) -> int:
                          "memory on very long routed horizons)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--n-seeds", type=int, default=None,
-                    help="Monte Carlo replications (not ported yet: ROADMAP A9)")
+                    help="Monte Carlo replications: add an 'uncertainty' "
+                         "section with CI-banded fleet metrics (repro_torch.mc)")
     ap.add_argument("--jitter", type=float, default=0.0,
                     help="relative Gaussian request-timing jitter for the "
                          "uncertainty section (deterministic process only; "
@@ -226,10 +287,8 @@ def main(argv=None) -> int:
 
     if args.devices <= 0:
         raise SystemExit("--devices must be positive")
-    for flag, value, item in (("--models", args.models, "A9"), ("--n-seeds", args.n_seeds, "A9"),
-                              ("--acceptance-devices", args.acceptance_devices, "A13")):
-        if value:
-            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP {item})")
+    if args.acceptance_devices:
+        raise NotImplementedError("--acceptance-devices is not ported yet (ROADMAP A13)")
     if args.mesh != "1":
         raise NotImplementedError("--mesh other than 1 needs the sharded runner (ROADMAP A13)")
     if args.dt_ms is None:
@@ -308,25 +367,30 @@ def main(argv=None) -> int:
         periodic_result, periodic_elapsed = timed(lambda: run_periodic(params, n_steps_p))
 
     fleet_tp = _tp(periodic_elapsed, args.devices, n_steps_p)
-    saved_dt = args.dt_ms
-    args.dt_ms = args.period_ms
-    base_elapsed, base_served = _baseline_loop(
-        args, np.full(n_steps_p, n_baseline, dtype=np.int32), n_baseline
-    )
-    args.dt_ms = saved_dt
+    if args.models:
+        # no looped baseline: the scalar loop simulates the paper item, not
+        # the model mix — a same-workload comparison doesn't exist here
+        payload["throughput"] = {"periodic": {"fleet": fleet_tp}}
+    else:
+        saved_dt = args.dt_ms
+        args.dt_ms = args.period_ms
+        base_elapsed, base_served = _baseline_loop(
+            args, np.full(n_steps_p, n_baseline, dtype=np.int32), n_baseline
+        )
+        args.dt_ms = saved_dt
 
-    base_tp = _tp(base_elapsed, n_baseline, n_steps_p)
-    base_tp["requests_served"] = base_served
-    payload["throughput"] = {
-        "periodic": {
-            "fleet": fleet_tp,
-            "looped_baseline": base_tp,
-            "speedup_devices_per_s": round(
-                fleet_tp["devices_per_s"] / base_tp["devices_per_s"], 1
-            ) if base_tp["devices_per_s"] else None,
-        },
-    }
-    if args.mode == "routed":
+        base_tp = _tp(base_elapsed, n_baseline, n_steps_p)
+        base_tp["requests_served"] = base_served
+        payload["throughput"] = {
+            "periodic": {
+                "fleet": fleet_tp,
+                "looped_baseline": base_tp,
+                "speedup_devices_per_s": round(
+                    fleet_tp["devices_per_s"] / base_tp["devices_per_s"], 1
+                ) if base_tp["devices_per_s"] else None,
+            },
+        }
+    if args.mode == "routed" and not args.models:
         base_args = argparse.Namespace(**vars(args))
         base_args.devices = n_baseline
         rbase_elapsed, rbase_served = _baseline_loop(
@@ -347,14 +411,23 @@ def main(argv=None) -> int:
         args, max_steps=2_000 if args.smoke else 6_000_000, device=device
     )
 
+    if args.n_seeds:
+        payload["uncertainty"] = _uncertainty_section(args, params, n_steps_p)
+
     emit(payload, args.out, label="fleet summary", device=device)
     tp = payload["throughput"]["periodic"]
-    print(
-        f"fleet[{args.mode}] {args.devices} devices x {n_steps} steps on {device} | "
-        f"periodic kernel: {tp['fleet']['devices_per_s']} devices/s vs looped "
-        f"baseline ({n_baseline} devices) {tp['looped_baseline']['devices_per_s']} "
-        f"devices/s -> speedup {tp['speedup_devices_per_s']}x"
-    )
+    if "looped_baseline" in tp:
+        print(
+            f"fleet[{args.mode}] {args.devices} devices x {n_steps} steps on {device} | "
+            f"periodic kernel: {tp['fleet']['devices_per_s']} devices/s vs looped "
+            f"baseline ({n_baseline} devices) {tp['looped_baseline']['devices_per_s']} "
+            f"devices/s -> speedup {tp['speedup_devices_per_s']}x"
+        )
+    else:
+        print(
+            f"fleet[{args.mode}] {args.devices} devices x {n_steps} steps on {device} "
+            f"({args.models}) | periodic kernel: {tp['fleet']['devices_per_s']} devices/s"
+        )
     if "routed" in payload["throughput"]:
         rt = payload["throughput"]["routed"]
         print(

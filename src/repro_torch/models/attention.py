@@ -16,6 +16,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import ops as attn_ops
 from repro_torch.kernels.flash_attention.ref import attention_reference
 from repro_torch.models.common import Spec, apply_rope, rms_norm, rope_angles
@@ -43,9 +44,12 @@ def attention_specs(cfg: ArchConfig) -> dict:
 
 
 def init_cache(
-    cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16, device="cpu"
+    cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16, device="cuda"
 ) -> KVCache:
-    """Empty cache.  Under SWA the buffer is bounded by the window."""
+    """Empty cache on ``device`` (the card by default; raises without one
+    unless ``device="cpu"``).  Under SWA the buffer is bounded by the
+    window."""
+    device = resolve_device(device)
     c = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
     shape = (batch, c, cfg.num_kv_heads, cfg.head_dim)
     return KVCache(

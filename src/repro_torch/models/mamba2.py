@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.models.common import Spec, rms_norm
 
@@ -127,7 +128,10 @@ def mamba2_block(
     return out
 
 
-def init_ssm_cache(cfg: ArchConfig, batch: int, dtype=torch.bfloat16, device="cpu") -> SSMCache:
+def init_ssm_cache(cfg: ArchConfig, batch: int, dtype=torch.bfloat16, device="cuda") -> SSMCache:
+    """Zero state and convolution tail on ``device`` (the card by default;
+    raises without one unless ``device="cpu"``)."""
+    device = resolve_device(device)
     g, n = cfg.ssm_num_groups, cfg.ssm_state
     conv_dim = cfg.ssm_d_inner + 2 * g * n
     return SSMCache(

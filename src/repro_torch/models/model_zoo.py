@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
 from repro_torch.models import decoder
 from repro_torch.models.common import init_from_specs, shapes_from_specs
 
@@ -34,10 +35,12 @@ def param_shapes(cfg: ArchConfig, dtype=torch.bfloat16) -> dict:
     return shapes_from_specs(specs(cfg), dtype)
 
 
-def params_from_numpy(tree: Any, device="cpu", dtype=None) -> Any:
+def params_from_numpy(tree: Any, device="cuda", dtype=None) -> Any:
     """The reference's parameter pytree, as numpy arrays (bf16 ones as
-    ``ml_dtypes.bfloat16``), → the port's parameters on ``device``, with
-    the same paths and shapes.  ``dtype`` casts every leaf if given."""
+    ``ml_dtypes.bfloat16``), → the port's parameters on ``device`` (the
+    card by default; raises without one unless ``device="cpu"``), with the
+    same paths and shapes.  ``dtype`` casts every leaf if given."""
+    device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
     arr = np.asarray(tree)

@@ -6,7 +6,10 @@ duty-cycle controller: ``bring_up_from_checkpoint`` restores the weights
 from a (compressed) checkpoint onto the card; ``release`` drops every
 device buffer and hands the memory back to CUDA.  Every phase ends in a
 device synchronize before the host clock is read, so the controller
-measures run time, not launch time.
+measures run time, not launch time.  An optional
+:class:`repro_torch.obs.metrics.MetricsRegistry` (``metrics=``) records
+the reference's counters, gauges and latency histograms at the same
+moments; ``None`` (the default) leaves the hot path as it is.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from repro_torch.checkpoint.serializer import flatten
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.models import model_zoo as zoo
+from repro_torch.obs.metrics import default_latency_edges_ms
 
 
 @dataclasses.dataclass
@@ -40,6 +44,7 @@ class ServingEngine:
         cfg: ArchConfig,
         params: Any,
         max_len: int,
+        metrics: Optional[Any] = None,
     ):
         if not cfg.decode_supported:
             raise ValueError(f"{cfg.name} is encoder-only")
@@ -47,6 +52,10 @@ class ServingEngine:
         self.params = params
         self.max_len = max_len
         self.device = params["embed"].device
+        # optional repro_torch.obs.metrics.MetricsRegistry — when present,
+        # the engine records generate/release/bring-up counters and latency
+        # histograms; None keeps the hot path untouched
+        self.metrics = metrics
 
     @torch.inference_mode()
     def generate(
@@ -77,7 +86,14 @@ class ServingEngine:
         tokens = torch.stack(outs, dim=1)
         synchronize(self.device)
         t2 = time.perf_counter()
-        return GenerationResult(tokens=tokens, prefill_s=t1 - t0, decode_s=t2 - t1)
+        result = GenerationResult(tokens=tokens, prefill_s=t1 - t0, decode_s=t2 - t1)
+        if self.metrics is not None:
+            self.metrics.counter("engine_generate_calls").inc()
+            self.metrics.counter("engine_tokens_generated").inc(int(tokens.shape[0]) * n_new)
+            edges = default_latency_edges_ms()
+            self.metrics.histogram("engine_prefill_ms", edges).observe(1000.0 * result.prefill_s)
+            self.metrics.histogram("engine_decode_ms", edges).observe(1000.0 * result.decode_s)
+        return result
 
     @property
     def resident(self) -> bool:
@@ -99,6 +115,9 @@ class ServingEngine:
         self.params = None
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
+        if self.metrics is not None:
+            self.metrics.counter("engine_releases").inc()
+            self.metrics.gauge("engine_resident").set(0)
 
 
 def bring_up_from_checkpoint(
@@ -108,17 +127,26 @@ def bring_up_from_checkpoint(
     warmup_batch: Optional[dict] = None,
     device="cuda",
     dtype=torch.bfloat16,
+    metrics: Optional[Any] = None,
 ) -> ServingEngine:
     """The 'configuration phase': restore (decompress + dequantize) the
     weights onto ``device`` and build the engine (+ an optional warm-up
-    generation)."""
+    generation).  With ``metrics``, the bring-up is counted and its time
+    (restore through warm-up, after a device synchronize) observed."""
     device = resolve_device(device)
+    t0 = time.perf_counter()
     target = zoo.param_shapes(cfg, dtype)
     _, params = manager.restore_latest(target, device=device)
     if params is None:
         raise FileNotFoundError(f"no checkpoint in {manager.directory}")
     synchronize(device)
-    engine = ServingEngine(cfg, params, max_len)
+    engine = ServingEngine(cfg, params, max_len, metrics=metrics)
     if warmup_batch is not None:
         engine.generate(warmup_batch, n_new=1)
+    if metrics is not None:
+        metrics.counter("engine_bring_ups").inc()
+        metrics.gauge("engine_resident").set(1)
+        metrics.histogram("engine_bring_up_ms", default_latency_edges_ms()).observe(
+            1000.0 * (time.perf_counter() - t0)
+        )
     return engine

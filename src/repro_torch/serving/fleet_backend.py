@@ -26,9 +26,8 @@ streams at R× the period), sampled batch-wise by
 reference splits a ``jax.random`` key per tenant; the streams differ, their
 law does not).
 
-Not ported yet: :meth:`FleetTenantSpec.from_model` and
-:meth:`FleetBackend.run_mc` (the cost zoo and Monte Carlo, ROADMAP A9), and
-:meth:`FleetBackend.plan_budgets` (the optimizer, ROADMAP A10).
+Not ported yet: :meth:`FleetBackend.plan_budgets` (the optimizer,
+ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -81,12 +80,47 @@ class FleetTenantSpec:
             raise ValueError(f"tenant {self.name!r}: replicas must be ≥ 1")
 
     @staticmethod
-    def from_model(model: str, **kwargs) -> "FleetTenantSpec":
-        """A tenant priced by the cost zoo: needs ``repro_torch.costs``,
-        which is not ported yet (ROADMAP A9)."""
-        raise NotImplementedError(
-            "FleetTenantSpec.from_model needs the cost zoo (repro_torch.costs), "
-            "which comes with the Monte Carlo and costs slice (ROADMAP A9)"
+    def from_model(
+        model: str,
+        policy: str = "auto",
+        replicas: int = 1,
+        mean_period_ms: float | None = None,
+        utilization: float = 0.25,
+        e_budget_mj: float = em.PAPER_ENERGY_BUDGET_MJ,
+        **cost_kwargs,
+    ) -> "FleetTenantSpec":
+        """A tenant priced by the cost zoo (`repro_torch.costs`) instead of
+        hand-measured phases.
+
+        The model's roofline-calibrated request item is flattened into the
+        tenant's (config, infer) phase pair — data load/offload fold into
+        the inference leg, preserving total execution time and energy.
+        ``mean_period_ms`` defaults to the same utilization rule as
+        :func:`repro_torch.costs.model_device_spec`.
+        """
+        from repro_torch.costs import model_request_cost  # deferred: costs imports fleet
+
+        cost = model_request_cost(model, **cost_kwargs)
+        item = cost.item
+        exec_ms = item.execution_time_ms
+        exec_mw = (item.execution_energy_mj / (exec_ms / 1e3)) if exec_ms > 0 else 0.0
+        if mean_period_ms is None:
+            if not (0.0 < utilization <= 1.0):
+                raise ValueError(f"utilization must be in (0, 1], got {utilization}")
+            mean_period_ms = max(exec_ms / utilization, item.total_time_ms)
+        config_s = item.config_time_ms / 1e3
+        config_mw = (item.config_energy_mj / config_s) if config_s > 0 else 0.0
+        return FleetTenantSpec(
+            name=item.name,
+            config_mw=config_mw,
+            config_s=config_s,
+            infer_mw=exec_mw,
+            infer_s=exec_ms / 1e3,
+            idle_mw=item.idle_power_mw,
+            policy=policy,
+            replicas=replicas,
+            mean_period_ms=mean_period_ms,
+            e_budget_mj=e_budget_mj,
         )
 
     def device_spec(self) -> DeviceSpec:
@@ -238,11 +272,69 @@ class FleetBackend:
             }
         return out
 
-    def run_mc(self, horizon_ms: float, dt_ms: float = 100.0, n_seeds: int = 32, **kwargs) -> dict:
-        """Seed-replicated :meth:`run` with per-tenant confidence bands:
-        needs the Monte Carlo engine (``repro_torch.mc``), which is not
-        ported yet (ROADMAP A9)."""
-        raise NotImplementedError(
-            "FleetBackend.run_mc needs the Monte Carlo engine (repro_torch.mc), "
-            "which comes with ROADMAP A9"
+    def run_mc(
+        self,
+        horizon_ms: float,
+        dt_ms: float = 100.0,
+        n_seeds: int = 32,
+        seed: int = 0,
+        jitter: float = 0.0,
+        queue_capacity: int = 16,
+        max_arrivals: int | None = None,
+        confidence: float = 0.95,
+    ) -> dict:
+        """Seed-replicated :meth:`run`: per-tenant **confidence bands**.
+
+        Every replication redraws each tenant's Poisson streams (and, with
+        ``jitter`` > 0, its global traffic rate — see
+        :meth:`_sample_counts`), then all ``n_seeds`` × N-replica fleets
+        advance through the Monte Carlo engine's one routed tick loop over
+        an ``(S, N)`` carry (:func:`repro_torch.mc.ensemble.routed_ensemble`,
+        the same tick body :meth:`run` uses).  Point estimates become 95%
+        intervals: fleet served / energy-per-request / p99 latency, and
+        per-tenant served / energy / replicas-alive.
+        """
+        import functools
+
+        from repro_torch.mc.ensemble import routed_ensemble
+        from repro_torch.mc.intervals import ci_dict
+
+        counts = self._sample_counts(
+            horizon_ms, dt_ms, seed, n_seeds=n_seeds, jitter=jitter,
+            max_arrivals=max_arrivals,
         )
+        ens = routed_ensemble(
+            self.params, counts, dt_ms,
+            queue_capacity=queue_capacity, keep_device_samples=True,
+        )
+        _ci = functools.partial(ci_dict, confidence=confidence)
+
+        out = {
+            "n_seeds": n_seeds,
+            "jitter": jitter,
+            "confidence": confidence,
+            "horizon_ms": horizon_ms,
+            "dt_ms": dt_ms,
+            "fleet": {
+                "served": _ci(ens.served),
+                "energy_per_request_mj": _ci(ens.energy_per_request_mj),
+                "p99_latency_ms": _ci(ens.p99_latency_ms),
+                "devices_alive": _ci(ens.devices_alive),
+            },
+            "tenants": {},
+        }
+        served = ens.per_device_served          # (S, N)
+        energy = ens.per_device_energy_mj       # (S, N)
+        for t, (a, b) in zip(self.tenants, self.blocks):
+            t_served = served[:, a:b].sum(axis=1)
+            t_energy = energy[:, a:b].sum(axis=1)
+            with np.errstate(invalid="ignore", divide="ignore"):
+                t_epr = np.where(t_served > 0, t_energy / np.maximum(t_served, 1), np.nan)
+            out["tenants"][t.name] = {
+                "policy": t.policy,
+                "replicas": t.replicas,
+                "served": _ci(t_served),
+                "energy_mj": _ci(t_energy),
+                "energy_per_request_mj": _ci(t_epr),
+            }
+        return out

@@ -157,9 +157,15 @@ def test_workload_rejects_unknown_strategy_and_unported_model_item(jref):
     bad = dataclasses.replace(paper_experiment(), strategy_kind="sometimes")
     with pytest.raises(ValueError, match="unknown strategy kind"):
         bad.build_strategy()
+    # the cost-zoo item form, ported with the costs slice: the model's
+    # request cost, and never both forms at once
+    from repro_torch.costs import model_request_cost
+
     d = paper_experiment().to_dict()
     d["item"] = {"model": "mixtral-8x7b", "batch": 8}
-    with pytest.raises(NotImplementedError, match="costs slice"):
+    assert ExperimentSpec.from_dict(d).item == model_request_cost("mixtral-8x7b", batch=8).item
+    d["item"]["phases"] = []
+    with pytest.raises(ValueError, match="not both"):
         ExperimentSpec.from_dict(d)
 
 

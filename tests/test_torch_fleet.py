@@ -120,8 +120,11 @@ def test_device_spec_validation_and_what_is_not_ported():
         DeviceSpec(item, e_budget_mj=-1.0)
     with pytest.raises(ValueError, match="at least one device"):
         FleetParams.from_specs([], CPU)
-    with pytest.raises(NotImplementedError, match="A9"):
-        DeviceSpec.from_model("mixtral-8x7b")
+    # the cost zoo, ported with A9: a device priced by the model's request cost
+    from repro_torch.costs import model_request_cost
+
+    spec = DeviceSpec.from_model("mixtral-8x7b")
+    assert spec.strategy == "adaptive" and spec.item == model_request_cost("mixtral-8x7b").item
 
 
 # ---------------------------------------------------------------------------
@@ -362,10 +365,9 @@ def test_two_tenant_backend():
     assert counts.shape == (3, 600, 12) and counts.dtype == torch.int32
     with pytest.raises(NotImplementedError, match="A10"):
         backend.plan_budgets(1e6, 60_000.0)
-    with pytest.raises(NotImplementedError, match="A9"):
-        backend.run_mc(60_000.0)
-    with pytest.raises(NotImplementedError, match="A9"):
-        FleetTenantSpec.from_model("qwen3-1.7b")
+    mc = backend.run_mc(6_000.0, dt_ms=100.0, n_seeds=2, seed=1)
+    assert mc["n_seeds"] == 2 and set(mc["tenants"]) == {"hot", "cold"}
+    assert FleetTenantSpec.from_model("qwen3-1.7b").policy == "auto"
     with pytest.raises(ValueError, match="at least one tenant"):
         FleetBackend([], device=CPU)
 

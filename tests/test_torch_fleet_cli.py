@@ -118,8 +118,8 @@ def test_fleet_cli_gives_the_reference_payload(jref, tmp_path, name):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--models", "mixtral-8x7b"], "A9"),
-    (["--n-seeds", "4"], "A9"),
+    (["--mesh", "auto"], "A13"),
+    (["--mesh", "4x2"], "A13"),
     (["--mesh", "2"], "A13"),
     (["--acceptance-devices", "1000"], "A13"),
 ])

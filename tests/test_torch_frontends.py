@@ -115,7 +115,7 @@ def test_gelu_mlp_matches_jax(jref, reduced):
     from repro.models.common import init_from_specs
 
     jp = jax.device_get(init_from_specs(jref["mlp"].mlp_specs(jcfg), jax.random.PRNGKey(0), jnp.float32))
-    p = zoo.params_from_numpy(jp)
+    p = zoo.params_from_numpy(jp, device="cpu")
     assert set(p) == {"w_up", "w_down"}
     x = np.random.default_rng(1).standard_normal((2, 16, cfg.d_model)).astype(np.float32)
     want = np.asarray(jref["mlp"].mlp_block(jp, jnp.asarray(x), jcfg))
@@ -131,7 +131,7 @@ def test_embed_inputs_and_specs_match_jax(jref, arch):
     first on both sides."""
     jcfg, cfg = _configs(jref, arch)
     jp = jax.device_get(jref["zoo"].init_params(jcfg, jax.random.PRNGKey(2), jnp.float32))
-    p = zoo.params_from_numpy(jp)
+    p = zoo.params_from_numpy(jp, device="cpu")
     assert tuple(p["frontend_proj"].shape) == (cfg.frontend_dim, cfg.d_model)
     assert ("embed" in p) == (cfg.frontend != "audio") and "lm_head" in p
     batch = _batch(cfg, 2, 64, seed=3)
@@ -160,7 +160,7 @@ def test_make_batch_draws_the_reference_layout():
 def _model(jref, arch, seed=0, reduced=True, **over):
     jcfg, cfg = _configs(jref, arch, reduced, **over)
     jp = jax.device_get(jref["zoo"].init_params(jcfg, jax.random.PRNGKey(seed), jnp.float32))
-    return jcfg, cfg, jp, zoo.params_from_numpy(jp)
+    return jcfg, cfg, jp, zoo.params_from_numpy(jp, device="cpu")
 
 
 def test_reduced_hubert_encode_matches_jax(jref):

@@ -47,7 +47,7 @@ def jref():
 def model(jref):
     jcfg, cfg = jref["base"].get_config(ARCH, reduced=True), get_config(ARCH, reduced=True)
     jp = jax.device_get(jref["zoo"].init_params(jcfg, jax.random.PRNGKey(0), jnp.float32))
-    return jcfg, cfg, jp, zoo.params_from_numpy(jp)
+    return jcfg, cfg, jp, zoo.params_from_numpy(jp, device="cpu")
 
 
 def _tokens(cfg, b=2, s=64, seed=0):

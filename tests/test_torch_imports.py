@@ -115,6 +115,22 @@ def test_module_list_covers_the_slice():
         "repro_torch.fleet.metrics",
         "repro_torch.serving.fleet_backend",
         "repro_torch.launch.fleet",
+        "repro_torch.obs",
+        "repro_torch.obs.metrics",
+        "repro_torch.obs.trace",
+        "repro_torch.obs.report",
+        "repro_torch.mc",
+        "repro_torch.mc.ensemble",
+        "repro_torch.mc.intervals",
+        "repro_torch.mc.sensitivity",
+        "repro_torch.costs",
+        "repro_torch.costs.counts",
+        "repro_torch.costs.calibrate",
+        "repro_torch.costs.zoo",
+        "repro_torch.core.tpu_energy",
+        "repro_torch.launch.obs",
+        "repro_torch.launch.mc",
+        "repro_torch.launch.costs",
     ):
         assert name in mods
 
@@ -163,7 +179,7 @@ def test_serving_examples_default_to_cuda_and_raise_without_it(monkeypatch, caps
     assert "requests" not in capsys.readouterr().out      # nothing was served
 
 
-@pytest.mark.parametrize("cli", ["sweep", "fleet"])
+@pytest.mark.parametrize("cli", ["sweep", "fleet", "obs", "mc", "costs"])
 def test_analytics_clis_default_to_cuda_and_raise_without_it(monkeypatch, capsys, cli):
     import importlib
 
@@ -235,3 +251,25 @@ def test_registry_holds_every_config_of_the_reference():
         assert reduced.name == f"{name}-reduced" and reduced.family == full.family
         assert dataclasses.replace(reduced, name=full.name).mlp_kind == full.mlp_kind
         assert zoo.param_shapes(reduced)["final_norm"].shape == (reduced.d_model,)
+
+
+def test_mc_and_costs_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    """The Monte Carlo engine, the delta method, the cost zoo's fleets and
+    the in-loop histogram: each runs on the card unless given ``"cpu"``."""
+    from repro_torch.costs import model_mix_fleet
+    from repro_torch.mc import sensitivity
+    from repro_torch.obs.metrics import scan_histogram
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [
+        lambda: sensitivity.crossover_uncertainty(n_seeds=2),
+        lambda: sensitivity.lifetime_ratio_uncertainty(n_seeds=2),
+        lambda: sensitivity.energy_per_request_uncertainty(n_seeds=2),
+        lambda: sensitivity.config_energy_uncertainty(n_seeds=2),
+        lambda: sensitivity.delta_method(lambda p: p["x"] * 2.0, {"x": 1.0}, 0.1),
+        lambda: model_mix_fleet(["qwen3-1.7b"]),
+        lambda: scan_histogram([[1.0]], [0.5]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()

@@ -163,7 +163,7 @@ def test_specs_and_params_from_numpy_carry_the_flat_dict(jref):
     assert {k: (s.shape, s.init) for k, s in lstm_model.lstm_specs(cfg).items()} == {
         k: (s.shape, s.init) for k, s in jref["model"].lstm_specs(jcfg.full()).items()}
     jparams = _jax_params(jref)
-    params = params_from_numpy(jparams)
+    params = params_from_numpy(jparams, device="cpu")
     assert sorted(params) == sorted(jparams) == ["b", "b_out", "w_hh", "w_ih", "w_out"]
     for k, v in params.items():
         assert v.dtype == torch.float32 and tuple(v.shape) == jparams[k].shape
@@ -184,7 +184,7 @@ def test_config_matches_jax_without_lane_padding():
 
 def test_apply_logits_and_loss_match_jax(jref):
     jparams = _jax_params(jref, seed=1)
-    params = params_from_numpy(jparams)
+    params = params_from_numpy(jparams, device="cpu")
     x, y = _batch(seed=4)
     logits = lstm_model.apply(params, torch.from_numpy(x))
     jlogits = jref["model"].apply(jparams, jnp.asarray(x))
@@ -196,7 +196,7 @@ def test_apply_logits_and_loss_match_jax(jref):
 
 def test_loss_gradients_match_jax(jref):
     jparams = _jax_params(jref, seed=2)
-    params = {k: v.requires_grad_(True) for k, v in params_from_numpy(jparams).items()}
+    params = {k: v.requires_grad_(True) for k, v in params_from_numpy(jparams, device="cpu").items()}
     x, y = _batch(seed=5)
     loss = lstm_model.loss_fn(params, torch.from_numpy(x), torch.from_numpy(y))
     grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
@@ -213,7 +213,7 @@ def test_loss_gradients_match_jax(jref):
 def test_adamw_three_steps_match_jax(jref, kw):
     rng = np.random.default_rng(7)
     jparams = _jax_params(jref, seed=3)
-    params = params_from_numpy(jparams)
+    params = params_from_numpy(jparams, device="cpu")
     grads = [{k: (rng.standard_normal(v.shape) * s).astype(np.float32) for k, v in jparams.items()}
              for s in (0.05, 3.0, 0.5)]      # the second step's norm is clipped
     jopt, opt = jref["optim"].adamw(**kw), adamw(**kw)
@@ -221,7 +221,7 @@ def test_adamw_three_steps_match_jax(jref, kw):
     for g in grads:
         jparams, jstate, jnorm = jopt.update({k: jnp.asarray(v) for k, v in g.items()},
                                              jstate, jparams, 3e-3)
-        params, state, norm = opt.update(params_from_numpy(g), state, params, 3e-3)
+        params, state, norm = opt.update(params_from_numpy(g, device="cpu"), state, params, 3e-3)
         np.testing.assert_allclose(float(norm), float(jnorm), rtol=1e-6)
     assert state.step == int(jstate.step) == 3
     for k in params:
@@ -235,7 +235,7 @@ def test_clip_by_global_norm_matches_jax(jref):
     tree = {k: rng.standard_normal((3, 4)).astype(np.float32) for k in "ab"}
     for max_norm in (0.5, 100.0):
         clipped, norm = jref["optim"].clip_by_global_norm({k: jnp.asarray(v) for k, v in tree.items()}, max_norm)
-        ours, onorm = clip_by_global_norm(params_from_numpy(tree), max_norm)
+        ours, onorm = clip_by_global_norm(params_from_numpy(tree, device="cpu"), max_norm)
         np.testing.assert_allclose(float(onorm), float(norm), rtol=1e-6)
         for k in tree:
             np.testing.assert_allclose(ours[k].numpy(), np.asarray(clipped[k]), rtol=1e-6)

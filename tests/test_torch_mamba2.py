@@ -57,7 +57,7 @@ def _tokens(cfg, b=2, s=32, seed=0):
 def _block_params(jref, jcfg, seed=0):
     jp = jax.device_get(jref["common"].init_from_specs(
         jref["m2"].mamba2_specs(jcfg), jax.random.PRNGKey(seed), jnp.float32))
-    return jp, zoo.params_from_numpy(jp)
+    return jp, zoo.params_from_numpy(jp, device="cpu")
 
 
 def _close(ours, theirs, atol=ATOL):
@@ -105,7 +105,7 @@ def test_short_prompt_pads_the_conv_cache_and_decode_matches_init_cache(jref):
     _close(cache.conv, jcache.conv)
     assert bool((cache.conv[:, 0] == 0).all())
     jinit = jref["m2"].init_ssm_cache(jcfg, 2, jnp.float32)
-    init = m2.init_ssm_cache(cfg, 2, torch.float32)
+    init = m2.init_ssm_cache(cfg, 2, torch.float32, device="cpu")
     assert init.state.shape == jinit.state.shape and init.conv.shape == jinit.conv.shape
     xt = x[:, :1]
     jout, _ = jref["m2"].mamba2_decode(jp, jnp.asarray(xt), jinit, jcfg)
@@ -153,7 +153,7 @@ def test_full_width_full_depth_prefill_logits_match_jax(jref):
     0.1; the init gives about 0.64) and agree on every row's argmax."""
     jcfg, cfg = _configs(jref, False)
     jparams = jax.device_get(jref["zoo"].init_params(jcfg, jax.random.PRNGKey(0), jnp.float32))
-    params = zoo.params_from_numpy(jparams)
+    params = zoo.params_from_numpy(jparams, device="cpu")
     toks = _tokens(cfg)
     jlogits, _ = jref["zoo"].prefill_fn(jparams, {"tokens": jnp.asarray(toks)}, jcfg, 48)
     jlogits = np.asarray(jlogits, np.float64)
@@ -183,7 +183,7 @@ def test_greedy_decoding_full_width_matches_jax(jref):
     the test short): equal tokens and logits within 1e-4 at every step."""
     jcfg, cfg = _configs(jref, False, num_layers=4)
     jparams = jax.device_get(jref["zoo"].init_params(jcfg, jax.random.PRNGKey(1), jnp.float32))
-    params = zoo.params_from_numpy(jparams)
+    params = zoo.params_from_numpy(jparams, device="cpu")
     toks = _tokens(cfg, s=20, seed=1)
     jlogits, jstate = jref["zoo"].prefill_fn(jparams, {"tokens": jnp.asarray(toks)}, jcfg, 48)
     with torch.inference_mode():

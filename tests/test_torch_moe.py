@@ -53,7 +53,7 @@ def _configs(jref, arch, reduced=True):
 def _moe_params(jref, jcfg, seed=0):
     jp = jax.device_get(jref["common"].init_from_specs(
         jref["moe"].moe_specs(jcfg), jax.random.PRNGKey(seed), jnp.float32))
-    return jp, zoo.params_from_numpy(jp)
+    return jp, zoo.params_from_numpy(jp, device="cpu")
 
 
 def _tokens(cfg, b=2, s=64, seed=0):
@@ -129,7 +129,7 @@ def test_moe_specs_match_jax(jref):
 def _model(jref, arch, seed=0):
     jcfg, cfg = _configs(jref, arch)
     jp = jax.device_get(jref["zoo"].init_params(jcfg, jax.random.PRNGKey(seed), jnp.float32))
-    return jcfg, cfg, jp, zoo.params_from_numpy(jp)
+    return jcfg, cfg, jp, zoo.params_from_numpy(jp, device="cpu")
 
 
 @pytest.mark.parametrize("arch", MOE)

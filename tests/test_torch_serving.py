@@ -86,7 +86,7 @@ def test_param_tree_maps_one_to_one(jref):
 def test_fp32_prefill_and_greedy_tokens_match(jref):
     jcfg, cfg = _configs(jref)
     jparams = _jax_params(jref, jcfg, jnp.float32)
-    params = zoo.params_from_numpy(jparams)
+    params = zoo.params_from_numpy(jparams, device="cpu")
     toks = _tokens(cfg)
     jperf = jref["perf"].PerfConfig(attention_impl="pallas_interpret")
     jlogits, _ = jref["zoo"].prefill_fn(jparams, {"tokens": jnp.asarray(toks)}, jcfg, 48, jperf)
@@ -108,7 +108,7 @@ def test_fp32_prefill_and_greedy_tokens_match(jref):
 def test_fp32_decode_steps_match_cache_slot_rules(jref, window, prompt, max_len, steps):
     jcfg, cfg = _configs(jref, sliding_window=window)
     jparams = _jax_params(jref, jcfg, jnp.float32)
-    params = zoo.params_from_numpy(jparams)
+    params = zoo.params_from_numpy(jparams, device="cpu")
     toks = _tokens(cfg, s=prompt, seed=1)
     jlogits, jstate = jref["zoo"].prefill_fn(jparams, {"tokens": jnp.asarray(toks)}, jcfg, max_len)
     logits, state = zoo.prefill_fn(params, {"tokens": torch.from_numpy(toks)}, cfg, max_len)
@@ -327,3 +327,24 @@ def test_cli_serves_on_the_cpu_when_asked(capsys):
     out = capsys.readouterr().out
     assert "strategy       : idle_waiting" in out
     assert "requests       : 2" in out and "configurations : 1" in out
+
+
+def test_model_helpers_default_to_the_card_and_raise_without_it(monkeypatch):
+    """``params_from_numpy``, ``init_cache`` and ``init_ssm_cache`` put their
+    tensors on the card unless the caller passes ``device="cpu"``; with no
+    card they raise instead of landing on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention, mamba2
+
+    cfg = ArchConfig(**SMALL)
+    mcfg = get_config("mamba2-370m")
+    tree = {"embed": np.arange(8, dtype=np.float32).reshape(2, 4)}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = (lambda: zoo.params_from_numpy(tree), lambda: attention.init_cache(cfg, 1, 8),
+             lambda: mamba2.init_ssm_cache(mcfg, 1))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert zoo.params_from_numpy(tree, device="cpu")["embed"].device.type == "cpu"
+    assert attention.init_cache(cfg, 1, 8, device="cpu").k.device.type == "cpu"
+    assert mamba2.init_ssm_cache(mcfg, 1, device="cpu").state.device.type == "cpu"
