@@ -111,20 +111,47 @@ Phases, in order; any failure exits non-zero:
    Poisson and MMPP samplers at 10^5 streams against their moments, and
    their tick bins card against CPU; ticks/s and device-steps/s of both
    loops at both sizes;
-18. obs — an On-Off request pair of full-width qwen3-1.7b from the serving
+18. optimize — descent at ``launch.optimize``'s defaults (16 starts × 250
+   steps) for the minimum configuration energy and the maximum adaptive
+   lifetime on both FPGA devices, held to the exhaustive sweeps and to the
+   CPU's answers; the clock axis densified to 11, 101, 10,001 and
+   1,000,001 points (descent against the sweep); the λ-traced frontier of
+   the XC7S15 against the exact one; the budget planner on a
+   1,048,576-device periodic fleet (the fleet phase's mix, 3600 s of
+   requests, N × 4147 J × 0.05) under both objectives, host seconds, its
+   replay through ``run_periodic`` on the card bit for bit and its
+   device-steps/s; ``python -m repro_torch.launch.optimize --smoke``;
+19. policy — the learned timeout policy: ``python -m
+   repro_torch.launch.policy --smoke --calibrated --policy-out ...`` (``train_policy``
+   at ``TrainSettings.smoke()`` on the card, the stationary limit exact,
+   the nonstationary wins), its saved policy loaded back (the hard
+   objective 5 % better, the flash crowd 5 % more items than the hybrid),
+   a short run twice (bit for bit) and against the CPU (1e-9), the default
+   sizes trained or, when the smoke time puts them above 120 s, 10 BP and
+   10 ES steps timed on the card and the host and extrapolated; the
+   rollout against ``simulate_trace`` (counts exact, energies 1e-9
+   untrained, 1e-6 trained); 1,048,576 MMPP streams × 512 gaps
+   (policy-steps/s, peak memory, 64 strided streams against the CPU, the
+   ledger's conservation); then ``REQUESTS`` requests at ``PERIOD_S`` to full-width
+   qwen3-1.7b under ``strategy="adaptive"`` with the trained policy, on
+   the serving phase's checkpoint: 8 dequant launches a bring-up and 28
+   flash launches a prefill counted, the configurations equal to what a
+   fresh copy of the policy decides from the gaps and phases the
+   controller measured;
+20. obs — an On-Off request pair of full-width qwen3-1.7b from the serving
    phase's checkpoint with a ``MetricsRegistry`` on the engine: bring-ups,
    generate calls, tokens, releases and residency held to the
    controller's, the latency histograms' p50 and p99 printed, the dequant
    and flash launches counted; then ``python -m repro_torch.launch.obs`` at
    its defaults (256 devices, 10 s), every conservation self-check within
    1e-9 and its Chrome trace valid;
-19. mc — ``python -m repro_torch.launch.mc`` at its defaults (1024 seeds,
+21. mc — ``python -m repro_torch.launch.mc`` at its defaults (1024 seeds,
    9 devices, 2000 steps): the zero-jitter band exactly 499.0607 ms and
    12.4108×, delta and MC within 10 %; the periodic ensemble at 1024 seeds
    × 4096 devices × 2000 steps (seeds/s, device-steps/s, peak memory), a
    strided slice of its seeds held to the CPU on the same gaps bit for
    bit; a one-seed routed ensemble held to ``run_routed``;
-20. costs — ``python -m repro_torch.launch.costs`` at its defaults (every
+22. costs — ``python -m repro_torch.launch.costs`` at its defaults (every
    zoo model at batches 1 and 8, the 64-device model mix with 64 seeds,
    the golden section: Table 2's item, 499.06 ms and 12.41×) whose
    calibration section times the four kernels at the reference's pinned
@@ -136,7 +163,7 @@ Phases, in order; any failure exits non-zero:
    faster than its bound, each timed beside its device time, its plain
    version and the library call (SDPA, ``nn.LSTM``); the calibration's
    launches go into the ``kernels`` line;
-21. the phases' seconds, the ``kernels`` JSON line, the card line, and the
+23. the phases' seconds, the ``kernels`` JSON line, the card line, and the
    last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -2625,6 +2652,375 @@ def fleet_phase(card: str) -> None:
         check(bool((moved <= edge).all()), f"{proc.name}: an arrival away from a tick edge changed tick")
 
 # ---------------------------------------------------------------------------
+# The optimizer and the learned timeout policy
+# ---------------------------------------------------------------------------
+OPT_STARTS, OPT_STEPS = 16, 250             # launch/optimize.py's defaults
+OPT_DENSIFY = (11, 101, 10_001, 1_000_001)  # its --densify default
+PLAN_DEVICES = 1 << 20                      # the fleet phase's mix, 1,048,576 devices
+PLAN_HORIZON_S = 3600.0                     # launch/optimize.py's planner horizon
+PLAN_BUDGET_SCALE = 0.05                    # and its budget: N × 4147 J × 0.05
+POLICY_STREAMS = 1 << 20                    # streams of the big rollout
+POLICY_GAPS = 512                           # MMPP gaps a stream
+POLICY_CPU_STRIDE = POLICY_STREAMS // 64    # the CPU reruns 64 of them
+POLICY_TIMED_STEPS = 10                     # BP and ES steps timed at TrainSettings()'s sizes
+POLICY_DEFAULT_LIMIT_S = 120.0              # train at the default sizes only below this estimate
+
+
+def _optimize_cli() -> dict:
+    """``python -m repro_torch.launch.optimize --smoke`` on ``DEV`` → its
+    payload, every section's self-check held."""
+    p = _launcher("optimize", ROOT / "build" / "chip_smoke_optimize.json", "--smoke")
+    check(p["config"]["exact_match"] and p["lifetime"]["exact_match"], "launch.optimize: descent != sweep")
+    check(all(r["agree"] for r in p["densify"]["rows"]), "launch.optimize: a densified row disagrees")
+    check(p["frontier"]["covers_exact_frontier"], "launch.optimize: the traced frontier misses a point")
+    check(all(s["replay"]["exact"] for s in p["planner"]["objectives"].values()), "launch.optimize: replay")
+    return p
+
+
+def optimize_phase(card: str) -> None:
+    """Descent at the CLI's defaults (16 starts × 250 steps) on both FPGA
+    devices against the exhaustive sweeps and the CPU; the densified clock
+    axes; the λ-traced frontier against the exact one; the budget planner on a 1,048,576-device periodic fleet under both
+    objectives, replayed through ``run_periodic`` on the card bit for bit;
+    ``launch.optimize --smoke`` as a subprocess."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import energy_model as em
+    from repro_torch.core.batch_eval import SweepGrid, config_phase_grid, sweep_batch
+    from repro_torch.core.config_phase import DEVICES, SPARTAN7_XC7S15, SPI_CLOCKS_MHZ
+    from repro_torch.core.pareto import config_pareto
+    from repro_torch.core.strategies import IdlePowerMethod
+    from repro_torch.fleet import uniform_fleet
+    from repro_torch.optimize import (
+        DescentSettings,
+        optimize_config,
+        optimize_lifetime,
+        plan_budgets,
+        replay_allocation,
+        trace_config_frontier,
+    )
+
+    cal = em.CALIBRATED_POWERUP_OVERHEAD_MJ
+    st = DescentSettings(n_starts=OPT_STARTS, steps=OPT_STEPS)
+    for dev in DEVICES.values():
+        e = config_phase_grid(dev, device=DEV)["config_energy_mj"].cpu().numpy()
+        ix = np.unravel_index(np.argmin(e), e.shape)
+        res, s_cfg = _timed(lambda: optimize_config(dev, settings=st, torch_device=DEV))
+        cpu = optimize_config(dev, settings=st, torch_device="cpu")
+        grid = SweepGrid(devices=(dev,), request_periods_ms=(40.0,), idle_methods=(IdlePowerMethod.METHOD1_2,),
+                         powerup_overhead_mj=cal)
+        lt = sweep_batch(grid, device=DEV)["adaptive_lifetime_ms"].cpu().numpy()
+        jx = np.unravel_index(np.argmax(lt), lt.shape)
+        life, s_life = _timed(lambda: optimize_lifetime(dev, powerup_overhead_mj=cal, settings=st,
+                                                        torch_device=DEV))
+        cpu_life = optimize_lifetime(dev, powerup_overhead_mj=cal, settings=st, torch_device="cpu")
+        print(f"  {dev.name}: config argmin {res.best} in {s_cfg:.3f} s ({len(res.candidates)} candidates, "
+              f"{OPT_STARTS}×{OPT_STEPS}); adaptive-lifetime argmax at 40 ms {life.best} in {s_life:.3f} s [{card}]")
+        check(res.best == {"buswidth": (1, 2, 4)[ix[1]], "clock_mhz": float(SPI_CLOCKS_MHZ[ix[2]]),
+                           "compression": bool(ix[3]), "config_energy_mj": float(e[ix])},
+              f"{dev.name}: descent's config argmin differs from the 66-point sweep")
+        check(life.best["lifetime_ms"] == float(lt[jx]) and life.best["clock_mhz"] == float(SPI_CLOCKS_MHZ[jx[2]]),
+              f"{dev.name}: descent's lifetime argmax differs from the sweep")
+        check(res.best == cpu.best and life.best == cpu_life.best, f"{dev.name}: card and CPU answers differ")
+        check(bool(np.allclose(res.loss_curve, cpu.loss_curve, rtol=1e-9, atol=0.0)),
+              f"{dev.name}: the card's loss curve departs from the CPU's")
+
+    dev = SPARTAN7_XC7S15
+    lo, hi = min(SPI_CLOCKS_MHZ), max(SPI_CLOCKS_MHZ)
+    for n in OPT_DENSIFY:
+        clocks = tuple(np.linspace(lo, hi, n))
+        g, s_sweep = _timed(lambda: config_phase_grid(dev, clocks_mhz=clocks, device=DEV)["config_energy_mj"])
+        ix = np.unravel_index(int(torch.argmin(g)), g.shape)
+        res, s_opt = _timed(lambda: optimize_config(dev, clocks_mhz=clocks, settings=st, torch_device=DEV))
+        print(f"  densified {n} clocks ({6 * n} points): sweep {s_sweep:.4f} s, descent {s_opt:.3f} s, "
+              f"best {res.best['config_energy_mj']!r} mJ at {res.best['clock_mhz']!r} MHz [{card}]")
+        check(res.best["clock_mhz"] == float(clocks[ix[2]]) and res.best["config_energy_mj"] == float(g[ix]),
+              f"densified {n}: descent's argmin differs from the sweep's")
+
+    traced, s_tr = _timed(lambda: trace_config_frontier(dev, settings=st, torch_device=DEV))
+    exact = {(r["buswidth"], r["clock_mhz"], r["compression"]) for r in config_pareto(dev, device=DEV)}
+    got = {(r["buswidth"], r["clock_mhz"], r["compression"]) for r in traced["points"]}
+    print(f"  {dev.name} frontier: 13 λ × {OPT_STARTS} starts × {OPT_STEPS} steps in {s_tr:.3f} s, "
+          f"{traced['traced_points']} traced, {len(got)} on the front, exact front {len(exact)} [{card}]")
+    check(exact <= got, f"{dev.name}: the traced frontier misses an exact frontier point")
+
+    _reset_peak()
+    fleet = uniform_fleet(PLAN_DEVICES, strategies=("on_off", "idle_waiting", "adaptive"),
+                          method=IdlePowerMethod.METHOD1_2, powerup_overhead_mj=cal, device=DEV)
+    caps = np.maximum(np.floor(PLAN_HORIZON_S * 1000.0 / fleet.period_ms.cpu().numpy()), 0.0).astype(np.int64)
+    budget = PLAN_DEVICES * em.PAPER_ENERGY_BUDGET_MJ * PLAN_BUDGET_SCALE
+    for objective in ("min_lifetime", "total_requests"):
+        t0 = time.perf_counter()
+        alloc = plan_budgets(fleet, budget, caps, objective=objective)
+        plan_s = time.perf_counter() - t0
+        rep, rep_s = _timed(lambda: replay_allocation(fleet, alloc))
+        steps = rep["n_steps"]
+        print(f"  plan {objective}, {PLAN_DEVICES} devices: {alloc.total_requests} requests, lifetimes "
+              f"{alloc.min_lifetime_ms!r}–{float(alloc.predicted_lifetime_ms.max())!r} ms, leftover "
+              f"{alloc.leftover_mj!r} mJ; host {plan_s:.3f} s; replay {steps} steps in {rep_s:.3f} s, "
+              f"{PLAN_DEVICES * steps / rep_s:.4e} device-steps/s, exact {rep['exact']}; peak "
+              f"{_peak() / 1e9:.4f} GB [{card}]")
+        check(rep["exact"] and rep["n_items_match"], f"1M plan {objective}: the replay is not exact")
+        check(float(alloc.budgets_mj.sum()) + alloc.leftover_mj == budget and alloc.leftover_mj >= 0.0,
+              f"1M plan {objective}: budget not conserved")
+        del rep
+    del fleet
+
+    p = _optimize_cli()
+    print(f"  launch.optimize --smoke: config {p['config']['descent_argmin']}, densify "
+          f"{[r['grid_points'] for r in p['densify']['rows']]} agree, planner "
+          f"{ {k: v['total_requests'] for k, v in p['planner']['objectives'].items()} } requests replayed exactly")
+
+
+def _flash_crowd_gain(trained, item, cal) -> tuple[int, int]:
+    """Items served within 1500 mJ by the learned policy and the analytical
+    hybrid on six flash-crowd traces (the reference's acceptance test)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.adaptive import PolicyController
+    from repro_torch.core.arrivals import FlashCrowdArrivals
+    from repro_torch.core.simulator import simulate_trace
+    from repro_torch.core.strategies import IdlePowerMethod
+    from repro_torch.policy import LearnedTimeoutPolicy
+
+    t = trained.t_be_ms
+    proc = FlashCrowdArrivals(quiet_ms=6.0 * t, flash_gap_ms=0.02 * t, flash_len=32, flash_every=4.0)
+    learned = hybrid = 0
+    for seed in range(6):
+        gaps = proc.sample_gaps(torch.Generator().manual_seed(seed), 1, 999)[0].numpy()
+        trace = np.concatenate([[0.0], np.cumsum(gaps)])
+        learned += simulate_trace(item, trace, LearnedTimeoutPolicy(trained, item=item), 1500.0, cal).n_items
+        hybrid += simulate_trace(item, trace, PolicyController(item=item, method=IdlePowerMethod.METHOD1_2,
+                                                               powerup_overhead_mj=cal), 1500.0, cal).n_items
+    return learned, hybrid
+
+
+def _policy_training(card: str, item, cal):
+    """``launch.policy --smoke`` (``train_policy`` at ``TrainSettings.smoke()``
+    on the card, the stationary and nonstationary checks, the throughput
+    block), its trained policy loaded back from the JSON it writes and held
+    to the reference's criteria; determinism and card = CPU on a short run;
+    the default sizes trained, or timed over a few steps on the card and
+    the host → the trained policy."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.strategies import IdlePowerMethod
+    from repro_torch.policy import TrainedPolicy, TrainSettings, train_policy
+    from repro_torch.policy import net as N
+    from repro_torch.policy.rollout import make_consts
+    from repro_torch.policy.train import _bp_run, _es_run, sample_training_gaps, training_processes
+
+    m12 = IdlePowerMethod.METHOD1_2
+    saved = ROOT / "build" / "chip_smoke_trained_policy.json"
+    # calibrated: the power-up overhead of the reference's acceptance tests
+    p = _launcher("policy", ROOT / "build" / "chip_smoke_policy.json", "--smoke", "--calibrated",
+                  "--policy-out", str(saved), timeout=900)
+    tr, ns = p["train"], p["nonstationary"]
+    smoke_s = tr["train_s"]
+    print(f"  launch.policy --smoke: train_policy at TrainSettings.smoke() {smoke_s} s ({tr['improvement_frac']:+.2%}), "
+          f"stationary exact {p['stationary']['all_exact']}, nonstationary wins {ns['wins_vs_hybrid']} "
+          f"({[round(w['lifetime_gain_vs_hybrid'], 3) for w in ns['workloads']]}x), throughput "
+          f"{p['throughput']['rollout']['steps_per_s']:.4e} policy-steps/s (64 × 256) [{card}]")
+    check(p["stationary"]["all_exact"], "launch.policy: stationary-limit equivalence violated")
+    check(ns["acceptance_met"], "launch.policy: the learned policy did not beat the hybrid on both workloads")
+    trained = TrainedPolicy.from_json_dict(json.loads(saved.read_text()))
+    check(trained.meta["powerup_overhead_mj"] == cal, "the saved policy was trained for another overhead")
+    h = trained.history
+    learned, hybrid = _flash_crowd_gain(trained, item, cal)
+    print(f"  its saved policy: hard cost {h['baseline_hard']:.6f} → {h['final_hard']:.6f} "
+          f"({1.0 - h['final_hard'] / h['baseline_hard']:+.2%}); flash crowd: learned {learned} items, hybrid "
+          f"{hybrid} ({learned / hybrid:.3f}x)")
+    check(h["final_hard"] < 0.95 * h["baseline_hard"], "smoke training improved the hard objective by < 5 %")
+    check(learned > 1.05 * hybrid, "the learned policy beat the hybrid on the flash crowd by < 5 %")
+
+    tiny = TrainSettings(hidden=(8,), n_streams=8, n_gaps=48, bp_steps=3, es_steps=2, es_pop=4)
+    a, b = (train_policy(item, m12, cal, settings=tiny, device=DEV) for _ in range(2))
+    c = train_policy(item, m12, cal, settings=tiny, device="cpu")
+    check(all(np.array_equal(x["w"], y["w"]) and np.array_equal(x["b"], y["b"]) for x, y in zip(a.params, b.params)),
+          "training is not deterministic in its seed")
+    err = max(float(np.max(np.abs(x[k] - y[k]))) for x, y in zip(a.params, c.params) for k in ("w", "b"))
+    print(f"  a short run (3 BP + 2 ES steps) twice on {DEV}: bit for bit; against the CPU: {err:.3e} [{card}]")
+    check(err <= 1e-9, f"short training: {DEV} {err} from the CPU")
+
+    full = TrainSettings()
+    estimate = smoke_s * (full.n_gaps / 256) * max(full.bp_steps / 150, full.es_steps / 40)
+    if estimate <= POLICY_DEFAULT_LIMIT_S:
+        full_trained, full_s = _timed(lambda: train_policy(item, m12, cal, settings=full, device=DEV))
+        print(f"  train_policy at TrainSettings(): {full_s:.2f} s, hard cost "
+              f"{full_trained.history['final_hard']:.6f} [{card}]")
+        return trained
+    consts = make_consts(item, m12, cal)
+    for where in dict.fromkeys((DEV, "cpu")):
+        dev = torch.device(where)
+        gaps = sample_training_gaps(training_processes(consts["t_be"]), full.n_streams, full.n_gaps, 0, dev)
+        params = N.to_tensors(N.init_mlp(torch.Generator().manual_seed(0), hidden=full.hidden), dev)
+        bp_lr, es_lr = (torch.tensor(x, dtype=torch.float64, device=dev) for x in (full.bp_lr, full.es_lr))
+        _, bp_s = _timed(lambda: _bp_run(params, gaps, consts, bp_lr, POLICY_TIMED_STEPS))
+        _, es_s = _timed(lambda: _es_run(params, gaps, consts, es_lr, full.es_sigma, POLICY_TIMED_STEPS,
+                                         full.es_pop // 2, generator=torch.Generator().manual_seed(1)))
+        bp_step, es_step = bp_s / POLICY_TIMED_STEPS, es_s / POLICY_TIMED_STEPS
+        print(f"  TrainSettings() on {where} ({full.n_streams} streams × {full.n_gaps} gaps, hidden {full.hidden}; "
+              f"the smoke time puts it at ~{estimate:.0f} s > {POLICY_DEFAULT_LIMIT_S:.0f} s): {POLICY_TIMED_STEPS} BP "
+              f"steps {bp_s:.3f} s ({bp_step * 1e3:.2f} ms a step), {POLICY_TIMED_STEPS} ES steps {es_s:.3f} s "
+              f"({es_step * 1e3:.2f} ms a step, population {full.es_pop}): {full.bp_steps} + {full.es_steps} "
+              f"steps extrapolate to {full.bp_steps * bp_step + full.es_steps * es_step:.1f} s "
+              f"[{card if where == 'cuda' else 'the host CPU'}]")
+    return trained
+
+
+def _policy_rollouts(card: str, item, cal, trained) -> None:
+    """The rollout against ``simulate_trace``, and the 1M-stream rollout
+    (policy-steps/s, peak memory, a strided slice against the CPU, the
+    ledger's conservation)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.adaptive import FixedTimeoutPolicy
+    from repro_torch.core.arrivals import MMPPArrivals
+    from repro_torch.core.simulator import simulate_trace
+    from repro_torch.core.strategies import IdlePowerMethod
+    from repro_torch.obs import ledger_from_rollout
+    from repro_torch.policy import LearnedTimeoutPolicy, untrained_policy
+    from repro_torch.policy.rollout import rollout
+
+    proc = MMPPArrivals(burst_ms=2.0, quiet_ms=4000.0, mean_burst_len=12.0, mean_quiet_len=3.0)
+    gaps = proc.sample_gaps(torch.Generator(DEV).manual_seed(0), 16, 300)
+    host = gaps.cpu().numpy()
+    untrained = untrained_policy(item, method=IdlePowerMethod[trained.meta["method"]], powerup_overhead_mj=cal)
+    worst = {}
+    for label, pol, tol in (("untrained", untrained, 1e-9), ("trained", trained, 1e-6)):
+        c = dict(pol.consts, budget=400.0)
+        out = {k: v.cpu().numpy() for k, v in rollout(pol.params, gaps, c, device=DEV).items()}
+        err = 0.0
+        for i in range(host.shape[0]):
+            policy = (FixedTimeoutPolicy(timeout_ms=pol.t_be_ms, idle_power_mw=pol.consts["p_idle"])
+                      if label == "untrained" else
+                      LearnedTimeoutPolicy(pol, item=item, guard=False, snap_lo=0.0, snap_hi=math.inf))
+            res = simulate_trace(item, np.concatenate([[0.0], np.cumsum(host[i])]), policy, 400.0, cal)
+            check((res.n_items, res.configurations, res.releases) == (int(out["n_items"][i]),
+                                                                      int(out["configurations"][i]),
+                                                                      int(out["releases"][i])),
+                  f"{label} rollout stream {i}: counts differ from simulate_trace")
+            err = max(err, abs(res.energy_used_mj - out["energy_mj"][i]) / max(abs(res.energy_used_mj), 1e-300))
+        worst[label] = err
+        check(err <= tol, f"{label} rollout: energy {err} from simulate_trace (limit {tol})")
+    print(f"  rollout on the card against simulate_trace, 16 MMPP streams × 300 gaps at 400 mJ: counts exact, "
+          f"energies within {worst['untrained']:.3e} (untrained, limit 1e-9) and {worst['trained']:.3e} "
+          f"(trained, limit 1e-6) relative")
+
+    _reset_peak()
+    big = MMPPArrivals(burst_ms=20.0, quiet_ms=4000.0, mean_burst_len=12.0, mean_quiet_len=3.0)
+    gaps, gap_s = _timed(lambda: big.sample_gaps(torch.Generator(DEV).manual_seed(1), POLICY_STREAMS, POLICY_GAPS))
+    sample_peak = _peak()
+    c = dict(trained.consts, budget=1500.0)
+    rollout(trained.params, gaps[:1024, :8], c, device=DEV)         # warm-up
+    _reset_peak()
+    base = _allocated()
+    out, roll_s = _timed(lambda: rollout(trained.params, gaps, c, device=DEV))
+    steps = POLICY_STREAMS * POLICY_GAPS
+    print(f"  rollout of {POLICY_STREAMS} streams × {POLICY_GAPS} MMPP gaps ({gaps.numel() * 8 / 1e9:.2f} GB of "
+          f"gaps, sampled in {gap_s:.3f} s, sampler peak {sample_peak / 1e9:.3f} GB): {roll_s:.3f} s, "
+          f"{steps / roll_s:.4e} policy-steps/s, peak {(_peak() - base) / 1e9:.4f} GB above the gaps [{card}]")
+    cpu = rollout(trained.params, gaps[::POLICY_CPU_STRIDE].cpu(), c, device="cpu")
+    err = 0.0
+    for k, v in cpu.items():
+        mine = out[k][::POLICY_CPU_STRIDE].cpu()
+        if k in ("n_items", "configurations", "releases"):
+            check(torch.equal(mine, v), f"1M rollout: {k} on the card differs from the CPU's")
+        else:
+            err = max(err, float(((mine - v).abs() / v.abs().clamp_min(1e-300)).max()))
+    led = ledger_from_rollout(out, c)
+    cons = led.assert_conserves(out["energy_mj"].cpu().numpy(), rtol=1e-9)
+    print(f"  its {POLICY_STREAMS // POLICY_CPU_STRIDE} strided streams on the CPU: counts equal, energies within "
+          f"{err:.3e} relative; ledger conservation {cons:.3e}; mean {float(out['n_items'].mean()):.2f} items, "
+          f"{float(out['configurations'].mean()):.2f} configurations a stream")
+    check(err <= 1e-9, f"1M rollout: energies {err} from the CPU's")
+    del gaps, out
+
+
+def _learned_serving(card: str, trained) -> tuple[int, int]:
+    """``REQUESTS`` requests at ``PERIOD_S`` to full-width qwen3-1.7b under
+    ``strategy="adaptive"`` with the trained policy, on the serving phase's
+    checkpoint; the configurations held to a fresh copy of the policy fed
+    the gaps and the measured phases the controller saw → (dequant, flash
+    launches)."""
+    import torch
+
+    from repro_torch.core.adaptive import controller_timeout_s, measured_workload_item
+    from repro_torch.core.phases import CONFIGURATION, INFERENCE
+    from repro_torch.core.strategies import IdlePowerMethod
+    from repro_torch.kernels.dequant import ops as dq
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch.serve import build_demo
+    from repro_torch.policy import LearnedTimeoutPolicy
+    from repro_torch.serving.scheduler import run_schedule
+
+    check(any(CKPT_DIR.glob("step_*.ckpt")), f"no serving-phase checkpoint in {CKPT_DIR}")
+    make = lambda: LearnedTimeoutPolicy(trained, method=IdlePowerMethod.BASELINE)  # noqa: E731
+    controller, make_request = build_demo(ARCH, reduced=False, device="cuda", ckpt_dir=str(CKPT_DIR),
+                                          strategy="adaptive", policy=make())
+    requests = [make_request() for _ in range(REQUESTS)]
+    dq.launches = 0
+    fa.launches = 0
+    res = run_schedule(controller, iter(requests), period_s=PERIOD_S)
+    n_dq, n_fa = dq.launches, fa.launches
+    if controller.handle is not None:
+        controller.release_fn(controller.handle)
+        controller.handle = None
+    torch.cuda.synchronize()
+    prefills = res.n_requests + res.n_configurations            # + bring-up warm-ups
+
+    # a fresh copy, fed what the controller saw, request by request
+    fresh, power, recs = make(), controller.power, controller.records
+    infs = [i for i, r in enumerate(recs) if r.name == INFERENCE]
+    periods = controller._observed_periods
+    predicted, decided = 1, []
+    for k in range(len(infs) - 1):
+        if k >= 1:
+            fresh.observe_gap(periods[k - 1] * 1000.0)
+        cfg = [recs[i] for i in range(infs[k]) if recs[i].name == CONFIGURATION][-1]
+        item = measured_workload_item("measured", power.config_mw, cfg.wall_s, power.infer_mw,
+                                      recs[infs[k]].wall_s, power.idle_mw)
+        timeout = controller_timeout_s(fresh, item)
+        span = sum(r.wall_s for r in recs[infs[k] + 1:infs[k + 1]] if r.name != CONFIGURATION)
+        release = timeout is not None and span >= timeout
+        predicted += release
+        decided.append((round(span, 4), None if timeout is None else round(timeout, 4), fresh.regime()))
+    print(f"  learned policy serving full-width {ARCH}: {res.n_requests} requests at {PERIOD_S} s, "
+          f"{res.n_configurations} configurations (a fresh copy of the policy predicts {predicted}: "
+          f"(idle span s, timeout s, regime) {decided}), energy {res.energy_mj:.1f} mJ, wall {res.wall_s:.3f} s, "
+          f"summary {controller.policy.summary()}; dequant launches {n_dq}, flash launches {n_fa} [{card}]")
+    check(res.n_requests == REQUESTS, f"learned serving: {res.n_requests} requests")
+    check(res.n_configurations == predicted, "learned serving: configurations differ from the policy's decisions")
+    check(n_dq == 8 * res.n_configurations and n_dq >= 8,
+          f"learned serving: {n_dq} dequant launches for {res.n_configurations} bring-ups")
+    check(n_fa == 28 * prefills, f"learned serving: {n_fa} flash launches for {prefills} prefills")
+    check(torch.cuda.memory_allocated() < 1e8, "learned serving: memory still allocated after the release")
+    return n_dq, n_fa
+
+
+def policy_phase(card: str) -> tuple[int, int]:
+    """The learned timeout policy on the card: ``launch.policy --smoke``
+    (training, its criteria, its time), the rollout against
+    ``simulate_trace`` and at 1,048,576 streams, then the trained policy
+    serving full-width qwen3-1.7b → (dequant, flash launches)."""
+    from repro_torch.core import energy_model as em
+    from repro_torch.core.phases import paper_lstm_item
+
+    item, cal = paper_lstm_item(), em.CALIBRATED_POWERUP_OVERHEAD_MJ
+    trained = _policy_training(card, item, cal)
+    _policy_rollouts(card, item, cal, trained)
+    if DEV == "cpu":                                  # a CPU rehearsal serves nothing
+        return 0, 0
+    return _learned_serving(card, trained)
+
+
+# ---------------------------------------------------------------------------
 # Observability, Monte Carlo and the cost zoo
 # ---------------------------------------------------------------------------
 OBS_REQUESTS = 2                            # one On-Off request pair
@@ -2968,6 +3364,15 @@ def main() -> None:
 
     with timed_phase("fleet", seconds):
         fleet_phase(card)
+
+    with timed_phase("optimize", seconds):
+        optimize_phase(card)
+
+    with timed_phase("policy", seconds):
+        n_dq, n_fa = policy_phase(card)
+        dq_entry["launches"] += n_dq
+        fa_entry["launches"] += n_fa
+        check(n_dq > 0 and n_fa > 0, "a kernel of the learned-policy serving path was never launched")
 
     with timed_phase("obs", seconds):
         n_dq, n_fa = obs_phase(card)

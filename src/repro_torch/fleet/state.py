@@ -125,8 +125,9 @@ class DeviceSpec:
 
     def with_budget(self, e_budget_mj: float) -> "DeviceSpec":
         """This spec under a different energy budget — convenience for
-        materializing a planner allocation (the optimizer, ROADMAP A10)
-        back into individual specs; the vectorized hand-off is
+        materializing a planner allocation
+        (:func:`repro_torch.optimize.planner.plan_budgets`) back into
+        individual specs; the vectorized hand-off is
         :meth:`FleetParams.with_budgets`, which replaces only the budget
         column of an already-stacked fleet."""
         return dataclasses.replace(self, e_budget_mj=float(e_budget_mj))

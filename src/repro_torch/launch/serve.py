@@ -38,10 +38,14 @@ def build_demo(
     strategy: str = "auto",
     device="cuda",
     seed: int = 0,
+    policy=None,
 ):
     """(controller, make_request) for a live duty-cycle demo of ``arch``.
     Writes a ``zstd+int8`` checkpoint of random weights (from ``seed``)
-    unless ``ckpt_dir`` already holds one."""
+    unless ``ckpt_dir`` already holds one.  ``policy`` is the
+    ``strategy="adaptive"`` controller's timeout policy (default the
+    analytical :class:`~repro_torch.core.adaptive.PolicyController`; e.g. a
+    :class:`~repro_torch.policy.LearnedTimeoutPolicy`)."""
     device = resolve_device(device)
     if device.type == "cuda":
         # build the kernels now, so the build does not land in the first
@@ -78,7 +82,7 @@ def build_demo(
     def release(engine: ServingEngine):
         engine.release()
 
-    controller = DutyCycleController(bring_up, infer, release, power, strategy)
+    controller = DutyCycleController(bring_up, infer, release, power, strategy, policy=policy)
     return controller, make_request
 
 

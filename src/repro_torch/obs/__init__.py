@@ -15,8 +15,8 @@ Four pieces, one contract:
 * :mod:`repro_torch.obs.report` — fuses all three into JSON/markdown run
   reports (:mod:`repro_torch.launch.obs` is the CLI).
 
-The reference's ``ledger_from_rollout`` comes with the learned policy
-(ROADMAP A11).
+:func:`~repro_torch.obs.ledger.ledger_from_rollout` gives a learned-policy
+rollout (:mod:`repro_torch.policy.rollout`) the same breakdown.
 
 >>> from repro_torch.obs import EnergyLedger
 >>> led = EnergyLedger.from_axes(configure=11.5, compute=2.25, idle=1.0)
@@ -25,7 +25,13 @@ The reference's ``ledger_from_rollout`` comes with the learned policy
 >>> led.assert_conserves(14.75)
 0.0
 """
-from repro_torch.obs.ledger import AXES, PHASE_TO_AXIS, EnergyLedger, axis_of_phase
+from repro_torch.obs.ledger import (
+    AXES,
+    PHASE_TO_AXIS,
+    EnergyLedger,
+    axis_of_phase,
+    ledger_from_rollout,
+)
 from repro_torch.obs.metrics import (
     Counter,
     Gauge,
@@ -50,6 +56,7 @@ __all__ = [
     "PHASE_TO_AXIS",
     "EnergyLedger",
     "axis_of_phase",
+    "ledger_from_rollout",
     "Counter",
     "Gauge",
     "Histogram",

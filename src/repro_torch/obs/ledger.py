@@ -1,6 +1,5 @@
 """Phase-resolved energy ledger: *where* the joules go (a copy of
-``repro.obs.ledger`` for the port, without its JAX pytree registration;
-``ledger_from_rollout`` comes with the learned-policy slice, ROADMAP A11).
+``repro.obs.ledger`` for the port, without its JAX pytree registration).
 
 The paper's argument is per-phase accounting — configuration vs. compute
 vs. idle vs. off (the 40.13× configuration-energy reduction and the
@@ -64,6 +63,7 @@ __all__ = [
     "PHASE_TO_AXIS",
     "EnergyLedger",
     "axis_of_phase",
+    "ledger_from_rollout",
 ]
 
 #: Canonical ledger axes, in reporting order.
@@ -223,3 +223,31 @@ class EnergyLedger:
         out["total_mj"] = _tolist(led.total_mj)
         out["fractions"] = self.fractions()
         return out
+
+
+def _host(x) -> np.ndarray:
+    """A tensor (on any device) or array-like as a float64 numpy array."""
+    if hasattr(x, "detach"):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, dtype=np.float64)
+
+
+def ledger_from_rollout(out: Mapping, consts: Mapping) -> EnergyLedger:
+    """Ledger of a :func:`repro_torch.policy.rollout.rollout` output batch.
+
+    ``out`` is the rollout result dict (per-stream tensors, on any device);
+    ``consts`` is the :func:`repro_torch.policy.rollout.make_consts` dict.
+    Every configuration event charged ``e_config`` splits into its pure
+    configuration energy and the calibrated power-up overhead.
+    """
+    configs = _host(out["configurations"])
+    n = _host(out["n_items"])
+    ovh = float(consts.get("e_overhead", 0.0))
+    cfg_pure = float(consts["e_config"]) - ovh
+    return EnergyLedger.from_axes(
+        configure=configs * cfg_pure,
+        compute=n * float(consts["e_exec"]),
+        idle=_host(out["idle_energy_mj"]),
+        off=np.zeros_like(n),
+        overhead=configs * ovh,
+    )

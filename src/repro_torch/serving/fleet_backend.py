@@ -26,8 +26,9 @@ streams at R× the period), sampled batch-wise by
 reference splits a ``jax.random`` key per tenant; the streams differ, their
 law does not).
 
-Not ported yet: :meth:`FleetBackend.plan_budgets` (the optimizer,
-ROADMAP A10).
+:meth:`FleetBackend.plan_budgets` splits one shared budget across every
+replica through the optimizer's planner
+(:mod:`repro_torch.optimize.planner`).
 """
 from __future__ import annotations
 
@@ -159,14 +160,43 @@ class FleetBackend:
         self.params = FleetParams.from_specs(specs, self.device)
 
     # ---- planner-driven placement -------------------------------------------
-    def plan_budgets(self, fleet_budget_mj: float, horizon_ms: float,
-                     objective: str = "min_lifetime"):
-        """Split one shared energy budget across every replica: needs the
-        optimizer's planner, which is not ported yet (ROADMAP A10)."""
-        raise NotImplementedError(
-            "FleetBackend.plan_budgets needs the optimizer's planner "
-            "(repro_torch.optimize.planner), which comes with ROADMAP A10"
-        )
+    def plan_budgets(
+        self,
+        fleet_budget_mj: float,
+        horizon_ms: float,
+        objective: str = "min_lifetime",
+    ):
+        """Split one *shared* energy budget across every replica of every
+        tenant (:func:`repro_torch.optimize.planner.plan_budgets`), instead
+        of the per-tenant batteries the specs declare.
+
+        The plan is computed on the periodic proxy — each replica serving
+        its thinned mean period, capped at the requests ``horizon_ms``
+        delivers — which is exactly the model the planner can replay
+        bit-for-bit through ``run_periodic``; :meth:`run` on the planned
+        backend then exercises the allocation under the real (Poisson,
+        routed) traffic.
+
+        Returns ``(allocation, per_tenant)`` where ``per_tenant`` maps
+        tenant name → planned budget / requests / lifetime summary.
+        """
+        from repro_torch.optimize.planner import plan_budgets as _plan
+
+        caps = np.maximum(
+            np.floor(horizon_ms / _np(self.params.period_ms)), 0.0
+        ).astype(np.int64)
+        alloc = _plan(self.params, fleet_budget_mj, caps, objective=objective)
+        per_tenant = {}
+        for t, (a, b) in zip(self.tenants, self.blocks):
+            per_tenant[t.name] = {
+                "replicas": t.replicas,
+                "budget_mj": float(alloc.budgets_mj[a:b].sum()),
+                "planned_requests": int(alloc.n_items[a:b].sum()),
+                "min_lifetime_ms": float(alloc.predicted_lifetime_ms[a:b].min()),
+                "max_lifetime_ms": float(alloc.predicted_lifetime_ms[a:b].max()),
+            }
+        assert math.isfinite(alloc.leftover_mj)
+        return alloc, per_tenant
 
     def with_allocation(self, allocation) -> "FleetBackend":
         """A new backend whose replicas carry the planner's per-device

@@ -363,8 +363,12 @@ def test_two_tenant_backend():
     assert backend.run(horizon_ms=60_000.0, dt_ms=100.0, seed=1) == out
     counts = backend._sample_counts(60_000.0, 100.0, seed=1, n_seeds=3, jitter=0.1)
     assert counts.shape == (3, 600, 12) and counts.dtype == torch.int32
-    with pytest.raises(NotImplementedError, match="A10"):
-        backend.plan_budgets(1e6, 60_000.0)
+    from repro_torch.optimize import replay_allocation
+
+    alloc, per_tenant = backend.plan_budgets(1e6, 60_000.0)
+    assert sum(t["planned_requests"] for t in per_tenant.values()) == alloc.total_requests
+    assert float(alloc.budgets_mj.sum()) + alloc.leftover_mj == 1e6
+    assert replay_allocation(backend.params, alloc)["exact"]
     mc = backend.run_mc(6_000.0, dt_ms=100.0, n_seeds=2, seed=1)
     assert mc["n_seeds"] == 2 and set(mc["tenants"]) == {"hot", "cold"}
     assert FleetTenantSpec.from_model("qwen3-1.7b").policy == "auto"

@@ -131,6 +131,19 @@ def test_module_list_covers_the_slice():
         "repro_torch.launch.obs",
         "repro_torch.launch.mc",
         "repro_torch.launch.costs",
+        "repro_torch.optim.schedules",
+        "repro_torch.optimize",
+        "repro_torch.optimize.relax",
+        "repro_torch.optimize.descent",
+        "repro_torch.optimize.planner",
+        "repro_torch.launch.optimize",
+        "repro_torch.policy",
+        "repro_torch.policy.features",
+        "repro_torch.policy.net",
+        "repro_torch.policy.rollout",
+        "repro_torch.policy.train",
+        "repro_torch.policy.controller",
+        "repro_torch.launch.policy",
     ):
         assert name in mods
 
@@ -179,7 +192,7 @@ def test_serving_examples_default_to_cuda_and_raise_without_it(monkeypatch, caps
     assert "requests" not in capsys.readouterr().out      # nothing was served
 
 
-@pytest.mark.parametrize("cli", ["sweep", "fleet", "obs", "mc", "costs"])
+@pytest.mark.parametrize("cli", ["sweep", "fleet", "obs", "mc", "costs", "optimize", "policy"])
 def test_analytics_clis_default_to_cuda_and_raise_without_it(monkeypatch, capsys, cli):
     import importlib
 
