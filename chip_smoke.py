@@ -163,7 +163,23 @@ Phases, in order; any failure exits non-zero:
    faster than its bound, each timed beside its device time, its plain
    version and the library call (SDPA, ``nn.LSTM``); the calibration's
    launches go into the ``kernels`` line;
-23. the phases' seconds, the ``kernels`` JSON line, the card line, and the
+23. control — the hierarchical control plane, no kernel: ``python -m
+   repro_torch.launch.control --smoke --ticks 512 --fleet-budget-mj
+   50000`` (2 × 2 × 4 devices, 2 faults, the five-policy sweep, the
+   planner) on the card and on the CPU, the card's payload equal to the
+   CPU's (counts exact, energies and latencies bit for bit, the same
+   frontier and plan) and both self-checks held; the wide
+   topology's copy at 512 devices a rack and 512 ticks, card against
+   CPU bit for bit; one 64-tick ``run_routed`` call timed through graphs
+   and eagerly, split into capture, replay and host, and the CLI's
+   default day sim estimated from it (run only below 120 s); 2 regions ×
+   8 racks × 16,384 devices (262,144) for 1,024 ticks with the crossover
+   autoscaler, 4 faults, pack routing and the idle tail: requests
+   conserved at every level, energy within 1e-9, its power events and
+   device-ticks/s with the calls' capture, replay and host share; one
+   rack of 1,048,576 devices for 512 ticks against one ``run_routed``
+   call, every state field and the latency multiset equal, with peaks;
+24. the phases' seconds, the ``kernels`` JSON line, the card line, and the
    last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -178,6 +194,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 from unittest import mock
 
@@ -2445,22 +2462,12 @@ def _rates(label, n_dev, ticks, eager_s, graph_s, card):
 
 
 def _fleet_cli(card: str) -> None:
-    env = {**os.environ, "PYTHONPATH": str(SRC)}
-    out_path = ROOT / "build" / "chip_smoke_fleet.json"
-    out_path.parent.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.fleet", "--device", DEV,
-                           "--out", str(out_path)],
-                          capture_output=True, text=True, timeout=600, cwd=str(ROOT), env=env)
-    print("\n".join(f"  {line}" for line in proc.stdout.strip().splitlines()))
-    check(proc.returncode == 0, f"python -m repro_torch.launch.fleet failed: {proc.stderr[-2000:]}")
-    payload = json.loads(out_path.read_text())
+    payload = _launcher("fleet", ROOT / "build" / "chip_smoke_fleet.json")
     sc = payload["oracle_self_check"]
     tp = payload["throughput"]
-    print(f"  the CLI's default ({time.perf_counter() - t0:.1f} s with start-up): self-check "
-          f"{json.dumps(sc)}; periodic {tp['periodic']['fleet']['device_steps_per_s']} and routed "
+    print(f"  the CLI's default: self-check {json.dumps(sc)}; periodic "
+          f"{tp['periodic']['fleet']['device_steps_per_s']} and routed "
           f"{tp['routed']['fleet']['device_steps_per_s']} device-steps/s [{card}]")
-    check(DEV == "cpu" or payload["manifest"]["card"] is not None, "the fleet CLI's manifest has no card")
     check(all(v["agrees"] and not v["energy_abs_diff_mj"] for v in sc.values()),
           f"the fleet CLI's oracle self-check failed: {sc}")
 
@@ -3032,20 +3039,22 @@ MC_CHUNK = 128                              # seeds a chunk: a 8.4 GB gap buffer
 MC_CPU_STRIDE = 16                          # the CPU reruns every 16th seed of chunk 0
 
 
-def _launcher(module: str, out: Path, *extra: str, timeout: int = 600) -> dict:
-    """``python -m repro_torch.launch.<module>`` at its defaults on the card
-    (``DEV``), its JSON written to ``out`` → the payload."""
+def _launcher(module: str, out: Path, *extra: str, timeout: int = 600, device: str | None = None) -> dict:
+    """``python -m repro_torch.launch.<module>`` at its defaults on ``device``
+    (the card, ``DEV``, unless given), its JSON written to ``out`` → the
+    payload."""
+    device = device or DEV
     env = {**os.environ, "PYTHONPATH": str(SRC)}
     out.parent.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", f"repro_torch.launch.{module}", "--device", DEV,
+    proc = subprocess.run([sys.executable, "-m", f"repro_torch.launch.{module}", "--device", device,
                            "--out", str(out), *extra],
                           capture_output=True, text=True, timeout=timeout, cwd=str(ROOT), env=env)
     print("\n".join(f"  {line}" for line in proc.stdout.strip().splitlines()))
     check(proc.returncode == 0, f"python -m repro_torch.launch.{module} failed: {proc.stderr[-2000:]}")
-    print(f"  launch.{module}: {time.perf_counter() - t0:.1f} s with start-up")
+    print(f"  launch.{module} on {device}: {time.perf_counter() - t0:.1f} s with start-up")
     payload = json.loads(out.read_text())
-    check(DEV == "cpu" or payload["manifest"]["card"] is not None, f"the {module} CLI's manifest has no card")
+    check(device == "cpu" or payload["manifest"]["card"] is not None, f"the {module} CLI's manifest has no card")
     return payload
 
 
@@ -3258,6 +3267,280 @@ def costs_phase(card: str) -> dict:
     return rows
 
 
+CONTROL_BUDGET_MJ = 50000.0                 # the CLI run's fleet budget (8 of the 16 devices admitted)
+CONTROL_CLI_TICKS = 512                     # the CLI run: --smoke at 512 ticks, with the planner
+CONTROL_WIDE = (2, 8, 16384)                # regions x racks x devices a rack: 262,144 devices
+CONTROL_WIDE_TICKS = 1024
+CONTROL_WIDE_FAULTS = 4
+CONTROL_WIDE_SMALL = (512, 512)             # devices a rack and ticks of its card-vs-CPU copy
+CONTROL_DEVICES_PER_STREAM = 4              # the wide streams: one per 4 devices, each at 1/streams of the rate
+CONTROL_SPINE = (1 << 20, 512)              # devices and ticks of the 1-region/1-rack collapse
+CONTROL_DAY_TICKS = 86400                   # launch.control's default horizon (one diurnal day)
+CONTROL_DEFAULT_LIMIT_S = 120.0             # run the CLI's defaults only below this estimate
+CONTROL_SPLIT_CALLS = 5                     # 64-tick calls timed a path and a rack size
+_STATE_FIELDS = ("energy_mj", "idle_energy_mj", "n_served", "n_configs", "n_released", "n_dropped",
+                 "resident", "alive", "completion_ms", "queue_ms", "q_head", "q_len", "rr_ptr")
+
+
+def _wide_args(seed: int = 0):
+    """``launch.control``'s stream settings at their defaults (load 0.5)."""
+    return types.SimpleNamespace(load=0.5, days=1.0, amplitude=0.8, flash_every=64.0,
+                                 flash_len=256, seed=seed)
+
+
+def _wide_topology(devices_per_rack: int, dev):
+    """The CLI's rack configuration (Idle-Waiting devices, the calibrated
+    power-up, a 2 s / 200 mJ rack bring-up, model axis 2) at the wide
+    topology's 2 regions x 8 racks."""
+    from repro_torch.control import uniform_topology
+    from repro_torch.core import energy_model as em
+
+    regions, racks, _ = CONTROL_WIDE
+    return uniform_topology(regions, racks, devices_per_rack, strategies=("idle_waiting",),
+                            request_period_ms=100.0,
+                            powerup_overhead_mj=em.CALIBRATED_POWERUP_OVERHEAD_MJ,
+                            bringup_ms=2000.0, bringup_mj=200.0, model_axis=2, device=dev)
+
+
+def _wide_run(topo, counts, n_ticks: int):
+    """The CLI's main run on ``topo``: the crossover autoscaler, seeded
+    faults, pack routing, the idle tail."""
+    from repro_torch.control import CrossoverAutoscaler, random_schedule, run_hierarchy
+
+    return run_hierarchy(topo, counts, 100.0, epoch_ticks=64,
+                         autoscaler_factory=CrossoverAutoscaler.for_rack,
+                         faults=random_schedule(topo, n_ticks, CONTROL_WIDE_FAULTS, seed=0),
+                         heartbeat_timeout_s=2.0 * 64 * 100.0 / 1000.0,
+                         rack_routing="pack", charge_idle_tail=True)
+
+
+def _wide_small(counts, dev: str) -> tuple[dict, float]:
+    """The wide topology at ``CONTROL_WIDE_SMALL`` on ``dev`` → every
+    rack's state, the latencies and the reports as host arrays and JSON,
+    and its seconds."""
+    from repro_torch.control import hierarchy_report, verify_hierarchy
+
+    per_rack, n_ticks = CONTROL_WIDE_SMALL
+    topo = _wide_topology(per_rack, dev)
+    res, s = _timed(lambda: _wide_run(topo, counts, n_ticks))
+    out = {"latency_ms": res.latency_ms,
+           "report": json.dumps({"report": hierarchy_report(res), "conservation": verify_hierarchy(res)})}
+    for name, r in res.racks.items():
+        for f in _STATE_FIELDS:
+            out[f"{name}/{f}"] = getattr(r.state, f).cpu().numpy()
+    return out, s
+
+
+class _CallTimes:
+    """Sums of the routed calls' wall time, CUDA-graph capture and replay."""
+
+    def __init__(self):
+        self.call = self.capture = self.replay = 0.0
+        self.calls = self.captures = self.replays = 0
+
+
+class _TimedGraph:
+    def __init__(self, graph, times: _CallTimes):
+        self.graph, self.times = graph, times
+
+    def replay(self):
+        _sync()
+        t0 = time.perf_counter()
+        self.graph.replay()
+        _sync()
+        self.times.replay += time.perf_counter() - t0
+        self.times.replays += 1
+
+
+@contextlib.contextmanager
+def _timed_calls(times: _CallTimes):
+    """Time every ``run_routed`` call the control plane makes, and each
+    graph's capture and replay inside it, each between two synchronisations."""
+    import repro_torch.control.simulate as sim
+    import repro_torch.fleet.step as step
+
+    capture, routed = step._capture, sim.run_routed
+
+    def timed_capture(*a, **k):
+        _sync()
+        t0 = time.perf_counter()
+        graph, static_x, static_y = capture(*a, **k)
+        _sync()
+        times.capture += time.perf_counter() - t0
+        times.captures += 1
+        return _TimedGraph(graph, times), static_x, static_y
+
+    def timed_routed(*a, **k):
+        _sync()
+        t0 = time.perf_counter()
+        out = routed(*a, **k)
+        _sync()
+        times.call += time.perf_counter() - t0
+        times.calls += 1
+        return out
+
+    step._capture, sim.run_routed = timed_capture, timed_routed
+    try:
+        yield times
+    finally:
+        step._capture, sim.run_routed = capture, routed
+
+
+def _call_split(devices_per_rack: int, jit: bool) -> _CallTimes:
+    """``CONTROL_SPLIT_CALLS`` 64-tick epochs of one rack of the CLI's
+    configuration at load 0.5, each a ``run_routed`` call of the carry."""
+    import numpy as np
+
+    import repro_torch.control.simulate as sim
+
+    rack = _wide_topology(devices_per_rack, DEV).regions[0].racks[0]
+    counts = np.random.default_rng(0).poisson(0.5 * devices_per_rack, 64 * (CONTROL_SPLIT_CALLS + 1))
+    times, state = _CallTimes(), None
+    for i in range(CONTROL_SPLIT_CALLS + 1):
+        with _timed_calls(times if i else _CallTimes()):    # the first call warms the allocator up
+            state = sim.run_routed(rack.params, counts[64 * i:64 * (i + 1)], 100.0, jit=jit,
+                                   state0=state, start_tick=64 * i).state
+    return times
+
+
+def _same_payload(card: dict, cpu: dict, label: str) -> None:
+    for key in ("kind", "config", "planner", "report", "self_check", "pareto"):
+        check(card[key] == cpu[key], f"{label}: the card's {key} differs from the CPU's")
+    check(card["throughput"]["hierarchy"]["device_ticks"] == cpu["throughput"]["hierarchy"]["device_ticks"],
+          f"{label}: device ticks differ")
+    check(DEV == "cpu" or card["manifest"]["card"] is not None and card["meta"]["device"] == DEV,
+          f"{label}: the card's run has no card in its manifest")
+
+
+def control_phase(card: str) -> None:
+    """The CLI at ``--smoke --ticks 512 --fleet-budget-mj``, card against
+    CPU (both self-checks, counts exact, energies bit for bit, the same
+    frontier and plan); the wide topology's small copy card against CPU; a
+    call's capture, replay and host time and the default day sim's
+    estimate; the wide topology (262,144 devices) conserving within 1e-9;
+    the 1,048,576-device spine bit for bit."""
+    import numpy as np
+    import torch
+
+    from repro_torch.control import run_hierarchy, uniform_topology, verify_hierarchy
+    from repro_torch.fleet import run_routed
+    from repro_torch.launch.control import _global_counts
+
+    cli_args = ("--smoke", "--ticks", str(CONTROL_CLI_TICKS), "--fleet-budget-mj", str(CONTROL_BUDGET_MJ))
+    payloads = {dev: _launcher("control", ROOT / "build" / f"chip_smoke_control_{dev}.json", *cli_args,
+                               device=dev)
+                for dev in dict.fromkeys((DEV, "cpu"))}
+    smoke = payloads[DEV]
+    sc = smoke["self_check"]
+    check(sc["collapse"]["bit_identical_to_run_routed"] and sc["collapse"]["latency_multiset_identical"]
+          and sc["conservation"]["energy_error_total"] <= 1e-9, f"the CLI's self-checks: {sc}")
+    _same_payload(smoke, payloads["cpu"], "launch.control")
+    ev, slo = smoke["report"]["power_events"], smoke["report"]["slo"]
+    print(f"  launch.control {' '.join(cli_args)}: card = CPU in counts, energies, latencies, frontier "
+          f"and plan; collapse "
+          f"{json.dumps(sc['collapse'])}; energy error {sc['conservation']['energy_error_total']:.3e}; "
+          f"events {json.dumps(ev)}; served {slo['served']} of {slo['arrived']}, p99 "
+          f"{slo['latency_p99_ms']} ms; frontier "
+          f"{[smoke['pareto']['points'][i]['policy'] for i in smoke['pareto']['frontier']]}; planner "
+          f"{json.dumps(smoke['planner'])}; main run {smoke['throughput']['hierarchy']['device_ticks_per_s']} "
+          f"device-ticks/s [{card}]")
+
+    per_rack, small_ticks = CONTROL_WIDE_SMALL
+    n_small = CONTROL_WIDE[0] * CONTROL_WIDE[1] * per_rack
+    counts = _global_counts(_wide_args(), small_ticks, 100.0, n_small,
+                            streams=n_small // CONTROL_DEVICES_PER_STREAM)
+    small = {dev: _wide_small(counts, dev) for dev in dict.fromkeys((DEV, "cpu"))}
+    (ours, s_card), (theirs, s_cpu) = small[DEV], small["cpu"]
+    check(ours.keys() == theirs.keys(), "the wide copy's saved fields differ")
+    for key in ours:
+        check(np.array_equal(ours[key], theirs[key]), f"the wide copy, card vs CPU: {key} differs")
+    wide_report = json.loads(ours["report"])
+    print(f"  the wide topology at {per_rack} devices a rack ({n_small} devices, {small_ticks} ticks): card "
+          f"{s_card:.1f} s, CPU {s_cpu:.1f} s; card = CPU bit for bit in every rack's state, the latencies "
+          f"({ours['latency_ms'].size}) and the reports; events {json.dumps(wide_report['report']['power_events'])}")
+    del small, ours, theirs
+
+    # a call's capture, replay and host time, alone on the card
+    calls_per_day = 6 * 4 * (CONTROL_DAY_TICKS // 64)     # 6 runs x 4 racks x the epochs, at most
+    split = {}
+    for per_rack in (4, 8):
+        for jit in (True, False):
+            t = _call_split(per_rack, jit)
+            n = t.calls
+            split[per_rack, jit] = t.call / n
+            print(f"  one 64-tick run_routed call, {per_rack} devices ({'graph' if jit else 'eager'}): "
+                  f"{t.call / n * 1e3:.2f} ms, capture {t.capture / n * 1e3:.2f} ms, replay "
+                  f"{t.replay / n * 1e3:.2f} ms, host {(t.call - t.capture - t.replay) / n * 1e3:.2f} ms "
+                  f"(mean of {n}) [{card}]")
+    day_s = calls_per_day * split[8, True]
+    print(f"  the CLI's defaults (2 x 2 x 8 devices, {CONTROL_DAY_TICKS} ticks, 6 runs): about "
+          f"{calls_per_day} calls x {split[8, True] * 1e3:.2f} ms = {day_s:.0f} s through graphs captured "
+          f"in every call ({calls_per_day * split[8, False]:.0f} s eager) [{card}]")
+    if day_s < CONTROL_DEFAULT_LIMIT_S:
+        payload = _launcher("control", ROOT / "build" / "chip_smoke_control_day.json", timeout=900)
+        print(f"  the defaults: {json.dumps(payload['self_check'])}")
+    else:
+        print(f"  the defaults not run (above {CONTROL_DEFAULT_LIMIT_S:.0f} s): the day sim waits for "
+              f"graphs kept across calls")
+
+    # the wide topology: 2 x 8 x 16384 devices
+    regions, racks, per_rack = CONTROL_WIDE
+    topo = _wide_topology(per_rack, DEV)
+    counts, s_counts = _timed(lambda: _global_counts(
+        _wide_args(), CONTROL_WIDE_TICKS, 100.0, topo.n_devices,
+        streams=topo.n_devices // CONTROL_DEVICES_PER_STREAM))
+    _reset_peak()
+    times = _CallTimes()
+    with _timed_calls(times):
+        res, s = _timed(lambda: _wide_run(topo, counts, CONTROL_WIDE_TICKS))
+    con = verify_hierarchy(res)
+    check(res.arrived == int(counts.sum()) and res.served + res.dropped + res.in_flight == res.arrived,
+          "the wide topology does not conserve requests")
+    check(con["energy_error_total"] <= 1e-9 and con["energy_error_rack_max"] <= 1e-9,
+          f"the wide topology's energy: {con}")
+    events = {k: sum(getattr(r, k) for r in res.racks.values())
+              for k in ("n_power_offs", "n_power_ons", "n_restarts")}
+    host_in = times.call - times.capture - times.replay
+    print(f"  wide topology {regions} x {racks} x {per_rack} = {topo.n_devices} devices, "
+          f"{CONTROL_WIDE_TICKS} ticks of 100 ms (load 0.5, {topo.n_devices // CONTROL_DEVICES_PER_STREAM} "
+          f"streams drawn on the host in {s_counts:.2f} s, {res.arrived} requests), crossover autoscaler, "
+          f"pack routing, the idle tail, {res.injector.n_crashes} faults ({res.injector.n_detected} "
+          f"detected): {s:.2f} s, {res.device_ticks / s:.4e} device-ticks/s; {times.calls} run_routed calls "
+          f"{times.call:.2f} s = capture {times.capture:.2f} s ({times.capture / times.call:.1%}) + replay "
+          f"{times.replay:.2f} s ({times.replay / times.call:.1%}) + host {host_in:.2f} s "
+          f"({host_in / times.call:.1%}); the control loop's host {s - times.call:.2f} s; "
+          f"power-offs {events['n_power_offs']}, power-ons {events['n_power_ons']}, restarts "
+          f"{events['n_restarts']}; served {res.served}, dropped {res.dropped}, in flight {res.in_flight}; "
+          f"conservation {json.dumps(con)}; peak {_peak() / 1e9:.3f} GB [{card}]")
+    del res, counts
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+
+    # the spine: one rack of 1,048,576 devices collapses onto one run_routed call
+    n, ticks = CONTROL_SPINE
+    topo = uniform_topology(1, 1, n, request_period_ms=120.0, device=DEV)
+    rack = topo.regions[0].racks[0]
+    counts = np.random.default_rng(0).poisson(0.5 * n, ticks).astype(np.int64)
+    _reset_peak()
+    res, s_h = _timed(lambda: run_hierarchy(topo, counts, 100.0, epoch_ticks=64))
+    peak_h = _peak()
+    _reset_peak()
+    ref, s_r = _timed(lambda: run_routed(rack.params, counts, 100.0, router=rack.router,
+                                         queue_capacity=rack.queue_capacity))
+    peak_r = _peak()
+    state = res.racks[rack.name].state
+    for f in _STATE_FIELDS:
+        check(torch.equal(getattr(ref.state, f), getattr(state, f)), f"the spine: {f} differs from run_routed")
+    ours = torch.sort(torch.from_numpy(res.latency_ms).to(DEV)).values
+    theirs = torch.sort(ref.latency_ms[ref.served_mask]).values
+    check(torch.equal(ours, theirs), "the spine: the latency multiset differs from run_routed")
+    res.assert_conserves()
+    print(f"  spine, 1 x 1 x {n} devices, {ticks} ticks (Poisson, load 0.5): run_hierarchy in epochs of 64 "
+          f"{s_h:.2f} s (peak {peak_h / 1e9:.3f} GB, {res.latency_ms.nbytes / 1e9:.3f} GB of latencies on the "
+          f"host) = one run_routed call {s_r:.2f} s (peak {peak_r / 1e9:.3f} GB) bit for bit in every state "
+          f"field, the latency multiset equal ({ours.numel()} served) [{card}]")
+
+
 @contextlib.contextmanager
 def timed_phase(name: str, seconds: dict):
     """Print the phase's header, and its seconds when it ends."""
@@ -3390,6 +3673,9 @@ def main() -> None:
                             (ssd_entry, "ssd")):
             entry["launches"] += cal[name]["launches"]
             entry["calibration"] = cal[name]
+
+    with timed_phase("control", seconds):
+        control_phase(card)
 
     print(f"phase seconds: {json.dumps(seconds)}")
     print(card)

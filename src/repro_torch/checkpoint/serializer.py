@@ -22,8 +22,11 @@ weights there, with no round trip through the host.
 """
 from __future__ import annotations
 
+import collections
+import os
 import warnings
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any
 
 import torch
@@ -35,6 +38,7 @@ from repro_torch.kernels.dequant import ops as dq
 MODES = ("none", "zstd", "zstd+int8")
 _QUANT_GROUP = 128
 _ZLIB_LEVEL = 6
+_ZLIB_THREADS = min(8, os.cpu_count() or 1)  # zlib releases the GIL while it compresses
 
 _DTYPES = {
     "float32": torch.float32,
@@ -117,30 +121,48 @@ def _from_bytes(raw: bytes, dtype: torch.dtype, shape, device) -> torch.Tensor:
 
 def serialize(tree: Any, mode: str = "zstd") -> bytes:
     """Nested dict of tensors → bytes.  Quantization runs where the
-    tensors lie (the kernel-free quantizer, on the card for CUDA tensors)."""
+    tensors lie (the kernel-free quantizer, on the card for CUDA tensors);
+    the leaves are compressed on ``_ZLIB_THREADS`` host threads, at most
+    twice that many in flight, into the bytes one thread would write."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}")
     leaves = []
-    for path, leaf in flatten(tree):
-        t = torch.as_tensor(leaf)
-        record: dict[str, Any] = {
-            "path": path,
-            "shape": list(t.shape),
-            "dtype": _NAMES[t.dtype],
-        }
-        if mode == "zstd+int8" and _should_quantize(t):
-            mat = t.reshape(-1, t.shape[-1])
-            q, scales = dq.quantize_blocked(mat, group=_QUANT_GROUP)
-            record["quant"] = {
-                "group": _QUANT_GROUP,
-                "q": zlib.compress(_to_bytes(q), _ZLIB_LEVEL),
-                "scales": zlib.compress(_to_bytes(scales), _ZLIB_LEVEL),
-                "rows": int(mat.shape[0]),
+    pending = collections.deque()             # (record, key, future), in the leaves' order
+    with ThreadPoolExecutor(_ZLIB_THREADS) as pool:
+
+        def compress(record: dict, key: str, raw: bytes) -> None:
+            pending.append((record, key, pool.submit(zlib.compress, raw, _ZLIB_LEVEL)))
+            while len(pending) > 2 * _ZLIB_THREADS:
+                done, k, future = pending.popleft()
+                done[k] = future.result()
+
+        for path, leaf in flatten(tree):
+            t = torch.as_tensor(leaf)
+            record: dict[str, Any] = {
+                "path": path,
+                "shape": list(t.shape),
+                "dtype": _NAMES[t.dtype],
             }
-        else:
-            raw = _to_bytes(t)
-            record["data"] = zlib.compress(raw, _ZLIB_LEVEL) if mode != "none" else raw
-        leaves.append(record)
+            if mode == "zstd+int8" and _should_quantize(t):
+                mat = t.reshape(-1, t.shape[-1])
+                q, scales = dq.quantize_blocked(mat, group=_QUANT_GROUP)
+                # the keys in the reference's order; the blobs fill in below
+                record["quant"] = quant = {
+                    "group": _QUANT_GROUP,
+                    "q": None,
+                    "scales": None,
+                    "rows": int(mat.shape[0]),
+                }
+                compress(quant, "q", _to_bytes(q))
+                compress(quant, "scales", _to_bytes(scales))
+            else:
+                raw = _to_bytes(t)
+                record["data"] = raw
+                if mode != "none":
+                    compress(record, "data", raw)
+            leaves.append(record)
+        for done, k, future in pending:
+            done[k] = future.result()
     payload = {
         "version": 1,
         "mode": mode,

@@ -144,6 +144,20 @@ def test_serialized_bytes_equal_jax_on_the_zlib_codec(zlib_reference):
         assert serialize(_port_tree(tree), mode=mode) == zlib_reference.serialize(tree, mode=mode)
 
 
+@pytest.mark.parametrize("threads", [1, 3])
+def test_compression_threads_write_the_reference_blob(zlib_reference, monkeypatch, threads):
+    """More leaves than compressions in flight: the blob is the same at any
+    thread count, and the reference's."""
+    import repro_torch.checkpoint.serializer as ser
+
+    monkeypatch.setattr(ser, "_ZLIB_THREADS", threads)
+    rng = np.random.default_rng(7)
+    tree = {f"layer{i}": {"w": rng.standard_normal((16, 256)).astype(np.float32),
+                          "b": rng.standard_normal((5,)).astype(np.float32)} for i in range(9)}
+    for mode in MODES:
+        assert serialize(_port_tree(tree), mode=mode) == zlib_reference.serialize(tree, mode=mode)
+
+
 def test_zstd_codec_blob_raises(jser):
     if not jser.HAVE_ZSTD:
         pytest.skip("the reference writes zstd only with 'zstandard' installed")

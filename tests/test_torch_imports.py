@@ -144,6 +144,15 @@ def test_module_list_covers_the_slice():
         "repro_torch.policy.train",
         "repro_torch.policy.controller",
         "repro_torch.launch.policy",
+        "repro_torch.distributed",
+        "repro_torch.distributed.fault_tolerance",
+        "repro_torch.control",
+        "repro_torch.control.hierarchy",
+        "repro_torch.control.autoscaler",
+        "repro_torch.control.faults",
+        "repro_torch.control.simulate",
+        "repro_torch.control.report",
+        "repro_torch.launch.control",
     ):
         assert name in mods
 
@@ -192,7 +201,7 @@ def test_serving_examples_default_to_cuda_and_raise_without_it(monkeypatch, caps
     assert "requests" not in capsys.readouterr().out      # nothing was served
 
 
-@pytest.mark.parametrize("cli", ["sweep", "fleet", "obs", "mc", "costs", "optimize", "policy"])
+@pytest.mark.parametrize("cli", ["sweep", "fleet", "obs", "mc", "costs", "optimize", "policy", "control"])
 def test_analytics_clis_default_to_cuda_and_raise_without_it(monkeypatch, capsys, cli):
     import importlib
 
