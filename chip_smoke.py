@@ -45,7 +45,7 @@ Phases, in order; any failure exits non-zero:
    checked against the plain path;
 8. multi-tenant — ``repro_torch.examples.multi_tenant_serving`` on the card
    at the reduced width; then two full-width tenants, qwen3-1.7b (the
-   serving phase's checkpoint) and yi-6b cut to 4 layers (a checkpoint of
+   serving phase's checkpoint) and yi-6b cut to 2 layers (a checkpoint of
    its own), under a budget that holds the larger alone and one that holds
    both: the example's asserts, the card's memory after every release, and
    the dequant and flash launches of every bring-up and prefill;
@@ -64,14 +64,29 @@ Phases, in order; any failure exits non-zero:
    the launch counts show 9 dequant launches per bring-up and 48 SSD
    launches per prefill; the fp32 logits of the 48 layers are checked
    against the plain path, and bf16 layer by layer;
-11. dense families — yi-6b, internlm2-20b and qwen3-32b at full published
+11. train — gradients through the kernels at full width and depth: the
+   training loss of qwen3-1.7b (28 layers, B 2, S 128) through the flash
+   kernel and of mamba2-370m (48 layers) through the SSD kernel against the
+   plain path on the same weights, in fp32 (the loss within 1e-5 relative,
+   each leaf within 1e-4 of its largest entry, or twice the plain path's
+   distance from a float64 run where that is larger) and bf16 (by
+   ``_bf16_rule``'s terms), every leaf's gradient non-zero; launches exact:
+   one a layer a forward, two a step under ``remat="full"``, one under
+   ``none`` (the backward launches nothing); then ``python -m
+   repro_torch.launch.train`` at full width (qwen3-1.7b 5 steps,
+   mamba2-370m 3, B 8, S 128, no checkpoint directory: finite losses, s a
+   step, tokens/s, peak memory, launches exact) and one step of each split
+   into forward, backward and AdamW; the 100M example (``train_lm``'s twin)
+   for 20 steps with its checkpoint; the reduced qwen3 resumed at step 3
+   against 6 uninterrupted steps (the final loss within 1e-4);
+12. dense families — yi-6b, internlm2-20b and qwen3-32b at full published
    depth and width in bf16 (random weights drawn on the card): prefill at
    batch 2, prompt 32 (eight token draws) through the kernels against the
    plain path, one flash launch a layer; the bf16 argmax on the rows a
    float64 forward (the decoder's per-position step on each layer's
    widened weights) shows bf16 can decide, at least two; in fp32 at full
    depth (yi-6b) or half depth;
-12. moe families — mixtral-8x7b (22 of 32 layers in bf16, 11 in fp32) and
+13. moe families — mixtral-8x7b (22 of 32 layers in bf16, 11 in fp32) and
    qwen3-moe-235b-a22b (12 of 94, 6) at their published widths, held as
    the dense families are (the float64 forward widens one expert at a
    time), every routing flip between the two bf16 paths shown to sit on a
@@ -79,20 +94,20 @@ Phases, in order; any failure exits non-zero:
    mixtral request of 4608 tokens, beyond its 4096 window, and 8 decode
    steps, the ring-aligned cache checked and the logits held against the
    plain path;
-13. jamba — one period of jamba-1.5-large-398b at its published widths
+14. jamba — one period of jamba-1.5-large-398b at its published widths
    (88.1 GB in bf16, more than the card), streamed: each layer drawn on the
    card, run through the per-position prefill step (SSD kernel, flash
    kernel, MoE dispatch) and freed, in fp32 and bf16, held as the dense
    families are; then the reduced jamba served through the engine;
-14. frontends — hubert-xlarge (48 layers) through ``encode_fn`` on 512
+15. frontends — hubert-xlarge (48 layers) through ``encode_fn`` on 512
    frames and llava-next-mistral-7b (32 layers) with 576 patch tokens and
    32 text tokens, then 8 decode steps, in bf16 and fp32, held as the dense
    families are;
-15. moe serving — the reduced mixtral under the duty-cycle controller from
+16. moe serving — the reduced mixtral under the duty-cycle controller from
    a ``zstd+int8`` checkpoint whose 4-D expert stacks are the dequant
    kernel's first 4-D leaves (bit-exact against its plain version), the
    card's memory checked after the release;
-16. sweep — ``core/batch_eval.sweep_batch`` over the full Table-1 strategy
+17. sweep — ``core/batch_eval.sweep_batch`` over the full Table-1 strategy
    grid (both devices × 3 buswidths × 11 clocks × 2 compression × request
    periods 1–1000 ms × 3 idle methods × 16 budgets, 6,336,000 points) on
    the card: every field held bit for bit to the scalar oracle on 2400
@@ -100,7 +115,7 @@ Phases, in order; any failure exits non-zero:
    configuration and strategy Pareto frontiers (~10^5 points) and the
    crossover surface equal to the CPU's; the paper item's crossover
    499.0607 ms;
-17. fleet — ``python -m repro_torch.launch.fleet`` (4096 devices, 10 s
+18. fleet — ``python -m repro_torch.launch.fleet`` (4096 devices, 10 s
    routed, round-robin, the strategy mix, the looped baseline and the N=1
    self-check) as a subprocess; N=1 against ``simulate(mode="step")`` and
    ``simulate_trace``; the CUDA-graph tick loop against the eager one and
@@ -111,7 +126,7 @@ Phases, in order; any failure exits non-zero:
    Poisson and MMPP samplers at 10^5 streams against their moments, and
    their tick bins card against CPU; ticks/s and device-steps/s of both
    loops at both sizes;
-18. optimize — descent at ``launch.optimize``'s defaults (16 starts × 250
+19. optimize — descent at ``launch.optimize``'s defaults (16 starts × 250
    steps) for the minimum configuration energy and the maximum adaptive
    lifetime on both FPGA devices, held to the exhaustive sweeps and to the
    CPU's answers; the clock axis densified to 11, 101, 10,001 and
@@ -121,7 +136,7 @@ Phases, in order; any failure exits non-zero:
    requests, N × 4147 J × 0.05) under both objectives, host seconds, its
    replay through ``run_periodic`` on the card bit for bit and its
    device-steps/s; ``python -m repro_torch.launch.optimize --smoke``;
-19. policy — the learned timeout policy: ``python -m
+20. policy — the learned timeout policy: ``python -m
    repro_torch.launch.policy --smoke --calibrated --policy-out ...`` (``train_policy``
    at ``TrainSettings.smoke()`` on the card, the stationary limit exact,
    the nonstationary wins), its saved policy loaded back (the hard
@@ -138,20 +153,20 @@ Phases, in order; any failure exits non-zero:
    flash launches a prefill counted, the configurations equal to what a
    fresh copy of the policy decides from the gaps and phases the
    controller measured;
-20. obs — an On-Off request pair of full-width qwen3-1.7b from the serving
+21. obs — an On-Off request pair of full-width qwen3-1.7b from the serving
    phase's checkpoint with a ``MetricsRegistry`` on the engine: bring-ups,
    generate calls, tokens, releases and residency held to the
    controller's, the latency histograms' p50 and p99 printed, the dequant
    and flash launches counted; then ``python -m repro_torch.launch.obs`` at
    its defaults (256 devices, 10 s), every conservation self-check within
    1e-9 and its Chrome trace valid;
-21. mc — ``python -m repro_torch.launch.mc`` at its defaults (1024 seeds,
+22. mc — ``python -m repro_torch.launch.mc`` at its defaults (1024 seeds,
    9 devices, 2000 steps): the zero-jitter band exactly 499.0607 ms and
    12.4108×, delta and MC within 10 %; the periodic ensemble at 1024 seeds
    × 4096 devices × 2000 steps (seeds/s, device-steps/s, peak memory), a
    strided slice of its seeds held to the CPU on the same gaps bit for
    bit; a one-seed routed ensemble held to ``run_routed``;
-22. costs — ``python -m repro_torch.launch.costs`` at its defaults (every
+23. costs — ``python -m repro_torch.launch.costs`` at its defaults (every
    zoo model at batches 1 and 8, the 64-device model mix with 64 seeds,
    the golden section: Table 2's item, 499.06 ms and 12.41×) whose
    calibration section times the four kernels at the reference's pinned
@@ -163,7 +178,7 @@ Phases, in order; any failure exits non-zero:
    faster than its bound, each timed beside its device time, its plain
    version and the library call (SDPA, ``nn.LSTM``); the calibration's
    launches go into the ``kernels`` line;
-23. control — the hierarchical control plane, no kernel: ``python -m
+24. control — the hierarchical control plane, no kernel: ``python -m
    repro_torch.launch.control --smoke --ticks 512 --fleet-budget-mj
    50000`` (2 × 2 × 4 devices, 2 faults, the five-policy sweep, the
    planner) on the card and on the CPU, the card's payload equal to the
@@ -179,8 +194,9 @@ Phases, in order; any failure exits non-zero:
    device-ticks/s with the calls' capture, replay and host share; one
    rack of 1,048,576 devices for 512 ticks against one ``run_routed``
    call, every state field and the latency multiset equal, with peaks;
-24. the phases' seconds, the ``kernels`` JSON line, the card line, and the
-   last line ``{"ok": true, "device": {...}}``.
+25. the phases' seconds, the ``kernels`` JSON line (the flash and SSD
+   entries with their ``train_launches`` and gradient checks), the card
+   line, and the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -219,7 +235,8 @@ CKPT_DIR_MAMBA = ROOT / "build" / "chip_smoke_ckpt_mamba2"
 TRAIN_STEPS = 300                           # examples/quickstart.py
 PROCESS_SEED = 5                            # the process-schedule phase's arrivals
 SERVE_MARGIN_S = 0.05                       # its bound on a request's wait once due and free
-TENANT_YI_LAYERS = 4                        # yi-6b's depth as the second full-width tenant
+TENANT_YI_LAYERS = 2                        # yi-6b's depth as the second full-width tenant (two
+                                            # layers keep the script inside its time limit)
 CKPT_DIR_YI = ROOT / "build" / "chip_smoke_ckpt_yi6b"
 DENSE = {"yi-6b": 32, "internlm2-20b": 24, "qwen3-32b": 32}   # arch → depth of the fp32 check
 DENSE_DRAWS = 8                             # token draws (B 2, prompt 32) a dense model
@@ -447,6 +464,8 @@ def flash_phase(card: str) -> dict:
         (2, HUBERT_FRAMES, HUBERT_FRAMES, 16, 16, 80, False, 0, 0, "hubert prefill, D 80 bidirectional"),
         (2, 608, 608, 32, 8, 128, True, 0, 0, "llava prefill, 576 patches + 32 tokens"),
         (2, 32, 32, 64, 8, 128, True, 0, 0, "jamba prefill, GQA group 8"),
+        (TRAIN_CLI_BATCH, TRAIN_CLI_SEQ, TRAIN_CLI_SEQ, 16, 8, 128, True, 0, 0,
+         "training prefill of launch.train's qwen3-1.7b"),
     ]
     new_families = {"qwen3-moe", "mixtral", "window", "hubert", "llava", "jamba"}
     entry, timed = None, {}
@@ -524,6 +543,7 @@ def flash_phase(card: str) -> dict:
             print(line)
     entry["long_prefill"] = timed["long prefill"]
     entry["reduced_prefill"] = timed["reduced qwen3 prefill"]
+    entry["training_prefill"] = timed["training prefill of launch.train's qwen3-1.7b"]
     entry["dense_prefills"] = {label.split()[0]: row for label, row in timed.items()
                                if label.split()[0] in DENSE}
     entry["new_family_prefills"] = {label: row for label, row in timed.items()
@@ -1048,7 +1068,7 @@ def multi_tenant_example(card: str) -> int:
 
 def multi_tenant_full_width(card: str) -> tuple[int, int]:
     """Two full-width tenants on the card: qwen3-1.7b from the serving
-    phase's zstd+int8 checkpoint and yi-6b cut to 4 layers from a checkpoint
+    phase's zstd+int8 checkpoint and yi-6b cut to 2 layers from a checkpoint
     of its own, each with its bf16 weight bytes as its footprint, under a
     budget that holds the larger alone and one that holds both.  The
     example's asserts hold, exactly two bring-ups under the roomy budget;
@@ -1326,6 +1346,8 @@ def ssd_phase(card: str) -> dict:
     row = _ssd_timed("served prefill", 2, 256, 32, 64, 1, 128, 128, card)
     long = _ssd_timed("long prefill", 1, 2048, 32, 64, 1, 128, 128, card)
     jamba = _ssd_timed("jamba prefill", 2, 128, 256, 64, 1, 128, 128, card)
+    train = _ssd_timed("training prefill of launch.train's mamba2-370m", TRAIN_CLI_BATCH, TRAIN_CLI_SEQ,
+                       32, 64, 1, 128, 128, card)
     return {
         "name": "ssd_pallas",
         "route": "cuda",
@@ -1343,6 +1365,7 @@ def ssd_phase(card: str) -> dict:
         "max_abs_err_state": row["max_abs_err_state"],
         "at_long_prefill": long,
         "at_jamba_prefill": jamba,
+        "at_training_prefill": train,
         "per": "launch (prefill: B=2, S=200 padded to 256, H=32, P=64, G=1, N=128, chunk 128, bf16)",
     }
 
@@ -1499,7 +1522,408 @@ def mamba2_serving_phase(card: str) -> tuple[int, int]:
 
 
 # ---------------------------------------------------------------------------
-# Phase 11: the dense families at full width and depth
+# Phase 11: training (launch.train) through the flash and SSD kernels
+# ---------------------------------------------------------------------------
+TRAIN_GRAD_BATCH, TRAIN_GRAD_SEQ = 2, 128   # the full-depth gradient checks
+TRAIN_LOSS_LIMIT, TRAIN_GRAD_LIMIT = 1e-5, 1e-4   # fp32, relative to the loss and each leaf's largest entry
+TRAIN_BF16_LIMIT = 3e-2                     # bf16: _bf16_rule's floor
+TRAIN_BF16_CAP = 0.1                        # bf16: the largest limit float64 still decides (a plain
+                                            # path twice as far from it would pass a wrong kernel)
+TRAIN_CLI_STEPS = {ARCH: 5, MAMBA: 3}       # launch.train at full width, B 8, S 128
+TRAIN_CLI_BATCH, TRAIN_CLI_SEQ = 8, 128
+TRAIN_LM_STEPS = 20                         # the 100M example: one checkpoint, the loop's last (a
+                                            # --ckpt-every above the steps; each write ~12 s of zlib)
+TRAIN_LM_DIR = ROOT / "build" / "chip_smoke_train_lm"
+TRAIN_RESUME_DIR = ROOT / "build" / "chip_smoke_train_resume"
+
+
+def _kernel_ops(cfg):
+    """The wrapper module of the kernel the model's mixer layers run, and
+    the number of those layers."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd import ops as so
+
+    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.num_layers))
+    return (fa, n_attn) if n_attn else (so, cfg.num_layers)
+
+
+def _loss_and_grads(cfg, params, batch, ops, perf=None, plain=False):
+    """The training loss and every leaf's gradient → (loss, {path: grad},
+    launches in the forward, launches in forward and backward)."""
+    import torch
+
+    from repro_torch.configs.perf import BASELINE
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.tree import paths
+
+    leaves = paths(params)
+    for p in leaves.values():
+        p.requires_grad_(True)
+    ops.launches = 0
+    with plain_path() if plain else contextlib.nullcontext():
+        loss = zoo.loss_fn(params, batch, cfg, perf or BASELINE)
+        fwd = ops.launches
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+    for p in leaves.values():
+        p.requires_grad_(False)
+    return loss.detach(), dict(zip(leaves, grads)), fwd, ops.launches
+
+
+def _period_grads(pp, x, d_out, cfg, plain: bool):
+    """One period's output and the gradients of ⟨output, ``d_out``⟩ with
+    respect to its input (``"input"``) and every leaf → {name: tensor}."""
+    import torch
+
+    from repro_torch.configs.perf import BASELINE
+    from repro_torch.models import decoder
+    from repro_torch.tree import paths, unflatten_like
+
+    leaves = {k: t.detach().requires_grad_(True) for k, t in paths(pp).items()}
+    x = x.detach().requires_grad_(True)
+    with plain_path() if plain else contextlib.nullcontext():
+        out, _ = decoder._period_forward(unflatten_like(pp, leaves.values()), x,
+                                         torch.zeros((), device=x.device), cfg, BASELINE)
+        grads = torch.autograd.grad(out, [x, *leaves.values()], d_out)
+    return {"output": out.detach(), **dict(zip(["input", *leaves], grads))}
+
+
+def _layer_check(cfg, p64, p16, batch, ops, name: str, card: str) -> dict:
+    """bf16 gradients a layer at a time.  A float64 run of the plain path
+    gives every period's input and the loss's gradient at its output; each
+    period then runs alone from those, in bf16 through the kernel and on
+    the plain path, and in float64.  Per period, its output and the
+    gradients of its input and of each leaf, each by the norm of a
+    difference over the float64 one's norm (a leaf's largest entry is too
+    few sums to decide: conv_w's lay 5 % from float64 on the plain path):
+    kernel vs plain within max(3e-2, twice the plain path's distance from
+    float64); that limit at most ``TRAIN_BF16_CAP`` (else float64 decides
+    nothing); and the kernel no further from float64 than 1.5 times the
+    plain path, by the norm over the period.  Through many random layers
+    bf16 rounding grows from layer to layer on both paths, so the whole
+    model's bf16 gradient cannot hold a kernel (PERF.md); one period from
+    exact inputs can."""
+    import torch
+
+    from repro_torch.configs.perf import PerfConfig
+    from repro_torch.models import decoder
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.tree import paths
+
+    real, record = decoder._period_forward, []
+
+    def recording(pp, x, aux, *rest):
+        out = real(pp, x, aux, *rest)
+        record.append((x, out[0]))
+        return out
+
+    leaves = list(paths(p64).values())
+    for t in leaves:
+        t.requires_grad_(True)
+    with mock.patch.object(decoder, "_period_forward", recording), plain_path():
+        loss = zoo.loss_fn(p64, batch, cfg, PerfConfig(remat="none"))
+        d_outs = torch.autograd.grad(loss, [out for _, out in record])
+    for t in leaves:
+        t.requires_grad_(False)
+    periods, record = [(x.detach(), out.detach()) for x, out in record], []
+    with mock.patch.object(decoder, "_period_forward", recording), plain_path(), torch.no_grad():
+        zoo.loss_fn(p16, batch, cfg)            # bf16 through the whole depth: its residual's drift
+    drift = [float((out.double() - ref).norm() / ref.norm()) for (_, out), (_, ref) in zip(record, periods)]
+    worst = {"kernel_plain": 0.0, "plain_f64": 0.0, "kernel_f64_norm": 0.0, "plain_f64_norm": 0.0}
+    by_period = []
+    ops.launches = 0
+    for i, ((x, _), d_out) in enumerate(zip(periods, d_outs)):
+        ref = _period_grads(decoder._layer(p64["periods"], i), x, d_out, cfg, plain=True)
+        l16, x16, d16 = decoder._layer(p16["periods"], i), x.to(torch.bfloat16), d_out.to(torch.bfloat16)
+        ker = _period_grads(l16, x16, d16, cfg, plain=False)
+        pla = _period_grads(l16, x16, d16, cfg, plain=True)
+        scale = {k: float(r.norm()) for k, r in ref.items()}
+        e_kp = {k: float((ker[k].double() - pla[k].double()).norm()) / scale[k] for k in ref}
+        e_p = {k: float((pla[k].double() - ref[k]).norm()) / scale[k] for k in ref}
+        norm = math.sqrt(sum(float(r.square().sum()) for r in ref.values()))
+        n_k, n_p = (math.sqrt(sum(float((y[k].double() - ref[k]).square().sum()) for k in ref)) / norm
+                    for y in (ker, pla))
+        for k in ref:
+            bound = max(TRAIN_BF16_LIMIT, 2 * e_p[k])
+            check(bound <= TRAIN_BF16_CAP,
+                  f"{name} layer {i} bf16 {k}: the plain path lies {e_p[k]:.3g} from float64, so float64 "
+                  f"decides no limit up to {TRAIN_BF16_CAP}")
+            check(e_kp[k] <= bound, f"{name} layer {i} bf16 {k}: kernel vs plain {e_kp[k]:.3g}, limit {bound:.3g}")
+        check(n_k <= 1.5 * n_p, f"{name} layer {i} bf16: kernel {n_k:.3g} from float64 by norm, plain {n_p:.3g}")
+        for key, v in (("kernel_plain", max(e_kp.values())), ("plain_f64", max(e_p.values())),
+                       ("kernel_f64_norm", n_k), ("plain_f64_norm", n_p)):
+            worst[key] = max(worst[key], v)
+        by_period.append(n_p)
+    check(ops.launches == len(periods), f"{name} layer check: {ops.launches} launches for {len(periods)} periods")
+    depths = sorted({d for d in (1, 2, 4, 8, 16, 32, len(drift)) if d <= len(drift)})
+    print(f"  {name} bf16 a layer at a time ({len(periods)} periods, each from the float64 run's input and "
+          f"output gradient; its output and the gradients of its input and leaves, each by the norm of its "
+          f"difference over the float64 one's): worst kernel vs plain {worst['kernel_plain']:.3g}, plain from float64 "
+          f"{worst['plain_f64']:.3g} (limit max({TRAIN_BF16_LIMIT}, twice that), at most {TRAIN_BF16_CAP}); "
+          f"by the norm over a period, from float64 kernel {worst['kernel_f64_norm']:.3g}, plain "
+          f"{worst['plain_f64_norm']:.3g} (worst periods; plain by period {[round(v, 4) for v in by_period]}); "
+          f"the bf16 forward's residual through the whole depth, relative distance from float64 after "
+          f"{depths} periods: {[round(drift[d - 1], 4) for d in depths]} [{card}]")
+    return {**worst, "residual_drift": {d: drift[d - 1] for d in depths}}
+
+
+def _grad_check(arch: str, card: str) -> dict:
+    """Full-width, full-depth loss and gradients through the kernel against
+    the plain path on the same weights (drawn in bf16), in fp32 and bf16,
+    each against a float64 run of the plain path (its norms and SSD sums
+    round to fp32 inside, as the model's code does).  fp32: the loss within
+    max(1e-5, twice the plain path's distance from float64) relative, each
+    leaf within max(1e-4, twice that distance) of its largest entry.  bf16:
+    the loss within max(3e-2, twice the plain path's distance); the
+    gradients a layer at a time (``_layer_check``), and through the whole
+    depth where float64 decides them (a limit of max(3e-2, twice the plain
+    path's distance) at most ``TRAIN_BF16_CAP``; then the kernel no further
+    than 1.5 times the plain path from float64).  Every
+    leaf's gradient non-zero and finite; launches exact: one a mixer layer
+    a forward, twice that a step under ``remat="full"``, and the forward's
+    alone under ``remat="none"`` (the backward launches nothing)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.perf import PerfConfig
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.tree import paths, tree_map
+
+    cfg = get_config(arch)
+    ops, layers = _kernel_ops(cfg)
+    name = "flash" if ops.__name__.endswith("flash_attention.ops") else "ssd"
+    p16 = zoo.init_params(cfg, torch.Generator(DEV).manual_seed(11), torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_GRAD_BATCH, TRAIN_GRAD_SEQ), device=DEV,
+                           dtype=torch.int32, generator=torch.Generator(DEV).manual_seed(12))
+    batch = {"tokens": tokens, "labels": tokens}
+    t0 = time.perf_counter()
+    p64 = tree_map(lambda t: t.double(), p16)
+    l64, g64, _, n = _loss_and_grads(cfg, p64, batch, ops, plain=True)
+    check(n == 0, f"{arch}: the plain float64 path launched {n} kernels")
+    report = {"layers": layers, "kernel": name,
+              "bf16_by_layer": _layer_check(cfg, p64, p16, batch, ops, name, card)}
+    del p64
+    scale = {k: float(g.abs().max()) for k, g in g64.items()}
+    for dtype, params in (("fp32", tree_map(lambda t: t.float(), p16)), ("bf16", p16)):
+        lk, gk, fwd, n_step = _loss_and_grads(cfg, params, batch, ops)
+        check(fwd == layers and n_step == 2 * layers,
+              f"{arch} {dtype}: {fwd} {name} launches a forward and {n_step} a step, "
+              f"not {layers} and {2 * layers} (remat full)")
+        lp, gp, _, n = _loss_and_grads(cfg, params, batch, ops, plain=True)
+        check(n == 0, f"{arch} {dtype}: the plain path launched {n} kernels")
+        per_leaf = {}                          # path → (kernel vs plain, kernel vs f64, plain vs f64)
+        dtypes = {k: t.dtype for k, t in paths(params).items()}
+        for k, g in gk.items():
+            check(g.dtype == dtypes[k] and bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0,
+                  f"{arch} {dtype}: gradient of {k} is zero or not finite")
+            per_leaf[k] = (float((g.float() - gp[k].float()).abs().max()) / scale[k],
+                           float((g.double() - g64[k]).abs().max()) / scale[k],
+                           float((gp[k].double() - g64[k]).abs().max()) / scale[k])
+        (e_kp, e_k, e_p), worst = (max(v[i] for v in per_leaf.values()) for i in range(3)), \
+            max(per_leaf, key=lambda k: per_leaf[k][0])
+        # the whole gradient: the norm of the difference over the norm of the float64 one
+        norm64 = math.sqrt(sum(float(g.square().sum()) for g in g64.values()))
+        whole = [math.sqrt(sum(float((x[k].double() - y[k]).square().sum()) for k in g64)) / norm64
+                 for x, y in ((gk, {k: gp[k].double() for k in gp}), (gk, g64), (gp, g64))]
+        loss_kp = abs(float(lk) - float(lp)) / abs(float(l64))
+        loss_p = abs(float(lp) - float(l64)) / abs(float(l64))
+        floor = (TRAIN_LOSS_LIMIT, TRAIN_GRAD_LIMIT) if dtype == "fp32" else (TRAIN_BF16_LIMIT,) * 2
+        b_loss, b_grad = max(floor[0], 2 * loss_p), max(floor[1], 2 * e_p)
+        # bf16 through the whole depth: float64 decides only while the plain
+        # path lies well inside the scale; else the layer check holds it
+        decided = dtype == "fp32" or b_grad <= TRAIN_BF16_CAP
+        print(f"  {arch} {dtype} (full width, {cfg.num_layers} layers, B {TRAIN_GRAD_BATCH}, S {TRAIN_GRAD_SEQ}): "
+              f"loss {float(lk):.6f} kernel vs {float(lp):.6f} plain vs {float(l64):.6f} float64, relative "
+              f"{loss_kp:.3g} (limit {b_loss:.3g}); gradients, worst leaf relative to its largest entry: "
+              f"kernel vs plain {e_kp:.3g} (limit {b_grad:.3g}; {worst}), from float64 kernel {e_k:.3g}, "
+              f"plain {e_p:.3g}; the whole gradient's relative norm: kernel vs plain {whole[0]:.3g}, from "
+              f"float64 kernel {whole[1]:.3g}, plain {whole[2]:.3g}; {name} launches {fwd} a forward, "
+              f"{n_step} a step; all {len(gk)} leaves non-zero [{card}]")
+        check(loss_kp <= b_loss, f"{arch} {dtype}: loss kernel vs plain {loss_kp:.3g}, limit {b_loss:.3g}")
+        if decided:
+            check(e_kp <= b_grad, f"{arch} {dtype}: gradients kernel vs plain {e_kp:.3g}, limit {b_grad:.3g}")
+        if dtype == "bf16" and decided:
+            check(e_k <= 1.5 * e_p, f"{arch} bf16: kernel {e_k:.3g} from float64, plain {e_p:.3g}")
+        if not decided:
+            print(f"  {arch} bf16: the plain path lies {e_p:.3g} of a leaf's largest entry from float64 "
+                  f"through {cfg.num_layers} layers, so float64 does not decide the whole gradient (a limit "
+                  f"of {b_grad:.3g} is above {TRAIN_BF16_CAP}); the layer check above holds it")
+        report[dtype] = {"loss_rel": loss_kp, "grad_rel": e_kp, "kernel_f64": e_k, "plain_f64": e_p,
+                         "worst_leaf": worst, "norm_rel": whole[0], "decided": decided}
+        del gk, gp
+    _, _, fwd, n_step = _loss_and_grads(cfg, p16, batch, ops, PerfConfig(remat="none"))
+    check(fwd == n_step == layers, f"{arch}: remat none launched {fwd} a forward, {n_step} a step")
+    print(f"  {arch}: remat none, {fwd} {name} launches a forward and {n_step} a step (none in the "
+          f"backward); the checks took {time.perf_counter() - t0:.1f} s")
+    del g64, p16
+    _empty_cache()
+    return report
+
+
+def _train_cli(arch: str, card: str) -> tuple[int, int]:
+    """``python -m repro_torch.launch.train --arch <arch>`` at full width,
+    in this process so its launches are counted → (flash, SSD) launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd import ops as so
+    from repro_torch.launch import train as train_mod
+
+    steps = TRAIN_CLI_STEPS[arch]
+    argv = ["--arch", arch, "--steps", str(steps), "--batch", str(TRAIN_CLI_BATCH), "--seq", str(TRAIN_CLI_SEQ),
+            "--device", DEV]
+    ops, layers = _kernel_ops(get_config(arch))
+    fa.launches = so.launches = 0
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = train_mod.main(argv)
+    print("\n".join(f"  {line}" for line in buf.getvalue().strip().splitlines()))
+    n_fa, n_ssd = fa.launches, so.launches
+    print(f"  python -m repro_torch.launch.train {' '.join(argv)}: {time.perf_counter() - t0:.1f} s "
+          f"with set-up; step s {[round(s, 4) for s in out['step_s']]}; flash launches {n_fa}, "
+          f"SSD launches {n_ssd} [{card}]")
+    check(all(math.isfinite(v) for v in out["losses"]) and len(out["losses"]) == steps,
+          f"launch.train {arch}: losses {out['losses']}")
+    check(ops.launches == 2 * layers * steps and (n_fa == 0 or n_ssd == 0),
+          f"launch.train {arch}: {ops.launches} launches, not {2 * layers} a step × {steps}")
+    del out
+    _empty_cache()
+    return n_fa, n_ssd
+
+
+def _train_step_split(arch: str, card: str) -> dict:
+    """One training step of ``launch.train``'s setting (bf16 weights, fp32
+    moments, B 8, S 128, remat full) split into the loss's forward, the
+    backward and the AdamW update, each between two synchronizations, after
+    a warm-up step; with the peak memory of the step."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMStream, batch_for_arch, shard_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.optim.adamw import adamw
+    from repro_torch.tree import paths
+
+    cfg = get_config(arch)
+    params = zoo.init_params(cfg, torch.Generator(DEV).manual_seed(0))
+    opt = adamw()
+    state = opt.init(params)
+    leaves = paths(params)
+    for p in leaves.values():
+        p.requires_grad_(True)
+    stream = SyntheticLMStream(cfg.vocab_size, TRAIN_CLI_BATCH, TRAIN_CLI_SEQ)
+    split = {}
+    for rep in range(2):                       # a warm-up step, then the timed one
+        batch = shard_batch(batch_for_arch(cfg, stream.next_batch()), make_host_mesh(DEV))
+        _sync()
+        _reset_peak()
+        marks = [time.perf_counter()]
+        loss = zoo.loss_fn(params, batch, cfg)
+        _sync()
+        marks.append(time.perf_counter())
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        _sync()
+        marks.append(time.perf_counter())
+        _, state, _ = opt.update(dict(zip(leaves, [g.float() for g in grads])), state, params, 3e-4)
+        _sync()
+        marks.append(time.perf_counter())
+        split = dict(zip(("forward", "backward", "update"), (b - a for a, b in zip(marks, marks[1:]))))
+        del grads, loss
+    peak = _peak() / 1e9 if DEV == "cuda" else float("nan")
+    print(f"  {arch} one step split (bf16 weights, fp32 moments, B {TRAIN_CLI_BATCH}, S {TRAIN_CLI_SEQ}, "
+          f"remat full): forward {split['forward']:.4f} s, backward (with the recomputed forward) "
+          f"{split['backward']:.4f} s, AdamW {split['update']:.4f} s; peak memory {peak:.2f} GB [{card}]")
+    del params, state, leaves
+    _empty_cache()
+    return split
+
+
+def _train_lm_example(card: str) -> int:
+    """The 100M example (``examples/train_lm.py``'s twin), with its
+    checkpoints → flash launches."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import base as cfg_base
+    from repro_torch.examples import train_lm
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.tree import paths
+
+    shutil.rmtree(TRAIN_LM_DIR, ignore_errors=True)
+    registry = dict(cfg_base._REGISTRY), dict(cfg_base._REDUCED)
+    fa.launches = 0
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = train_lm.main(["--steps", str(TRAIN_LM_STEPS), "--ckpt-every", str(TRAIN_LM_STEPS + 1),
+                             "--ckpt-dir", str(TRAIN_LM_DIR), "--device", DEV])
+    cfg_base._REGISTRY, cfg_base._REDUCED = registry
+    n = fa.launches
+    print("\n".join(f"  {line}" for line in buf.getvalue().strip().splitlines()))
+    manager = CheckpointManager(str(TRAIN_LM_DIR))
+    step, restored = manager.restore_latest(out["state"], device=DEV)
+    same = all(bool((a == paths(restored.params)[k]).all()) for k, a in paths(out["state"].params).items())
+    print(f"  train_lm: {TRAIN_LM_STEPS} steps in {time.perf_counter() - t0:.1f} s with its checkpoints "
+          f"(steps {manager.steps()}), step s after the first {sum(out['step_s'][1:]) / (TRAIN_LM_STEPS - 1):.4f}; "
+          f"flash launches {n}; the newest checkpoint restores the final state exactly: {same} [{card}]")
+    check(all(math.isfinite(v) for v in out["losses"]), f"train_lm losses {out['losses']}")
+    check(n == TRAIN_LM_STEPS * 2 * 8 * 2, f"train_lm: {n} flash launches, not 32 a step")
+    check(manager.steps() == [TRAIN_LM_STEPS] and step == TRAIN_LM_STEPS and same,
+          f"train_lm checkpoints {manager.steps()}, restored step {step}, equal {same}")
+    shutil.rmtree(TRAIN_LM_DIR, ignore_errors=True)
+    return n
+
+
+def _train_resume(card: str) -> int:
+    """The reduced qwen3, 3 steps and a restart to 6, against 6 steps
+    uninterrupted: the final loss within rel 1e-4
+    (tests/test_fault_tolerance.py:197-217) → flash launches."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch import train as train_mod
+
+    shutil.rmtree(TRAIN_RESUME_DIR, ignore_errors=True)
+    kw = dict(steps=6, batch=2, seq=32, ckpt_every=3, log_every=100, device=DEV)
+    fa.launches = 0
+    with contextlib.redirect_stdout(io.StringIO()):
+        full = train_mod.train(ARCH, ckpt_dir=str(TRAIN_RESUME_DIR / "a"), **kw)
+        train_mod.train(ARCH, ckpt_dir=str(TRAIN_RESUME_DIR / "b"), **{**kw, "steps": 3})
+        resumed = train_mod.train(ARCH, ckpt_dir=str(TRAIN_RESUME_DIR / "b"), **kw)
+    n = fa.launches
+    rel = abs(resumed["final_loss"] - full["final_loss"]) / abs(full["final_loss"])
+    print(f"  resume ({ARCH} reduced, 3 steps + restart to 6 against 6): final loss {resumed['final_loss']:.6f} "
+          f"against {full['final_loss']:.6f}, relative {rel:.3g} (limit 1e-4); losses after the restart "
+          f"{[round(v, 6) for v in resumed['losses']]} against {[round(v, 6) for v in full['losses'][3:]]}; "
+          f"flash launches {n} [{card}]")
+    check(len(resumed["losses"]) == 3 and rel <= 1e-4, f"resume: final loss relative {rel:.3g}")
+    check(n == 2 * 2 * (6 + 3 + 3), f"resume: {n} flash launches, not 4 a step over 12 steps")
+    shutil.rmtree(TRAIN_RESUME_DIR, ignore_errors=True)
+    return n
+
+
+def _empty_cache() -> None:
+    import torch
+
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+
+
+def train_phase(card: str) -> tuple[int, int, dict]:
+    """Gradient checks at full width through both kernels, ``launch.train``
+    at full width on qwen3-1.7b and mamba2-370m, the 100M example and the
+    resume check → (flash, SSD launches of the training runs, the gradient
+    checks' report).  On ``DEV``: a CPU rehearsal sets ``DEV = "cpu"`` and
+    routes the wrappers' card path to counting plain stand-ins."""
+    report = {arch: _grad_check(arch, card) for arch in (ARCH, MAMBA)}
+    n_fa, n_ssd = 0, 0
+    for arch in (ARCH, MAMBA):
+        a, b = _train_cli(arch, card)
+        n_fa, n_ssd = n_fa + a, n_ssd + b
+        report[arch]["step_split_s"] = _train_step_split(arch, card)
+    n_fa += _train_lm_example(card)
+    n_fa += _train_resume(card)
+    return n_fa, n_ssd, report
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the dense families at full width and depth
 # ---------------------------------------------------------------------------
 @contextlib.contextmanager
 def plain_path():
@@ -1917,7 +2341,7 @@ def dense_phase(card: str) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Phase 12: the MoE families at full width
+# Phase 13: the MoE families at full width
 # ---------------------------------------------------------------------------
 def _generate(cfg, params, batch, max_len, label, card, n_new=8) -> tuple:
     """``ServingEngine.generate`` (prefill, then ``n_new`` greedy decode
@@ -2076,7 +2500,7 @@ def moe_phase(card: str) -> tuple[int, dict]:
 
 
 # ---------------------------------------------------------------------------
-# Phase 13: jamba, streamed a layer at a time
+# Phase 14: jamba, streamed a layer at a time
 # ---------------------------------------------------------------------------
 def _draw_block(cfg, pos: int, gen, dtype, label: str) -> dict:
     """The parameters of the block at position ``pos``, drawn on the card."""
@@ -2142,7 +2566,7 @@ def jamba_phase(card: str) -> tuple[int, int]:
 
 
 # ---------------------------------------------------------------------------
-# Phase 14: the frontends: hubert (encoder) and llava (vision)
+# Phase 15: the frontends: hubert (encoder) and llava (vision)
 # ---------------------------------------------------------------------------
 def frontends_phase(card: str) -> int:
     """hubert-xlarge at full depth (48 layers) through ``encode_fn``, B 2 ×
@@ -2189,7 +2613,7 @@ def frontends_phase(card: str) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Phase 15: the MoE main path under the duty-cycle controller
+# Phase 16: the MoE main path under the duty-cycle controller
 # ---------------------------------------------------------------------------
 def moe_serving_phase(card: str) -> tuple[int, int, dict]:
     """The reduced mixtral-8x7b through ``build_demo`` under On-Off:
@@ -2257,7 +2681,7 @@ def moe_serving_phase(card: str) -> tuple[int, int, dict]:
 
 
 # ---------------------------------------------------------------------------
-# Phase 16: sweep (the vectorized closed forms and Pareto frontiers)
+# Phase 17: sweep (the vectorized closed forms and Pareto frontiers)
 # ---------------------------------------------------------------------------
 DEV = "cuda"                                # the device of the sweep and fleet phases
 
@@ -2427,7 +2851,7 @@ def sweep_phase(card: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phase 17: fleet (periodic and routed tick loops, CUDA graphs)
+# Phase 18: fleet (periodic and routed tick loops, CUDA graphs)
 # ---------------------------------------------------------------------------
 FLEET_N = 4096                              # launch/fleet.py's default fleet
 FLEET_BIG = 1 << 20                         # 1,048,576 devices
@@ -3614,6 +4038,15 @@ def main() -> None:
         dq_entry["launches"] += n_dq_mamba
         ssd_entry["launches"] = n_ssd
         check(n_dq_mamba > 0 and n_ssd > 0, "a kernel of the mamba2 path was never launched")
+
+    with timed_phase("train", seconds):
+        n_fa, n_ssd, train_report = train_phase(card)
+        fa_entry["launches"] += n_fa
+        ssd_entry["launches"] += n_ssd
+        fa_entry["train_launches"], ssd_entry["train_launches"] = n_fa, n_ssd
+        fa_entry["train_gradients"] = train_report[ARCH]
+        ssd_entry["train_gradients"] = train_report[MAMBA]
+        check(n_fa > 0 and n_ssd > 0, "a kernel of the training path was never launched")
 
     with timed_phase("dense families", seconds):
         n_fa = dense_phase(card)

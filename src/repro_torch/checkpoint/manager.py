@@ -1,17 +1,24 @@
-"""Checkpoint manager: atomic rotation, restore of the newest complete step
-(port of ``repro.checkpoint.manager.CheckpointManager``).
+"""Checkpoint manager: atomic rotation, async writes, restore of the newest
+complete step (port of ``repro.checkpoint.manager``).
 
   * saves are atomic (tmp + rename) — a crash mid-write never corrupts the
     latest checkpoint;
   * ``restore_latest`` ignores partial files, so restart-after-failure
-    always finds the newest complete step.
+    always finds the newest complete step; given a ``TrainState`` as its
+    target it returns one;
+  * ``AsyncCheckpointer`` copies the state to the host synchronously and
+    serializes and writes it on a thread.
 """
 from __future__ import annotations
 
 import os
 import re
+import threading
 from typing import Any, Optional
 
+import torch
+
+from repro_torch import tree as trees
 from repro_torch.checkpoint import serializer
 
 _CKPT_RE = re.compile(r"^step_(\d+)\.ckpt$")
@@ -69,3 +76,44 @@ class CheckpointManager:
                 os.remove(self._path(s))
             except OSError:
                 pass
+
+
+def _host_copy(tree: Any) -> Any:
+    """A snapshot of ``tree`` on the host: every tensor copied (``.cpu()``
+    alone would alias a CPU tensor that the next step updates in place)."""
+    return trees.tree_map(
+        lambda t: t.detach().to("cpu", copy=True) if isinstance(t, torch.Tensor) else t, tree)
+
+
+class AsyncCheckpointer:
+    """Snapshot to the host synchronously, serialize and write on a
+    background thread — the train loop does not wait for the disk."""
+
+    def __init__(self, manager: CheckpointManager):
+        self.manager = manager
+        self._thread: Optional[threading.Thread] = None
+        self.last_error: Optional[BaseException] = None
+
+    def save(self, step: int, state: Any) -> None:
+        """Wait for the previous write (re-raising its error), copy
+        ``state`` to the host, and write it as step ``step`` on a thread."""
+        self.wait()
+        host_state = _host_copy(state)
+
+        def _write():
+            try:
+                self.manager.save(step, host_state)
+            except Exception as e:  # noqa: BLE001 — surfaced by wait()
+                self.last_error = e
+
+        self._thread = threading.Thread(target=_write, daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        """Join the write in flight; re-raise the error of a failed one."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self.last_error is not None:
+            err, self.last_error = self.last_error, None
+            raise err

@@ -31,6 +31,7 @@ from typing import Any
 
 import torch
 
+from repro_torch import tree as trees
 from repro_torch.checkpoint import _msgpack
 from repro_torch.device import resolve_device
 from repro_torch.kernels.dequant import ops as dq
@@ -68,28 +69,16 @@ def _decompress(codec: str, data: bytes) -> bytes:
 
 
 def flatten(tree: Any, prefix: str = "") -> list[tuple[str, Any]]:
-    """(path, leaf) pairs of a nested dict, in the order ``jax.tree_util``
-    flattens the same tree: keys sorted, paths joined by ``/``."""
-    if not isinstance(tree, dict):
-        return [(prefix, tree)]
-    out = []
-    for key in sorted(tree):
-        out.extend(flatten(tree[key], f"{prefix}/{key}" if prefix else str(key)))
-    return out
+    """(path, leaf) pairs of a tree (``repro_torch.tree``), in the order
+    ``jax.tree_util`` flattens the same tree: keys sorted, paths joined by
+    ``/``, NamedTuples by field name in field order."""
+    return list(trees.paths(tree, prefix, sort=True).items())
 
 
 def unflatten_like(tree: Any, leaves: list) -> Any:
-    """Rebuild ``tree``'s structure with ``leaves`` in :func:`flatten` order."""
-    return _rebuild(tree, iter(leaves))
-
-
-def _rebuild(node: Any, leaves) -> Any:
-    # module-level recursion: a recursive closure would form a reference
-    # cycle that keeps every restored tensor alive until the next garbage
-    # collection, so release() would not free the card's memory
-    if isinstance(node, dict):
-        return {k: _rebuild(node[k], leaves) for k in sorted(node)}
-    return next(leaves)
+    """Rebuild ``tree``'s structure with ``leaves`` in :func:`flatten` order
+    (dicts come back with their keys sorted)."""
+    return trees.unflatten_like(tree, leaves, sort=True)
 
 
 def _should_quantize(t: torch.Tensor) -> bool:
@@ -178,7 +167,8 @@ def deserialize(data: bytes, target: Any = None, device="cuda") -> Any:
     ``target`` (a tree of tensors, e.g. meta tensors from
     ``model_zoo.param_shapes``) is given, leaves are restored into its
     structure and cast to its dtypes; else a flat {path: tensor} dict is
-    returned."""
+    returned.  A Python number in ``target`` (a step counter) comes back
+    as a number of its type."""
     device = resolve_device(device)
     payload = _msgpack.unpackb(data)
     mode = payload["mode"]
@@ -208,5 +198,8 @@ def deserialize(data: bytes, target: Any = None, device="cuda") -> Any:
         if key not in by_path:
             raise KeyError(f"checkpoint missing leaf {key!r}")
         t = by_path.pop(key)
-        out.append(t if t.dtype == leaf.dtype else t.to(leaf.dtype))
+        if isinstance(leaf, (bool, int, float)):
+            out.append(type(leaf)(t.item()))
+        else:
+            out.append(t if t.dtype == leaf.dtype else t.to(leaf.dtype))
     return unflatten_like(target, out)

@@ -1,6 +1,15 @@
 """Public attention op: the flash kernel for CUDA tensors, the plain
 version for CPU tensors (port of ``repro.kernels.flash_attention.ops``).
 
+When grad is enabled and an input requires it, the op on the card is a
+``torch.autograd.Function``: its forward launches the kernel, so the values
+the loss sees are the kernel's; its backward recomputes the plain version
+(``ref.attention_reference``) from the saved q, k, v and returns
+``torch.autograd.grad`` of it, with no launch.  That is the JAX package's
+own gradient off the TPU (XLA's autodiff of its plain path; the Pallas
+kernel has no ``custom_vjp``), written in PyTorch, as ``kernels/lstm/ops.py``
+does for the LSTM.
+
 Decode over a ring-buffer cache (``kv_positions``) is not this op's job:
 as in the reference, it goes through the plain version
 (``models/attention.py::attention_decode``)."""
@@ -31,6 +40,14 @@ def attention(
     q (B,Sq,H,D), k/v (B,Sk,KVH,D) → (B,Sq,H,D) in q.dtype."""
     if q.is_cpu:
         return attention_reference(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    return _card(q, k, v, causal, window, q_offset)
+
+
+def _card(q, k, v, causal, window, q_offset):
+    """The card's path: the autograd Function where a gradient is wanted,
+    else the kernel alone."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashFunction.apply(q, k, v, causal, window, q_offset)
     return flash_attention_cuda(q, k, v, causal=causal, window=window, q_offset=q_offset)
 
 
@@ -94,6 +111,28 @@ def flash_attention_cuda(
     _lib.check(err, "flash_attention")
     launches += 1
     return out
+
+
+class _FlashFunction(torch.autograd.Function):
+    """Forward: the kernel.  Backward: autograd of the plain version,
+    recomputed from the saved inputs (no launch)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = causal, window, q_offset
+        return flash_attention_cuda(q, k, v, causal=causal, window=window, q_offset=q_offset)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        causal, window, q_offset = ctx.mask
+        wanted = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(w) for t, w in zip(ctx.saved_tensors, wanted)]
+            out = attention_reference(*inputs, causal=causal, window=window, q_offset=q_offset)
+            found = iter(torch.autograd.grad(
+                out, [t for t, w in zip(inputs, wanted) if w], d_out))
+        return (*(next(found) if w else None for w in wanted), None, None, None)
 
 
 __all__ = ["attention", "flash_attention_cuda"]

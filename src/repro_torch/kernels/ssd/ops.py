@@ -1,6 +1,13 @@
 """Public SSD op: the CUDA kernel for CUDA tensors, the plain chunked
 version for CPU tensors (port of ``repro.kernels.ssd.ops``).
 
+When grad is enabled and an input requires it, the op on the card is a
+``torch.autograd.Function``: its forward launches the kernels, so y and the
+final state are the kernels'; its backward recomputes the plain chunked
+form (``ref.ssd_chunked``, what the JAX package differentiates off the
+TPU) from the saved inputs under autograd and returns the gradients of x,
+dt, a, B, C, D and ``init_state``, with no launch.
+
 Decode is not this op's job: as in the reference, one token's state
 update goes through the plain ``ssd_decode_step`` (exported here)."""
 from __future__ import annotations
@@ -40,7 +47,40 @@ def ssd(
     """Chunked state-space-duality scan.  x (B,S,H,P) → (y, final_state)."""
     if x.device.type == "cpu":
         return ssd_chunked(x, dt, a, b_mat, c_mat, d_vec, chunk=chunk, init_state=init_state)
+    return _card(x, dt, a, b_mat, c_mat, d_vec, chunk=chunk, init_state=init_state)
+
+
+def _card(x, dt, a, b_mat, c_mat, d_vec, *, chunk, init_state):
+    """The card's path: the autograd Function where a gradient is wanted,
+    else the kernels alone."""
+    inputs = (x, dt, a, b_mat, c_mat, d_vec, init_state)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
+        return _SsdFunction.apply(*inputs, chunk)
     return ssd_cuda(x, dt, a, b_mat, c_mat, d_vec, chunk=chunk, init_state=init_state)
+
+
+class _SsdFunction(torch.autograd.Function):
+    """Forward: the kernels.  Backward: autograd of ``ssd_chunked``,
+    recomputed from the saved inputs (no launch)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b_mat, c_mat, d_vec, init_state, chunk):
+        ctx.save_for_backward(x, dt, a, b_mat, c_mat, d_vec, init_state)
+        ctx.chunk = chunk
+        return ssd_cuda(x, dt, a, b_mat, c_mat, d_vec, chunk=chunk, init_state=init_state)
+
+    @staticmethod
+    def backward(ctx, d_y, d_state):
+        saved = ctx.saved_tensors
+        wanted = [t is not None and need for t, need in zip(saved, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(w) if t is not None else None
+                      for t, w in zip(saved, wanted)]
+            y, state = ssd_chunked(*inputs[:6], chunk=ctx.chunk, init_state=inputs[6])
+            found = iter(torch.autograd.grad(
+                (y, state), [t for t, w in zip(inputs, wanted) if w], (d_y, d_state),
+                allow_unused=True))
+        return (*(next(found) if w else None for w in wanted), None)
 
 
 @functools.lru_cache(maxsize=64)

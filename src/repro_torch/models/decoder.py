@@ -1,5 +1,5 @@
-"""Decoder-LM assembly: specs → forward / prefill / decode (port of
-``repro.models.decoder``, without the training loss).
+"""Decoder-LM assembly: specs → forward → loss / prefill / decode (port of
+``repro.models.decoder``).
 
 Deep stacks are *periods*: ``cfg.attn_every`` layers for a hybrid, else one
 layer, with per-period parameters stacked on a leading axis
@@ -13,19 +13,31 @@ the MoE block where ``cfg.layer_is_moe``, else the dense MLP.
 The same module serves the encoder-only family (hubert): ``causal=False``,
 frame features in place of tokens, and :func:`forward_hidden` with no
 decode entry points.
+
+Training (:func:`lm_loss`) rematerializes each period as the reference's
+``jax.checkpoint`` does, by ``perf.remat``: ``full`` keeps only the
+period's input (``torch.utils.checkpoint``, non-reentrant), ``dots`` also
+keeps the outputs of the unbatched matmuls (a selective-checkpoint policy,
+the counterpart of ``checkpoint_dots_with_no_batch_dims``), ``none`` keeps
+everything.  A rematerialized period runs its forward again in the
+backward pass, kernels included.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.perf import BASELINE, PerfConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import Spec, rms_norm, stack_specs
+from repro_torch.tree import paths
 
 
 # ---------------------------------------------------------------------------
@@ -141,14 +153,15 @@ def _ffn_residual(bp: dict, x: torch.Tensor, cfg: ArchConfig, pos: int):
     return x + mlp_mod.mlp_block(bp["mlp"], h, cfg), None
 
 
-def forward_block(bp: dict, x: torch.Tensor, cfg: ArchConfig, pos: int):
+def forward_block(bp: dict, x: torch.Tensor, cfg: ArchConfig, pos: int,
+                  perf: PerfConfig = BASELINE):
     """The block at position ``pos`` over a full sequence, with no cache
     → (x, MoE aux loss or None)."""
     h = rms_norm(x, bp["ln1"], cfg.norm_eps)
     if cfg.layer_kind(pos) == "attn":
         mix = attn.attention_block(bp["attn"], h, cfg)
     else:
-        mix = m2.mamba2_block(bp["ssm"], h, cfg)
+        mix = m2.mamba2_block(bp["ssm"], h, cfg, chunk=perf.ssd_chunk)
     return _ffn_residual(bp, x + mix, cfg, pos)
 
 
@@ -176,16 +189,88 @@ def decode_block(bp: dict, x: torch.Tensor, cache, cfg: ArchConfig, pos: int):
 
 
 # ---------------------------------------------------------------------------
-# Forward (full sequence)
+# Forward (full sequence) and loss
 # ---------------------------------------------------------------------------
-def forward_hidden(params: dict, x: torch.Tensor, cfg: ArchConfig) -> tuple[torch.Tensor, torch.Tensor]:
-    """Embedding-space input → final hidden states (+ summed aux loss)."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for pos, bp in blocks(params, cfg):
-        x, a = forward_block(bp, x, cfg, pos)
+def _period_forward(pp: dict, x: torch.Tensor, aux: torch.Tensor, cfg: ArchConfig,
+                    perf: PerfConfig):
+    """One period's positions in order → (x, aux)."""
+    for i in range(period_len(cfg)):
+        x, a = forward_block(pp[f"pos{i}"], x, cfg, i, perf)
         if a is not None:
             aux = aux + a
+    return x, aux
+
+
+_UNBATCHED_MATMULS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """``dots``: keep the unbatched matmuls' outputs, recompute the rest."""
+    if op in _UNBATCHED_MATMULS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _rematerialized(remat: str):
+    """``_period_forward`` under the ``remat`` policy."""
+    if remat == "none":
+        return _period_forward
+    extra = {}
+    if remat == "dots":
+        extra["context_fn"] = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                                _save_matmuls)
+    return functools.partial(ckpt.checkpoint, _period_forward, use_reentrant=False, **extra)
+
+
+def _needs_grad(params: dict, x: torch.Tensor) -> bool:
+    if not torch.is_grad_enabled():
+        return False
+    return x.requires_grad or any(t.requires_grad for t in paths(params["periods"]).values())
+
+
+def forward_hidden(params: dict, x: torch.Tensor, cfg: ArchConfig,
+                   perf: PerfConfig = BASELINE) -> tuple[torch.Tensor, torch.Tensor]:
+    """Embedding-space input → final hidden states (+ summed aux loss).
+    Under autograd each period is rematerialized by ``perf.remat``."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    run = _rematerialized(perf.remat) if _needs_grad(params, x) else _period_forward
+    for p in range(num_periods(cfg)):
+        x, aux = run(_layer(params["periods"], p), x, aux, cfg, perf)
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+
+
+def lm_loss(
+    params: dict,
+    batch: dict,
+    cfg: ArchConfig,
+    perf: PerfConfig = BASELINE,
+    aux_weight: float = 0.01,
+) -> torch.Tensor:
+    """Mean next-token (or frame-label) CE, chunked over the sequence by
+    ``perf.loss_chunk`` so the full (B, S, V) logits are never formed at
+    once; labels of −1 are masked; plus ``aux_weight`` × the MoE aux loss."""
+    x = embed_inputs(params, batch, cfg)
+    hidden, aux = forward_hidden(params, x, cfg, perf)
+    labels = batch["labels"].long()
+    if cfg.causal:
+        # next-token prediction: shift left
+        hidden = hidden[:, :-1]
+        labels = labels[:, 1:]
+    head = _lm_head(params)
+    s = hidden.shape[1]
+    chunk = min(perf.loss_chunk, s)
+    nll = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    count = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for start in range(0, s, chunk):
+        hc, lc = hidden[:, start:start + chunk], labels[:, start:start + chunk]
+        logits = (hc @ head).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, lc.clamp(min=0)[..., None])[..., 0]
+        mask = (lc != -1).float()
+        nll = nll + torch.sum((lse - ll) * mask)
+        count = count + torch.sum(mask)
+    loss = nll / torch.clamp(count, min=1.0)
+    return loss + aux_weight * aux
 
 
 # ---------------------------------------------------------------------------
@@ -193,6 +278,24 @@ def forward_hidden(params: dict, x: torch.Tensor, cfg: ArchConfig) -> tuple[torc
 # ---------------------------------------------------------------------------
 class DecodeState(NamedTuple):
     caches: list           # per period: {"pos{i}": KVCache or SSMCache}
+
+
+def init_decode_state(
+    cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16, device="cuda"
+) -> DecodeState:
+    """Empty caches for every period on ``device`` (the card by default;
+    raises without one unless ``device="cpu"``), each its own tensors since
+    decode writes them in place."""
+    caches = []
+    for _ in range(num_periods(cfg)):
+        period = {}
+        for i in range(period_len(cfg)):
+            if cfg.layer_kind(i) == "attn":
+                period[f"pos{i}"] = attn.init_cache(cfg, batch, max_len, dtype, device)
+            else:
+                period[f"pos{i}"] = m2.init_ssm_cache(cfg, batch, dtype, device)
+        caches.append(period)
+    return DecodeState(caches=caches)
 
 
 def prefill(

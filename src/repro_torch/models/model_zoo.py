@@ -1,6 +1,6 @@
-"""Model zoo: config → specs / params / inputs / serving steps (port of
-``repro.models.model_zoo``, without the training loss and the dry run's
-abstract input specs).
+"""Model zoo: config → specs / params / inputs / loss / serving steps
+(port of ``repro.models.model_zoo``, without the dry run's abstract input
+specs).
 
 The parameter tree keeps the reference's pytree paths and stacked shapes
 (``periods/pos0/attn/wq`` of shape (L, d, q), ...), so a weight carried
@@ -14,9 +14,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.perf import BASELINE, PerfConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import logical_to_pspec
 from repro_torch.models import decoder
-from repro_torch.models.common import init_from_specs, shapes_from_specs
+from repro_torch.models.common import init_from_specs, map_specs, shapes_from_specs
 
 
 def specs(cfg: ArchConfig) -> dict:
@@ -33,6 +35,12 @@ def init_params(
 def param_shapes(cfg: ArchConfig, dtype=torch.bfloat16) -> dict:
     """Meta tensors of every parameter's shape and dtype."""
     return shapes_from_specs(specs(cfg), dtype)
+
+
+def param_pspecs(cfg: ArchConfig, mesh=None) -> dict:
+    """Every parameter's PartitionSpec under the rule table (all empty on a
+    1×1 mesh or with none)."""
+    return map_specs(lambda s: logical_to_pspec(s.axes, mesh=mesh, shape=s.shape), specs(cfg))
 
 
 def params_from_numpy(tree: Any, device="cuda", dtype=None) -> Any:
@@ -74,6 +82,13 @@ def make_batch(
     if cfg.frontend == "vision":
         out["patch_embeds"] = normal(batch, cfg.frontend_tokens, cfg.frontend_dim)
     return out
+
+
+def loss_fn(
+    params: dict, batch: dict, cfg: ArchConfig, perf: PerfConfig = BASELINE
+) -> torch.Tensor:
+    """The training loss (:func:`decoder.lm_loss`)."""
+    return decoder.lm_loss(params, batch, cfg, perf)
 
 
 def prefill_fn(

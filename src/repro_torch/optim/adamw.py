@@ -1,5 +1,11 @@
-"""AdamW as plain functions on dicts of tensors (port of
+"""AdamW as plain functions on trees of tensors (port of
 ``repro.optim.adamw``).
+
+A tree is a dict of tensors or a nested dict of them (a model's parameter
+tree).  The moments mirror the parameters' tree; ``update`` walks every
+tree as the checkpoint's path keys (``periods/pos0/attn/wq``, …;
+``repro_torch.tree``) in the dicts' own order, so ``grads`` may be nested
+like the parameters or a flat dict keyed by those paths.
 
 This is the reference's optimizer, not ``torch.optim.AdamW``; they differ
 in the defaults (``b2 = 0.95``), in ``eps`` being added after
@@ -22,15 +28,17 @@ training passes a Python float and stays in fp32.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
+
+from repro_torch.tree import paths, tree_map
 
 
 class AdamWState(NamedTuple):
     step: int           # updates taken so far
-    m: dict             # first moments, keyed like params
-    v: dict             # second moments, keyed like params
+    m: dict             # first moments, a tree like params
+    v: dict             # second moments, a tree like params
 
 
 class AdamW(NamedTuple):
@@ -47,16 +55,16 @@ def _sqrt32(x: torch.Tensor) -> torch.Tensor:
 
 def global_norm(tree: dict) -> torch.Tensor:
     """fp32 L2 norm over every tensor of ``tree`` (a 0-d tensor)."""
-    leaves = [torch.sum(torch.square(g.float())) for g in tree.values()]
+    leaves = [torch.sum(torch.square(g.float())) for g in paths(tree).values()]
     return _sqrt32(torch.sum(torch.stack(leaves)))
 
 
 def clip_by_global_norm(tree: dict, max_norm: float) -> tuple[dict, torch.Tensor]:
     """``tree`` scaled so its global norm is at most ``max_norm`` (new
-    tensors), and the norm before clipping."""
+    tensors, same structure), and the norm before clipping."""
     norm = global_norm(tree)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
-    return {k: (g.float() * scale).to(g.dtype) for k, g in tree.items()}, norm
+    return tree_map(lambda g: (g.float() * scale).to(g.dtype), tree), norm
 
 
 def adamw(
@@ -73,11 +81,7 @@ def adamw(
 
     def init(params: dict) -> AdamWState:
         zeros = lambda p: torch.zeros(p.shape, dtype=moment_dtype, device=p.device)
-        return AdamWState(
-            step=0,
-            m={k: zeros(p) for k, p in params.items()},
-            v={k: zeros(p) for k, p in params.items()},
-        )
+        return AdamWState(step=0, m=tree_map(zeros, params), v=tree_map(zeros, params))
 
     @torch.no_grad()
     def update(grads: dict, state: AdamWState, params: dict, lr):
@@ -92,13 +96,15 @@ def adamw(
         bc2 = 1.0 - float(torch.tensor(b2, dtype=torch.float32) ** step)
         # fp32 tensors on the parameters' device: a CUDA tensor divided by a
         # host scalar is a product with its reciprocal
-        dev = next(iter(params.values())).device
+        flat_p, flat_g = paths(params), paths(grads)
+        flat_m, flat_v = paths(state.m), paths(state.v)
+        dev = next(iter(flat_p.values())).device
         bc1_t = torch.full((), bc1, dtype=torch.float32, device=dev)
         bc2_t = torch.full((), bc2, dtype=torch.float32, device=dev)
-        for k, p in params.items():
-            gf = grads[k].float()
-            mf = b1 * state.m[k].float() + (1 - b1) * gf
-            vf = b2 * state.v[k].float() + (1 - b2) * torch.square(gf)
+        for k, p in flat_p.items():
+            gf = flat_g[k].float()
+            mf = b1 * flat_m[k].float() + (1 - b1) * gf
+            vf = b2 * flat_v[k].float() + (1 - b2) * torch.square(gf)
             mhat = mf / bc1_t
             vhat = vf / bc2_t
             delta = mhat / (_sqrt32(vhat) + eps) + weight_decay * p.float()
@@ -107,8 +113,8 @@ def adamw(
             else:
                 new = p.float() - lr * delta
             p.copy_(new.to(p.dtype))
-            state.m[k].copy_(mf)
-            state.v[k].copy_(vf)
+            flat_m[k].copy_(mf)
+            flat_v[k].copy_(vf)
         return params, AdamWState(step=step, m=state.m, v=state.v), gnorm
 
     return AdamW(init=init, update=update)

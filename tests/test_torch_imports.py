@@ -153,6 +153,15 @@ def test_module_list_covers_the_slice():
         "repro_torch.control.simulate",
         "repro_torch.control.report",
         "repro_torch.launch.control",
+        "repro_torch.configs.perf",
+        "repro_torch.distributed.sharding",
+        "repro_torch.launch.mesh",
+        "repro_torch.optim.grad_compress",
+        "repro_torch.training",
+        "repro_torch.training.train_loop",
+        "repro_torch.launch.train",
+        "repro_torch.examples.train_lm",
+        "repro_torch.tree",
     ):
         assert name in mods
 
@@ -295,3 +304,48 @@ def test_mc_and_costs_entry_points_default_to_cuda_and_raise_without_it(monkeypa
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+def test_training_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, capsys):
+    """``launch.train``'s CLI and ``train()``, the 100M example, the host
+    mesh and ``shard_batch``: each runs on the card unless given the CPU."""
+    import numpy as np
+
+    from repro_torch.configs import base as cfg_base
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.examples import train_lm
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
+
+    monkeypatch.setattr(cfg_base, "_REGISTRY", dict(cfg_base._REGISTRY))
+    monkeypatch.setattr(cfg_base, "_REDUCED", dict(cfg_base._REDUCED))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [
+        lambda: train.main(["--arch", "qwen3-1.7b", "--reduced", "--steps", "1"]),
+        lambda: train.train("qwen3-1.7b", steps=1),
+        lambda: train_lm.main(["--steps", "1"]),
+        lambda: make_host_mesh(),
+        lambda: shard_batch({"tokens": np.zeros((1, 2), np.int32)}, None),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert "step" not in capsys.readouterr().out      # nothing trained on the CPU
+
+
+def test_no_perf_config_value_routes_to_a_plain_version():
+    """``PerfConfig`` has no kernel-choice field: on the card the flash and
+    SSD kernels always run, and the reference's fields that pick a plain
+    version are refused as unknown keywords."""
+    import dataclasses
+
+    from repro_torch.configs.perf import PerfConfig
+
+    fields = {f.name for f in dataclasses.fields(PerfConfig)}
+    kernel_choices = {"attention_impl", "ssd_impl", "attn_scores_dtype", "attn_triangular"}
+    assert not fields & kernel_choices
+    assert not [f for f in fields if f.endswith("_impl")]
+    for name in kernel_choices:
+        for value in ("xla", "ref", "pallas", "pallas_interpret", "chunked", "auto", "bfloat16", True):
+            with pytest.raises(TypeError, match=name):
+                PerfConfig(**{name: value})
