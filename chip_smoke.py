@@ -188,13 +188,37 @@ Phases, in order; any failure exits non-zero:
    CPU bit for bit; one 64-tick ``run_routed`` call timed through graphs
    and eagerly, split into capture, replay and host, and the CLI's
    default day sim estimated from it (run only below 120 s); 2 regions ×
-   8 racks × 16,384 devices (262,144) for 1,024 ticks with the crossover
+   8 racks × 16,384 devices (262,144) for 512 ticks (1,024 until PR 24,
+   cut to make room for the mesh phase) with the crossover
    autoscaler, 4 faults, pack routing and the idle tail: requests
    conserved at every level, energy within 1e-9, its power events and
    device-ticks/s with the calls' capture, replay and host share; one
    rack of 1,048,576 devices for 512 ticks against one ``run_routed``
    call, every state field and the latency multiset equal, with peaks;
-25. the phases' seconds, the ``kernels`` JSON line (the flash and SSD
+25. mesh — the multi-rank runtime, no kernel (``distributed/ranks.py``:
+   ranks spawned as processes, gloo with every collective staged through
+   pinned host memory, all four ranks on the one card, so each rate
+   measures the runtime, not scale-out): ``python -m
+   repro_torch.launch.fleet --smoke --mode periodic --mesh 4
+   --acceptance-devices 1048576`` (2 J a device, the strategy mix; run in
+   this process, its ranks spawned all the same): the sharded scan bit
+   for bit ``run_periodic`` on the card over the same fleet and step cap,
+   every budget exhausted, the ledger within 1e-9, both rates and the
+   spawn time; then one spawn of four ranks: the periodic ensemble of the
+   mc phase (1024 seeds × 4096 devices × 2000 steps, 64 seeds a chunk) on
+   a 2 × 2 (fleet, seed) mesh bit for bit against the unsharded run on
+   the card; one full-width MoE layer of qwen3-moe-235b-a22b (the
+   expert-parallel body) and mixtral-8x7b (the f-sharded body), fp32 and
+   bf16, on (data 1, model 4) and (data 2, model 2), B 2, S 64, each rank
+   drawing only its own weight blocks: at capacity factor 64 (nothing
+   dropped) against the single-card dropless ``moe_block``, at 1 (slots
+   dropped, counted) against ``moe_capacity_reference`` on the card,
+   within ``MOE_DISPATCH_LIMIT``, with the ranks' host and card memory
+   peaks; ``compress_psum`` over (pod 2) on one qwen3-1.7b decoder
+   layer's gradient tree (50.3 M fp32 values) within 0.02 of the exact
+   mean and bit for bit against two CPU ranks; ``launch.mc --smoke
+   --mesh 2x2``'s ensemble section equal to ``--mesh 1``'s;
+26. the phases' seconds, the ``kernels`` JSON line (the flash and SSD
    entries with their ``train_launches`` and gradient checks), the card
    line, and the last line ``{"ok": true, "device": {...}}``.
 """
@@ -865,10 +889,12 @@ def output_check() -> None:
 
 def configuration_split(card: str, arch: str = ARCH, ckpt_dir: Path = CKPT_DIR) -> None:
     """Where one bring-up's time goes: file read, msgpack unpack, zlib
-    inflate, and the rest of a restore onto the card (host-to-device copies
-    and the dequant kernels)."""
+    inflate (on the reader's threads, as the restore inflates), and the rest
+    of a restore onto the card (host-to-device copies and the dequant
+    kernels)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import torch
-    import zlib
 
     from repro_torch.checkpoint import _msgpack, serializer
     from repro_torch.configs import get_config
@@ -880,10 +906,10 @@ def configuration_split(card: str, arch: str = ARCH, ckpt_dir: Path = CKPT_DIR) 
     t1 = time.perf_counter()
     payload = _msgpack.unpackb(data)
     t2 = time.perf_counter()
-    n_raw = 0
-    for record in payload["leaves"]:
-        blobs = [record["quant"]["q"], record["quant"]["scales"]] if "quant" in record else [record["data"]]
-        n_raw += sum(len(zlib.decompress(b)) for b in blobs)
+    blobs = [b for record in payload["leaves"]
+             for b in ([record["quant"]["q"], record["quant"]["scales"]] if "quant" in record else [record["data"]])]
+    with ThreadPoolExecutor(serializer._ZLIB_THREADS) as pool:
+        n_raw = sum(len(raw) for raw in serializer._inflated(pool, payload["codec"], blobs))
     t3 = time.perf_counter()
     del payload
     params = serializer.deserialize(data, zoo.param_shapes(get_config(arch)), device="cuda")
@@ -893,7 +919,8 @@ def configuration_split(card: str, arch: str = ARCH, ckpt_dir: Path = CKPT_DIR) 
     torch.cuda.empty_cache()
     rest = (t4 - t3) - (t2 - t1) - (t3 - t2)
     print(f"  {arch} configuration split ({len(data) / 1e9:.3f} GB file, {n_raw / 1e9:.3f} GB inflated): "
-          f"read {t1 - t0:.3f} s, msgpack unpack {t2 - t1:.3f} s, zlib inflate {t3 - t2:.3f} s, "
+          f"read {t1 - t0:.3f} s, msgpack unpack {t2 - t1:.3f} s, zlib inflate on "
+          f"{serializer._ZLIB_THREADS} threads {t3 - t2:.3f} s, "
           f"restore onto the card {t4 - t3:.3f} s of which copies + dequant + other "
           f"{rest:.3f} s [{card}]")
 
@@ -3694,7 +3721,7 @@ def costs_phase(card: str) -> dict:
 CONTROL_BUDGET_MJ = 50000.0                 # the CLI run's fleet budget (8 of the 16 devices admitted)
 CONTROL_CLI_TICKS = 512                     # the CLI run: --smoke at 512 ticks, with the planner
 CONTROL_WIDE = (2, 8, 16384)                # regions x racks x devices a rack: 262,144 devices
-CONTROL_WIDE_TICKS = 1024
+CONTROL_WIDE_TICKS = 512                    # 1024 until the mesh phase needed the time
 CONTROL_WIDE_FAULTS = 4
 CONTROL_WIDE_SMALL = (512, 512)             # devices a rack and ticks of its card-vs-CPU copy
 CONTROL_DEVICES_PER_STREAM = 4              # the wide streams: one per 4 devices, each at 1/streams of the rate
@@ -3965,6 +3992,421 @@ def control_phase(card: str) -> None:
           f"field, the latency multiset equal ({ours.numel()} served) [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: the multi-rank runtime (ranks on one card, gloo staged on the host)
+# ---------------------------------------------------------------------------
+MESH_RANKS = 4                              # launch.fleet --mesh 4: four ranks, all on cuda:0
+MESH_ACCEPTANCE = 1 << 20                   # --acceptance-devices (2 J a device, the strategy mix)
+MESH_ENS = (2, 2)                           # (fleet, seed) mesh of the sharded ensemble
+MESH_ENS_CHUNK = 64                         # seeds a chunk there: every rank draws a whole chunk (4.2 GB)
+MOE_MESH_ARCHS = ("qwen3-moe-235b-a22b", "mixtral-8x7b")   # the EP and the f-TP branch at full width
+MOE_MESH_REDUCED = False                    # a CPU rehearsal sets True (and DEV = "cpu")
+MOE_MESHES = ((1, 4), (2, 2))               # (data, model)
+MOE_MESH_TOKENS = (2, 64)                   # B, S
+MOE_MESH_SKEW = 0.5                         # a shared input direction, so that the routing piles up
+MOE_CF = (64.0, 1.0)                        # capacity factors: nothing drops; slots drop
+COMPRESS_LIMIT = 0.02                       # tests/test_multidevice.py::test_grad_compression_close_to_exact
+
+
+def _moe_leaf(cfg, leaf: str, experts, rows, cols, dtype, device):
+    """Experts ``experts`` of a full-width MoE weight stack, rows ``rows``
+    and columns ``cols`` of each expert's matrix: each matrix is drawn as
+    4 x 4 blocks, every block from its own seed, so a rank draws only the
+    blocks of its shard and the whole stack is the same draw."""
+    import torch
+
+    d, f = cfg.d_model, cfg.d_ff
+    r_all, c_all = (d, f) if leaf in ("w_gate", "w_up") else (f, d)
+    std = 1.0 / math.sqrt(r_all)
+    rb, cb = r_all // 4, c_all // 4
+    out = torch.empty((len(experts), rows.stop - rows.start, cols.stop - cols.start), dtype=dtype, device=device)
+    code = ("w_gate", "w_up", "w_down").index(leaf)
+    for n, e in enumerate(experts):
+        for i in range(rows.start // rb, rows.stop // rb):
+            for j in range(cols.start // cb, cols.stop // cb):
+                gen = torch.Generator(device).manual_seed(((code * cfg.num_experts + e) * 4 + i) * 4 + j + 1000)
+                blk = torch.randn((rb, cb), generator=gen, device=device).mul_(std)
+                out[n, i * rb - rows.start:(i + 1) * rb - rows.start,
+                    j * cb - cols.start:(j + 1) * cb - cols.start] = blk.to(dtype)
+    return out
+
+
+def _moe_router_and_input(cfg, dtype, device):
+    import torch
+
+    gen = torch.Generator(device).manual_seed(7)
+    router = (torch.randn((cfg.d_model, cfg.num_experts), generator=gen, device=device) * 0.02).to(dtype)
+    b, s = MOE_MESH_TOKENS
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device=device)
+    x = x + MOE_MESH_SKEW * torch.randn((cfg.d_model,), generator=gen, device=device)
+    return router, x.to(dtype)
+
+
+def _moe_params(cfg, dtype, device, pspecs=None, mesh=None) -> dict:
+    """The layer's weights: all of them, or (``pspecs`` on ``mesh``) only
+    this rank's blocks."""
+    router, _ = _moe_router_and_input(cfg, dtype, device)
+    params = {"router": router}
+    for leaf in ("w_gate", "w_up", "w_down"):
+        shape = (cfg.num_experts,) + ((cfg.d_model, cfg.d_ff) if leaf != "w_down" else (cfg.d_ff, cfg.d_model))
+        ranges = []
+        for dim, n in enumerate(shape):
+            entry = pspecs[leaf][dim] if pspecs is not None and dim < len(pspecs[leaf]) else None
+            axes = () if entry is None else ((entry,) if isinstance(entry, str) else tuple(entry))
+            k = math.prod(mesh.shape[a] for a in axes) if axes else 1
+            i = mesh.index(axes) if axes else 0
+            ranges.append(range(i * n // k, (i + 1) * n // k))
+        params[leaf] = _moe_leaf(cfg, leaf, ranges[0], ranges[1], ranges[2], dtype, device)
+    return params
+
+
+def _moe_mesh_cases(archs, reduced: bool) -> dict:
+    """Every rank: each MoE layer, dtype and mesh with only this rank's
+    weight blocks, both capacity factors; rank 0 keeps the whole outputs."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.device import synchronize
+    from repro_torch.distributed import ranks
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_rank_mesh
+    from repro_torch.models import moe
+
+    dev = ranks.device()
+    meshes = {shape: make_rank_mesh(shape) for shape in MOE_MESHES}
+    out, seconds = {}, {}
+    for arch in archs:
+        cfg = get_config(arch, reduced=reduced)
+        for dtype in (torch.float32, torch.bfloat16):
+            for shape, mesh in meshes.items():
+                _, x = _moe_router_and_input(cfg, dtype, dev)
+                specs = moe.moe_pspecs(cfg, mesh, x.shape)
+                params = _moe_params(cfg, dtype, dev, specs, mesh)
+                xl = ranks.shard(x, specs["x"], mesh)
+                for cf in MOE_CF:
+                    synchronize(dev)
+                    t0 = time.perf_counter()
+                    with shd.use_sharding(mesh), torch.inference_mode():
+                        y, aux = moe.moe_block(params, xl, cfg, capacity_factor=cf)
+                    synchronize(dev)
+                    seconds[arch, str(dtype)[6:], shape, cf] = time.perf_counter() - t0
+                    out[arch, str(dtype)[6:], shape, cf] = (ranks.unshard(y, specs["x"], mesh).cpu(), float(aux))
+                del params
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+    return {"out": out, "seconds": seconds}
+
+
+def _compress_grads(pod: int, device):
+    """A gradient tree shaped like one full-width qwen3-1.7b decoder layer,
+    drawn with numpy from (0, pod), each leaf at its own scale."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.tree import paths
+
+    layer = zoo.specs(get_config(ARCH))["periods"]["pos0"]
+    rng = np.random.default_rng((0, pod))
+    out = {}
+    for i, (k, spec) in enumerate(sorted(paths(layer).items())):
+        scale = 10.0 ** (-3 + 3 * (i % 4) / 3)
+        out[k] = torch.from_numpy(rng.standard_normal(spec.shape[1:], dtype=np.float32) * np.float32(scale)).to(device)
+    return out
+
+
+def _compress_case() -> dict | None:
+    """Every rank: ``compress_psum`` over a (pod 2) mesh of the first two
+    ranks (the others hold no block and return None)."""
+    from repro_torch.device import synchronize
+    from repro_torch.distributed import ranks
+    from repro_torch.launch.mesh import make_rank_mesh
+    from repro_torch.optim import grad_compress as gc
+
+    mesh = make_rank_mesh((2,), ("pod",))
+    if not mesh.is_member:
+        return None
+    grads = _compress_grads(mesh.index("pod"), ranks.device())
+    err = gc.init_error(grads)
+    gc.compress_psum(grads, err, "pod", mesh)               # warm-up
+    synchronize(ranks.device())
+    t0 = time.perf_counter()
+    out, new = gc.compress_psum(grads, err, "pod", mesh)
+    synchronize(ranks.device())
+    return {"out": out, "err": new.error, "s": time.perf_counter() - t0}
+
+
+def _ensemble_case(n_seeds: int, chunk: int, n_devices: int, n_steps: int) -> dict:
+    from repro_torch.core.arrivals import PoissonArrivals
+    from repro_torch.distributed import ranks
+    from repro_torch.fleet.shard import fleet_mesh
+    from repro_torch.mc import run_periodic_ensemble
+
+    mesh = fleet_mesh(*MESH_ENS)
+    params = _mc_fleet(n_devices, ranks.device())
+    t0 = time.perf_counter()
+    ens = run_periodic_ensemble(params, PoissonArrivals(40.0), n_steps, n_seeds, seed=0, seed_chunk=chunk,
+                                mesh=mesh)
+    return {"ens": ens, "s": time.perf_counter() - t0}
+
+
+def _mesh_ranks(ens_args: tuple, archs, reduced: bool) -> dict:
+    """The phase's one spawn: the sharded ensemble, the MoE layers and
+    ``compress_psum``, each rank's host and card memory peaks."""
+    import resource
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import ranks
+
+    dev = ranks.device()
+    out = {"ensemble": _ensemble_case(*ens_args), "runtime": ranks.info()}
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    out["moe"] = _moe_mesh_cases(archs, reduced)
+    peaks = [None] * ranks.world_size()
+    dist.all_gather_object(peaks, (resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6,
+                                   torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else 0.0))
+    out["moe"]["peaks"] = peaks
+    out["compress"] = _compress_case()
+    return out
+
+
+def _mc_fleet(n, dev, budget_mj=1500.0):
+    from repro_torch.core import energy_model as em
+    from repro_torch.core.strategies import IdlePowerMethod
+    from repro_torch.fleet import uniform_fleet
+
+    return uniform_fleet(n, strategies=("on_off", "idle_waiting", "adaptive"),
+                         method=IdlePowerMethod.METHOD1_2, e_budget_mj=budget_mj,
+                         powerup_overhead_mj=em.CALIBRATED_POWERUP_OVERHEAD_MJ, device=dev)
+
+
+def _in_process_cli(module, out: Path, *argv: str) -> dict:
+    """``repro_torch.launch.<module>.main`` in this process (its ranks are
+    spawned all the same) on ``DEV``, its JSON written to ``out``."""
+    import importlib
+
+    out.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    check(importlib.import_module(f"repro_torch.launch.{module}").main(
+        [*argv, "--device", DEV, "--out", str(out)]) == 0, f"launch.{module} {' '.join(argv)} failed")
+    print(f"  launch.{module} {' '.join(argv)} on {DEV}: {time.perf_counter() - t0:.1f} s")
+    return json.loads(out.read_text())
+
+
+def _mesh_acceptance(card: str) -> None:
+    """(a) ``launch.fleet --mesh 4 --acceptance-devices 1048576``."""
+    payload = _in_process_cli("fleet", ROOT / "build" / "chip_smoke_fleet_mesh.json", "--smoke", "--mode",
+                              "periodic", "--mesh", str(MESH_RANKS), "--acceptance-devices", str(MESH_ACCEPTANCE))
+    acc, sh = payload["sharded_acceptance"], payload["throughput"]["sharded"]
+    con, ref, rt = acc["ledger_conservation"], acc["unsharded"], acc["runtime"]
+    print(f"  sharded acceptance: {acc['devices']} devices on a {acc['mesh']} mesh ({rt['ranks']} ranks, "
+          f"{rt['ranks_per_card']} a card, {rt['backend']} staged on the {rt['staged']}, spawn "
+          f"{rt['spawn_s']:.2f} s), 2 J a device, cap {acc['n_steps_cap']} steps, {acc['steps_executed']} run: "
+          f"{acc['elapsed_s']} s, {acc['device_steps_per_s']:.4e} device-steps/s; run_periodic on {DEV} "
+          f"{ref['elapsed_s']} s, {ref['device_steps_per_s']:.4e} device-steps/s; bit for bit "
+          f"{ref['bit_identical']}; every budget exhausted {acc['all_budget_exhausted']}; conservation "
+          f"per device {con['per_device_max_rel_err']:.3g}, aggregate {con['aggregate_rel_err']:.3g} "
+          f"[{card}; one card: the runtime, not scale-out]")
+    print(f"  sharded periodic ({payload['config']['devices']} devices, {sh['mesh']}): "
+          f"{sh['fleet']['device_steps_per_s']:.4e} device-steps/s, bit for bit {sh['bit_identical_to_unsharded']}")
+    check(ref["bit_identical"] and sh["bit_identical_to_unsharded"], "the sharded fleet differs from run_periodic")
+    check(acc["all_budget_exhausted"], "the acceptance scan left budgets unspent")
+    check(con["within_1e-9"], f"the acceptance scan's ledger: {con}")
+    check(rt["ranks"] == MESH_RANKS and rt["ranks_per_card"] == (MESH_RANKS if DEV == "cuda" else None),
+          f"the runtime: {rt}")
+
+
+def _mesh_ensemble(card: str, got: dict, runtime: dict) -> None:
+    """(b) the periodic ensemble on a 2 x 2 (fleet, seed) mesh against the
+    unsharded run; ``launch.mc --smoke --mesh 2x2`` against ``--mesh 1``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.arrivals import PoissonArrivals
+    from repro_torch.mc import run_periodic_ensemble
+    from repro_torch.obs.ledger import AXES
+
+    ens = got["ens"]
+    params = _mc_fleet(MC_DEVICES, DEV)
+    _reset_peak()
+    ref, s_ref = _timed(lambda: run_periodic_ensemble(params, PoissonArrivals(40.0), MC_STEPS, MC_SEEDS, seed=0,
+                                                      seed_chunk=MESH_ENS_CHUNK))
+    steps = MC_SEEDS * MC_DEVICES * MC_STEPS
+    for f in ("lifetime_ms", "total_items", "total_energy_mj", "energy_per_request_mj"):
+        check(np.array_equal(getattr(ref, f), getattr(ens, f), equal_nan=True), f"the 2x2 ensemble: {f} differs")
+    for w in ("device_lifetime_ms", "device_energy_mj", "device_items"):
+        for m in ("mean", "m2"):
+            check(np.array_equal(getattr(getattr(ref, w), m), getattr(getattr(ens, w), m)),
+                  f"the 2x2 ensemble: {w}.{m} differs")
+    for ax in AXES:
+        check(np.array_equal(getattr(ref.ledger, f"{ax}_mj"), getattr(ens.ledger, f"{ax}_mj")),
+              f"the 2x2 ensemble's ledger: {ax} differs")
+    print(f"  periodic ensemble {MC_SEEDS} seeds x {MC_DEVICES} devices x {MC_STEPS} steps ({MESH_ENS_CHUNK} seeds "
+          f"a chunk) on a {MESH_ENS[0]}x{MESH_ENS[1]} (fleet, seed) mesh, {runtime['ranks']} ranks on one card: "
+          f"{got['s']:.2f} s in the ranks, {steps / got['s']:.4e} device-steps/s; unsharded {s_ref:.2f} s, "
+          f"{steps / s_ref:.4e} device-steps/s (peak {_peak() / 1e9:.2f} GB); bit for bit in every aggregate, "
+          f"Welford moment and ledger axis [{card}]")
+    del ref, ens, params
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    one = _in_process_cli("mc", ROOT / "build" / "chip_smoke_mc_mesh1.json", "--smoke", "--section", "ensemble")
+    two = _in_process_cli("mc", ROOT / "build" / "chip_smoke_mc_mesh2x2.json", "--smoke", "--section", "ensemble",
+                          "--mesh", "2x2")
+    a, b = dict(one["ensemble"]), dict(two["ensemble"])
+    for blk in (a, b):
+        for k in ("elapsed_s", "mesh", "runtime"):
+            blk.pop(k)
+    check(a == b, "launch.mc --mesh 2x2's ensemble differs from --mesh 1's")
+    print(f"  launch.mc --smoke --mesh 2x2: the ensemble section equals --mesh 1's "
+          f"({two['ensemble']['runtime']['ranks']} ranks, spawn {two['ensemble']['runtime']['spawn_s']:.2f} s) "
+          f"[{card}]")
+
+
+def _moe_references() -> dict:
+    """Each MoE layer's single-card outputs on the whole weights: the
+    dropless ``moe_block``, and ``moe_capacity_reference`` (with its dropped
+    slots) for every mesh and capacity factor of the ranks' cases."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import Mesh
+    from repro_torch.models import moe
+
+    refs = {}
+    for arch in MOE_MESH_ARCHS:
+        cfg = get_config(arch, reduced=MOE_MESH_REDUCED)
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype)[6:]
+            params = _moe_params(cfg, dtype, DEV)
+            _, x = _moe_router_and_input(cfg, dtype, DEV)
+            with torch.inference_mode():
+                refs[arch, name, "dropless"] = moe.moe_block(params, x, cfg)[0].float().cpu()
+                for shape in MOE_MESHES:
+                    refs[arch, name, shape, "branch"] = moe._branch(cfg, Mesh(shape, ("data", "model")))
+                    for cf in MOE_CF:
+                        capped, _, dropped = moe.moe_capacity_reference(params, x, cfg, cf,
+                                                                       dict(zip(("data", "model"), shape)))
+                        refs[arch, name, shape, cf] = (capped.float().cpu(), dropped)
+            refs[arch, name, "shape"] = tuple(x.shape)
+            del params, x
+            if DEV == "cuda":
+                torch.cuda.empty_cache()
+    return refs
+
+
+def _mesh_moe(card: str, got: dict, runtime: dict, refs: dict) -> None:
+    """(c) one full-width MoE layer a branch, fp32 and bf16, on (data 1,
+    model 4) and (data 2, model 2): nothing dropped against the dropless
+    ``moe_block``, slots dropped against ``moe_capacity_reference``."""
+    import resource
+
+    import torch
+
+    peaks = got["peaks"]
+    print(f"  MoE layers: {runtime['ranks']} ranks on one card, each drawing only its own weight blocks; "
+          f"host memory peak a rank {max(p[0] for p in peaks):.2f} GB, card memory peak a rank "
+          f"{max(p[1] for p in peaks):.2f} GB; this process {resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6:.2f} GB")
+    for arch in MOE_MESH_ARCHS:
+        for name in ("float32", "bfloat16"):
+            limit = MOE_DISPATCH_LIMIT[name]
+            for shape in MOE_MESHES:
+                branch = refs[arch, name, shape, "branch"]
+                for cf in MOE_CF:
+                    y, _ = got["out"][arch, name, shape, cf]
+                    capped, dropped = refs[arch, name, shape, cf]
+                    if cf == MOE_CF[0]:
+                        want, against = refs[arch, name, "dropless"], "dropless moe_block"
+                    else:
+                        want, against = capped, "moe_capacity_reference"
+                    err = float((y.float() - want).abs().max())
+                    top = float(want.abs().max())
+                    s = got["seconds"][arch, name, shape, cf]
+                    print(f"  {arch} ({branch}) {name} on (data {shape[0]}, model {shape[1]}), capacity factor "
+                          f"{cf:g}: {dropped} slots dropped; against {against} relative error {err / top:.3g} "
+                          f"(limit {limit}); the sharded layer {s * 1e3:.1f} ms [{card}]")
+                    check(tuple(y.shape) == refs[arch, name, "shape"] and bool(torch.isfinite(y).all())
+                          and err / top <= limit, f"{arch} {name} {shape} cf {cf}: the sharded MoE is {err / top:.3g} off")
+                    check((dropped == 0) if cf == MOE_CF[0] else (dropped > 0),
+                          f"{arch} {shape} cf {cf}: {dropped} slots dropped")
+
+
+def _mesh_compress(card: str, card_run: dict, cpu_run: dict) -> None:
+    """(d) ``compress_psum`` over a (pod 2) mesh on one qwen3-1.7b decoder
+    layer's gradient tree: against the exact mean, and the card against the
+    CPU."""
+    import torch
+
+    g0, g1 = _compress_grads(0, "cpu"), _compress_grads(1, "cpu")
+    worst, n_values, diffs = 0.0, 0, []
+    for k in g0:
+        exact = (g0[k].double() + g1[k].double()) / 2
+        out = card_run["out"][k]
+        worst = max(worst, float((out.double() - exact).abs().max() / exact.abs().max()))
+        n_values += out.numel()
+        for what in ("out", "err"):
+            a, b = card_run[what][k], cpu_run[what][k]
+            if not torch.equal(a, b):
+                diffs.append(f"{what}[{k}]: {int((a != b).sum())} of {a.numel()} differ, by at most "
+                             f"{float((a - b).abs().max()):.3g}")
+    print(f"  compress_psum over (pod 2), one {ARCH} decoder layer's gradients ({n_values} fp32 values, "
+          f"{len(g0)} leaves): worst leaf {worst:.4g} of its largest exact mean (limit {COMPRESS_LIMIT}); "
+          f"{card_run['s'] * 1e3:.1f} ms on the card's ranks, {cpu_run['s'] * 1e3:.1f} ms on the CPU's; card = "
+          f"CPU bit for bit: {not diffs} [{card}]")
+    for line in diffs:
+        print(f"    {line}")
+    check(worst <= COMPRESS_LIMIT, f"compress_psum is {worst:.3g} from the exact mean")
+    check(n_values > 45_000_000, f"the gradient tree holds {n_values} values")
+
+
+def mesh_phase(card: str) -> None:
+    """The multi-rank runtime on one card: the sharded acceptance scan
+    through ``launch.fleet``; then one spawn of four ranks for the sharded
+    ensemble, the MoE's two sharded bodies at full width and
+    ``compress_psum``, while this process computes the MoE layers'
+    single-card references and runs ``compress_psum`` on two CPU ranks;
+    each sharded result held to its single-device version."""
+    import threading
+
+    import torch
+
+    from repro_torch.distributed import ranks
+
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    _mesh_acceptance(card)
+    box: dict = {}
+
+    def run_ranks():
+        try:
+            box["got"] = ranks.spawn(MESH_RANKS, _mesh_ranks, (MC_SEEDS, MESH_ENS_CHUNK, MC_DEVICES, MC_STEPS),
+                                     MOE_MESH_ARCHS, MOE_MESH_REDUCED, device=DEV)
+        except BaseException as e:              # re-raised below, once this process's share is done
+            box["error"] = e
+
+    t0 = time.perf_counter()
+    thread = threading.Thread(target=run_ranks)
+    thread.start()
+    refs = _moe_references()
+    cpu_compress = ranks.spawn(2, _compress_case, device="cpu")
+    s_here = time.perf_counter() - t0
+    thread.join()
+    if "error" in box:
+        raise box["error"]
+    got = box["got"]
+    rt = got["runtime"]
+    print(f"  the phase's ranks: {rt['ranks']} ({rt['ranks_per_card']} a card, {rt['backend']} staged on the "
+          f"{rt['staged']}), spawned in {rt['spawn_s']:.2f} s, done in {time.perf_counter() - t0:.1f} s; the "
+          f"single-card MoE references and the CPU's compress_psum meanwhile here ({s_here:.1f} s)")
+    _mesh_ensemble(card, got["ensemble"], rt)
+    _mesh_moe(card, got["moe"], rt, refs)
+    _mesh_compress(card, got["compress"], cpu_compress)
+
+
 @contextlib.contextmanager
 def timed_phase(name: str, seconds: dict):
     """Print the phase's header, and its seconds when it ends."""
@@ -4109,6 +4551,9 @@ def main() -> None:
 
     with timed_phase("control", seconds):
         control_phase(card)
+
+    with timed_phase("mesh", seconds):
+        mesh_phase(card)
 
     print(f"phase seconds: {json.dumps(seconds)}")
     print(card)

@@ -39,7 +39,7 @@ from repro_torch.kernels.dequant import ops as dq
 MODES = ("none", "zstd", "zstd+int8")
 _QUANT_GROUP = 128
 _ZLIB_LEVEL = 6
-_ZLIB_THREADS = min(8, os.cpu_count() or 1)  # zlib releases the GIL while it compresses
+_ZLIB_THREADS = min(8, os.cpu_count() or 1)  # zlib releases the GIL while it (de)compresses
 
 _DTYPES = {
     "float32": torch.float32,
@@ -161,6 +161,18 @@ def serialize(tree: Any, mode: str = "zstd") -> bytes:
     return _msgpack.packb(payload)
 
 
+def _inflated(pool: ThreadPoolExecutor, codec: str, blobs: list):
+    """The blobs decompressed on ``pool``, at most twice its threads in
+    flight, yielded in order (zlib releases the GIL while it inflates)."""
+    pending = collections.deque()
+    for blob in blobs:
+        pending.append(pool.submit(_decompress, codec, blob))
+        if len(pending) > 2 * _ZLIB_THREADS:
+            yield pending.popleft().result()
+    while pending:
+        yield pending.popleft().result()
+
+
 def deserialize(data: bytes, target: Any = None, device="cuda") -> Any:
     """bytes → tensors on ``device``, the card unless the caller passes
     ``device="cpu"`` (raises where CUDA is asked for and absent).  If
@@ -168,29 +180,36 @@ def deserialize(data: bytes, target: Any = None, device="cuda") -> Any:
     ``model_zoo.param_shapes``) is given, leaves are restored into its
     structure and cast to its dtypes; else a flat {path: tensor} dict is
     returned.  A Python number in ``target`` (a step counter) comes back
-    as a number of its type."""
+    as a number of its type.  The leaves inflate on ``_ZLIB_THREADS`` host
+    threads; they are restored (dequantized, moved) in their order."""
     device = resolve_device(device)
     payload = _msgpack.unpackb(data)
     mode = payload["mode"]
     # blobs predating the codec field were always zstd-compressed
     codec = payload.get("codec", "zstd")
-    by_path: dict[str, torch.Tensor] = {}
+    blobs = []
     for record in payload["leaves"]:
-        shape = tuple(record["shape"])
-        dtype = _DTYPES[record["dtype"]]
         if "quant" in record:
-            qd = record["quant"]
-            rows, group = qd["rows"], qd["group"]
-            cols = (int(torch.Size(shape).numel()) // rows) if rows else 0
-            q = _from_bytes(_decompress(codec, qd["q"]), torch.int8, (rows, cols), device)
-            scales = _from_bytes(
-                _decompress(codec, qd["scales"]), torch.float32, (rows, cols // group), device
-            )
-            t = dq.dequantize(q, scales, group=group, dtype=dtype).reshape(shape)
-        else:
-            raw = record["data"] if mode == "none" else _decompress(codec, record["data"])
-            t = _from_bytes(raw, dtype, shape, device)
-        by_path[record["path"]] = t
+            blobs += [record["quant"]["q"], record["quant"]["scales"]]
+        elif mode != "none":
+            blobs.append(record["data"])
+    by_path: dict[str, torch.Tensor] = {}
+    with ThreadPoolExecutor(_ZLIB_THREADS) as pool:
+        inflated = _inflated(pool, codec, blobs)
+        for record in payload["leaves"]:
+            shape = tuple(record["shape"])
+            dtype = _DTYPES[record["dtype"]]
+            if "quant" in record:
+                qd = record["quant"]
+                rows, group = qd["rows"], qd["group"]
+                cols = (int(torch.Size(shape).numel()) // rows) if rows else 0
+                q = _from_bytes(next(inflated), torch.int8, (rows, cols), device)
+                scales = _from_bytes(next(inflated), torch.float32, (rows, cols // group), device)
+                t = dq.dequantize(q, scales, group=group, dtype=dtype).reshape(shape)
+            else:
+                raw = record["data"] if mode == "none" else next(inflated)
+                t = _from_bytes(raw, dtype, shape, device)
+            by_path[record["path"]] = t
     if target is None:
         return by_path
     out = []

@@ -6,7 +6,9 @@ Defaults are the reference's baseline.  The training levers act here:
 one device reads the sharding levers, ``moe_capacity_factor`` (the
 reference's ``moe_block`` ignores it without a mesh) or
 ``grad_compress_pod`` (no pod axis): they keep the reference's surface
-until the multi-rank slice wires them.
+until the train step on a mesh (the second half of ROADMAP A13a) wires
+them.  ``models.moe.moe_block`` on a mesh of ranks takes its capacity
+factor as an argument.
 
 The reference's kernel-choice fields (``attention_impl``, ``ssd_impl``,
 ``attn_scores_dtype``, ``attn_triangular``) are left out: on the card the

@@ -86,7 +86,7 @@ def batch_for_arch(cfg: ArchConfig, stream_batch: dict) -> dict:
 def shard_batch(batch: dict, mesh) -> dict:
     """Host arrays → tensors on the mesh's device (the card when ``mesh`` is
     None).  On one device the whole batch goes there; a mesh of more
-    devices raises (the multi-rank slice's work)."""
+    devices raises (the second half of ROADMAP A13a)."""
     if mesh is None:
         device = resolve_device("cuda")
     elif mesh.size == 1 and mesh.device is not None:

@@ -8,8 +8,15 @@ no devices: a :class:`Mesh` here is a descriptor of axis names and sizes
 that compares equal to the reference's ``P(...)``.
 
 On one card the mesh is 1×1 (``launch.mesh.make_host_mesh``) and every
-constraint is the identity.  Placing tensors over a mesh of more devices
-is the multi-rank slice's work: :func:`constrain` raises there.
+constraint is the identity.  Inside the ranks of
+:func:`repro_torch.distributed.ranks.spawn` a mesh of more devices is
+backed by a ``torch.distributed`` ``DeviceMesh`` (one process group a named
+axis, and this rank's coordinate on each), which the explicitly collective
+code — the sharded fleet and ensemble, the MoE's expert-parallel and
+f-sharded bodies, ``compress_psum`` — runs over.  Placing a tensor by its
+logical axes on such a mesh (:func:`constrain`, the GSPMD half of the
+reference) is the second half of ROADMAP A13a: :func:`constrain` raises
+there.
 
 Usage:
     with use_sharding(mesh, rules):
@@ -22,7 +29,7 @@ import contextlib
 import dataclasses
 import math
 import threading
-from typing import Optional, Sequence, Union
+from typing import Any, Optional, Sequence, Union
 
 import torch
 
@@ -30,8 +37,9 @@ Logical = Union[str, None]
 Rules = dict[str, Union[str, tuple, None]]
 
 MULTI_RANK = (
-    "placing tensors over a mesh of more than one device waits for the "
-    "port's multi-rank slice (ROADMAP: fleet/shard.py and torch.distributed)"
+    "placing tensors by their logical axes over a mesh of more than one "
+    "device (constrain, shard_batch, the GSPMD train step) waits for the "
+    "second half of ROADMAP A13a"
 )
 
 # The reference's rule table (its DESIGN.md §6).
@@ -80,16 +88,23 @@ P = PartitionSpec
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """Axis names and sizes of a device mesh; ``device`` is where a 1-device
-    mesh places tensors (``None`` for a descriptor with no devices)."""
+    """Axis names and sizes of a device mesh; ``device`` is where this rank
+    (or a 1-device mesh) places tensors, ``None`` for a descriptor with no
+    devices.  A mesh of ranks (:func:`repro_torch.distributed.ranks.make_mesh`)
+    also carries its ``DeviceMesh`` and this rank's ``coordinate`` on each
+    axis (``None`` on a rank outside the mesh)."""
 
     axis_sizes: tuple
     axis_names: tuple
     device: Optional[torch.device] = None
+    device_mesh: Any = dataclasses.field(default=None, compare=False, repr=False)
+    coordinate: Optional[tuple] = None
 
     def __post_init__(self):
         if len(self.axis_sizes) != len(self.axis_names):
             raise ValueError(f"mesh sizes {self.axis_sizes} and names {self.axis_names} differ in length")
+        if self.coordinate is None and self.size == 1:
+            object.__setattr__(self, "coordinate", (0,) * len(self.axis_sizes))
 
     @property
     def shape(self) -> dict:
@@ -98,6 +113,23 @@ class Mesh:
     @property
     def size(self) -> int:
         return math.prod(self.axis_sizes)
+
+    @property
+    def is_member(self) -> bool:
+        """Whether this rank holds a block of the mesh."""
+        return self.coordinate is not None
+
+    def index(self, axes) -> int:
+        """This rank's block index along one axis or several (major to
+        minor): the position of its block in a dimension sharded over them."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        if self.coordinate is None:
+            raise ValueError(f"this rank holds no block of the {self.shape} mesh")
+        i = 0
+        for a in axes:
+            k = self.axis_names.index(a)
+            i = i * self.axis_sizes[k] + self.coordinate[k]
+        return i
 
 
 @dataclasses.dataclass
@@ -183,7 +215,7 @@ def logical_to_pspec(
 
 def constrain(x: torch.Tensor, axes: Sequence[Logical]) -> torch.Tensor:
     """The identity with no mesh or on a one-device mesh; raises on a mesh
-    of more devices (the multi-rank slice's work)."""
+    of more devices (the second half of ROADMAP A13a)."""
     mesh = current_mesh()
     if mesh is None or mesh.size == 1:
         return x

@@ -1,13 +1,14 @@
 """Fleet-scale vectorized simulation: thousands of duty-cycled accelerators,
 routed traffic, and per-device power policies advanced tick by tick on one
-device (port of ``repro.fleet``; the sharded runner, ``fleet/shard.py``,
-comes with the scale-out slice, ROADMAP A13).
+device, or sharded over a mesh of ranks (port of ``repro.fleet``).
 
 Layers:
 
 * :mod:`repro_torch.fleet.state`   — stacked per-device parameter/state tensors;
 * :mod:`repro_torch.fleet.step`    — periodic (oracle-exact) and routed kernels;
 * :mod:`repro_torch.fleet.router`  — round-robin / least-loaded / power-aware;
+* :mod:`repro_torch.fleet.shard`   — the periodic kernel and the ensemble
+  sharded over a ``("fleet", "seed")`` mesh of ranks, bit-identical;
 * :mod:`repro_torch.fleet.metrics` — lifetimes, p50/p99 latency, energy/request;
 * :mod:`repro_torch.fleet.dtypes`  — the pinned carry dtypes.
 
@@ -42,6 +43,12 @@ from repro_torch.fleet.metrics import (
     routed_summary,
 )
 from repro_torch.fleet.router import ROUTER_CODES, route_counts
+from repro_torch.fleet.shard import (
+    ShardedPeriodicResult,
+    fleet_mesh,
+    run_periodic_ensemble_sharded,
+    run_periodic_sharded,
+)
 from repro_torch.fleet.state import (
     STRATEGY_CODES,
     DeviceSpec,
@@ -66,13 +73,17 @@ __all__ = [
     "FleetState",
     "PeriodicFleetResult",
     "RoutedFleetResult",
+    "ShardedPeriodicResult",
     "devices_alive_curve",
+    "fleet_mesh",
     "fleet_summary",
     "latency_percentiles",
     "periodic_summary",
     "routed_summary",
     "route_counts",
     "run_periodic",
+    "run_periodic_ensemble_sharded",
+    "run_periodic_sharded",
     "run_routed",
     "uniform_fleet",
 ]

@@ -275,6 +275,23 @@ def _periodic_ticks(n_devices: int, n_steps: int) -> int:
     return max(1, min(n_steps, _PERIODIC_BLOCK_ELEMS // n_devices))
 
 
+def _periodic_steps(params: FleetParams, limit, carry, n_steps: int, jit: bool):
+    """``n_steps`` periodic steps from ``carry``, in blocks of
+    :func:`_periodic_ticks` ticks; returns the new carry and the admitted
+    count of each step (int32).  The sharded runner calls it a chunk at a
+    time on each shard."""
+    ticks = _periodic_ticks(params.n_devices, n_steps)
+    n_blocks, rem = divmod(n_steps, ticks)
+    pieces = []
+    for count, width in ((n_blocks, ticks), (1 if rem else 0, rem)):
+        if count:
+            carry, (ys,) = _run_loop(_periodic_body(params, limit, width), carry, (), count, jit)
+            pieces.append(ys.reshape(-1))
+    alive_ts = (torch.cat(pieces) if pieces
+                else torch.zeros(0, dtype=torch.int32, device=params.device))
+    return carry, alive_ts
+
+
 def run_periodic(params: FleetParams, n_steps: int, jit: bool = True) -> PeriodicFleetResult:
     """Advance every device through ``n_steps`` of its own request period,
     on the fleet's device.
@@ -288,17 +305,8 @@ def run_periodic(params: FleetParams, n_steps: int, jit: bool = True) -> Periodi
     if n_steps < 0:
         raise ValueError(f"n_steps must be non-negative, got {n_steps}")
     _check_step_count(n_steps, "run_periodic")
-    limit = _periodic_limit(params)
-    ticks = _periodic_ticks(params.n_devices, n_steps)
-    n_blocks, rem = divmod(n_steps, ticks)
-    carry = _periodic_carry0(params)
-    pieces = []
-    for count, width in ((n_blocks, ticks), (1 if rem else 0, rem)):
-        if count:
-            carry, (ys,) = _run_loop(_periodic_body(params, limit, width), carry, (), count, jit)
-            pieces.append(ys.reshape(-1))
-    alive_ts = (torch.cat(pieces) if pieces
-                else torch.zeros(0, dtype=torch.int32, device=params.device))
+    carry, alive_ts = _periodic_steps(params, _periodic_limit(params), _periodic_carry0(params),
+                                      n_steps, jit)
     n, alive = carry
     energy, lifetime = _periodic_final(params, n)
     return PeriodicFleetResult(

@@ -23,8 +23,23 @@ program on the host.  ``--smoke`` shrinks the looped baseline and
 self-check so the whole thing finishes in seconds.  ``--models`` runs a
 heterogeneous fleet from the cost zoo (:mod:`repro_torch.costs`) and
 ``--n-seeds`` adds an ``uncertainty`` section from the Monte Carlo engine
-(:mod:`repro_torch.mc`).  Not ported yet: ``--mesh`` other than 1 and
-``--acceptance-devices`` (the sharded runner, ROADMAP A13); each raises.
+(:mod:`repro_torch.mc`).
+
+``--mesh F`` / ``FxS`` / ``auto`` runs the sharded periodic kernel
+(:mod:`repro_torch.fleet.shard`) over a ``("fleet", "seed")`` mesh: the CLI
+spawns its ``F·S`` ranks itself (:func:`repro_torch.distributed.ranks.spawn`;
+gloo, host-staged collectives), every rank on the card — all of them on
+``cuda:0`` of a one-card machine — or with ``--device cpu`` on the host;
+rank 0 runs the unsharded sections and writes the payload, whose sharded
+blocks carry the runtime (``ranks``, ``backend``, ``staged``,
+``ranks_per_card``, ``spawn_s``).  ``--acceptance-devices N`` adds the
+reference's full-budget lifetime scan at N devices, and the port also
+replays it unsharded on rank 0 and records whether the two agree bit for
+bit.  With several ranks on one card the rates measure the runtime, not
+scale-out.
+
+    PYTHONPATH=src python -m repro_torch.launch.fleet --device cpu --smoke \
+        --mesh 2 --acceptance-devices 4096
 """
 from __future__ import annotations
 
@@ -32,6 +47,8 @@ import argparse
 import math
 import sys
 import time
+
+import torch
 
 from repro_torch.launch._cli import emit, make_parser, powerup_overhead_mj
 
@@ -228,6 +245,208 @@ def _oracle_self_check(args, max_steps: int, device) -> dict:
     return out
 
 
+def _timed(fn, device):
+    from repro_torch.device import synchronize
+
+    synchronize(device)
+    t0 = time.perf_counter()
+    out = fn()
+    synchronize(device)
+    return out, time.perf_counter() - t0
+
+
+def _tp(elapsed_s, n_devices, steps):
+    per_s = n_devices / elapsed_s if elapsed_s > 0 else float("inf")
+    return {
+        "elapsed_s": round(elapsed_s, 6),
+        "devices": n_devices,
+        "devices_per_s": round(per_s, 1),
+        "device_steps_per_s": round(n_devices * steps / elapsed_s, 1)
+        if elapsed_s > 0 else None,
+    }
+
+
+def _unsharded_sections(args, params, payload, device, n_steps, n_steps_p, n_baseline):
+    """The fleet run, its summary and the throughput blocks against the
+    looped baseline (rank 0 only); returns the unsharded periodic result
+    the sharded kernel is held to."""
+    import numpy as np
+
+    from repro_torch.fleet import fleet_summary, run_periodic, run_routed
+
+    timed = lambda fn: _timed(fn, device)  # noqa: E731
+
+    if args.mode == "periodic":
+        run = lambda: run_periodic(params, n_steps)  # noqa: E731
+    else:
+        counts = _global_stream(args, n_steps)
+        run = lambda: run_routed(  # noqa: E731
+            params, counts, args.dt_ms, router=args.router,
+            queue_capacity=args.queue_capacity,
+            collect_latency=args.collect_latency,
+        )
+
+    run()                                   # warm-up: capture and caches once
+    result, fleet_elapsed = timed(run)
+
+    payload["summary"] = fleet_summary(result)
+    payload["n_steps"] = n_steps
+
+    # ---- throughput: vectorized fleet vs looped scalar baseline ------------
+    # The baseline loops one Python `simulate_trace` per device over that
+    # device's *fair share* of traffic (the identical per-device workload a
+    # fleet device sees), so devices/sec extrapolates honestly to the full
+    # fleet.  The headline comparison runs the periodic kernel — the mode
+    # whose per-device semantics equal the scalar oracle's — and, when the
+    # routed mode was requested, its numbers are reported alongside.
+    if args.mode == "periodic":
+        periodic_elapsed = fleet_elapsed
+        periodic_result = result
+    else:
+        run_periodic(params, n_steps_p)     # warm-up
+        periodic_result, periodic_elapsed = timed(lambda: run_periodic(params, n_steps_p))
+
+    fleet_tp = _tp(periodic_elapsed, args.devices, n_steps_p)
+    if args.models:
+        # no looped baseline: the scalar loop simulates the paper item, not
+        # the model mix — a same-workload comparison doesn't exist here
+        payload["throughput"] = {"periodic": {"fleet": fleet_tp}}
+    else:
+        saved_dt = args.dt_ms
+        args.dt_ms = args.period_ms
+        base_elapsed, base_served = _baseline_loop(
+            args, np.full(n_steps_p, n_baseline, dtype=np.int32), n_baseline
+        )
+        args.dt_ms = saved_dt
+
+        base_tp = _tp(base_elapsed, n_baseline, n_steps_p)
+        base_tp["requests_served"] = base_served
+        payload["throughput"] = {
+            "periodic": {
+                "fleet": fleet_tp,
+                "looped_baseline": base_tp,
+                "speedup_devices_per_s": round(
+                    fleet_tp["devices_per_s"] / base_tp["devices_per_s"], 1
+                ) if base_tp["devices_per_s"] else None,
+            },
+        }
+    if args.mode == "routed" and not args.models:
+        base_args = argparse.Namespace(**vars(args))
+        base_args.devices = n_baseline
+        rbase_elapsed, rbase_served = _baseline_loop(
+            args, _global_stream(base_args, n_steps), n_baseline
+        )
+        rfleet_tp = _tp(fleet_elapsed, args.devices, n_steps)
+        rbase_tp = _tp(rbase_elapsed, n_baseline, n_steps)
+        rbase_tp["requests_served"] = rbase_served
+        payload["throughput"]["routed"] = {
+            "fleet": rfleet_tp,
+            "looped_baseline": rbase_tp,
+            "speedup_devices_per_s": round(
+                rfleet_tp["devices_per_s"] / rbase_tp["devices_per_s"], 1
+            ) if rbase_tp["devices_per_s"] else None,
+        }
+    return periodic_result
+
+
+def _sharded_acceptance(args, mesh, device) -> dict:
+    """Full-budget lifetime scan at ``--acceptance-devices`` scale (every
+    rank; the block is rank 0's).
+
+    Every device gets the small ``--acceptance-budget-j`` budget, the step
+    cap is the per-device admission bound (rounded up to a whole number of
+    4096-step chunks), and the chunked kernel's early exit stops as soon as
+    the whole fleet is dead — so the scan runs each device to budget
+    exhaustion, never to an arbitrary horizon.  Records throughput plus the
+    per-device and aggregated ledger conservation errors; the port adds the
+    same fleet and cap through the unsharded ``run_periodic`` on rank 0
+    (its rate, and whether the two agree bit for bit) and the runtime."""
+    import numpy as np
+
+    from repro_torch.core import energy_model as em
+    from repro_torch.core.phases import paper_lstm_item
+    from repro_torch.core.strategies import IdlePowerMethod
+    from repro_torch.distributed import ranks
+    from repro_torch.fleet import run_periodic, run_periodic_sharded, uniform_fleet
+    from repro_torch.fleet.step import _np
+    from repro_torch.obs.ledger import AXES
+
+    n_dev = args.acceptance_devices
+    strategies = (
+        ("on_off", "idle_waiting", "adaptive")
+        if args.strategy == "mix"
+        else (args.strategy,)
+    )
+    params = uniform_fleet(
+        n_dev,
+        item=paper_lstm_item(),
+        strategies=strategies,
+        method=IdlePowerMethod(args.method),
+        request_period_ms=args.period_ms,
+        e_budget_mj=args.acceptance_budget_j * 1000.0,
+        powerup_overhead_mj=powerup_overhead_mj(args),
+        device=device,
+    )
+    # per-device admission bound: on_off spends e_item per step, the others
+    # e_item + e_idle past the first config — the max over devices (plus the
+    # FLOOR_EPS slack run_periodic grants) caps the scan exactly
+    e_item, e_idle = _np(params.e_item_mj), _np(params.e_idle_mj)
+    limit = _np(params.e_budget_mj) + em.FLOOR_EPS * (e_item + e_idle)
+    per = np.where(_np(params.is_onoff), e_item, e_item + e_idle)
+    bound = int(np.ceil(np.max((limit + e_idle) / per))) + 2
+    step_chunk = 4096
+    n_cap = -(-bound // step_chunk) * step_chunk
+
+    res, elapsed = _timed(lambda: run_periodic_sharded(params, n_cap, mesh=mesh, step_chunk=step_chunk), device)
+    if ranks.rank() != 0:
+        return {}
+    ref, ref_elapsed = _timed(lambda: run_periodic(params, n_cap), device)
+    same = all(torch.equal(getattr(ref, f), getattr(res, f))
+               for f in ("n_items", "energy_mj", "lifetime_ms", "alive", "alive_over_time"))
+
+    led = res.ledger()
+    energy = _np(res.energy_mj)
+    totals = sum(np.asarray(getattr(led, f"{ax}_mj")) for ax in AXES)
+    denom = np.maximum(np.abs(energy), 1e-300)
+    per_device_err = float(np.max(np.abs(totals - energy) / denom))
+    agg = led.aggregate()
+    agg_total = float(sum(getattr(agg, f"{ax}_mj") for ax in AXES))
+    fleet_total = float(energy.sum())
+    agg_err = abs(agg_total - fleet_total) / max(abs(fleet_total), 1e-300)
+
+    block = {
+        "devices": n_dev,
+        "mesh": f"{res.mesh_shape[0]}x{res.mesh_shape[1]}",
+        "n_shards": res.n_shards,
+        "budget_j": args.acceptance_budget_j,
+        "n_steps_cap": n_cap,
+        "steps_executed": res.steps_executed,
+        "all_budget_exhausted": bool(~res.alive.any()),
+        "total_items": int(res.n_items.sum()),
+        "elapsed_s": round(elapsed, 3),
+        "devices_per_s": round(n_dev / elapsed, 1) if elapsed > 0 else None,
+        "device_steps_per_s": round(n_dev * res.steps_executed / elapsed, 1)
+        if elapsed > 0 else None,
+        "ledger_conservation": {
+            "per_device_max_rel_err": per_device_err,
+            "aggregate_rel_err": agg_err,
+            "within_1e-9": bool(per_device_err <= 1e-9 and agg_err <= 1e-9),
+        },
+        "unsharded": {
+            "elapsed_s": round(ref_elapsed, 3),
+            "device_steps_per_s": round(n_dev * n_cap / ref_elapsed, 1) if ref_elapsed > 0 else None,
+            "bit_identical": bool(same),
+        },
+        "runtime": res.runtime,
+    }
+    if not same:
+        raise SystemExit(
+            f"the sharded acceptance scan diverged from run_periodic on mesh {block['mesh']} — "
+            "refusing to emit the artifact"
+        )
+    return block
+
+
 def main(argv=None) -> int:
     ap = make_parser(
         prog="python -m repro_torch.launch.fleet",
@@ -276,30 +495,57 @@ def main(argv=None) -> int:
     ap.add_argument("--baseline-devices", type=int, default=None,
                     help="devices in the looped baseline (default min(N, 64))")
     ap.add_argument("--mesh", default="1",
-                    help="device mesh for the sharded periodic kernel; only '1' "
-                         "(the sharded runner comes with ROADMAP A13)")
+                    help="mesh of ranks for the sharded periodic kernel: 'F', "
+                         "'FxS', or 'auto' (one rank a card on the fleet axis); "
+                         "the CLI spawns the F*S ranks itself (gloo, "
+                         "host-staged collectives; all on one card where there "
+                         "is one)")
     ap.add_argument("--acceptance-devices", type=int, default=None,
-                    help="the sharded full-budget lifetime acceptance scan "
-                         "(not ported yet: ROADMAP A13)")
+                    help="run the sharded full-budget lifetime acceptance "
+                         "scan at this fleet size (e.g. 1048576) and record "
+                         "it under 'sharded_acceptance'")
+    ap.add_argument("--acceptance-budget-j", type=float, default=2.0,
+                    help="per-device budget (J) for the acceptance scan — "
+                         "small enough that every device dies within the "
+                         "horizon (full-budget lifetime)")
     ap.add_argument("--smoke", action="store_true",
                     help="CI-sized run: tiny baseline + self-check caps")
     args = ap.parse_args(argv)
 
     if args.devices <= 0:
         raise SystemExit("--devices must be positive")
-    if args.acceptance_devices:
-        raise NotImplementedError("--acceptance-devices is not ported yet (ROADMAP A13)")
-    if args.mesh != "1":
-        raise NotImplementedError("--mesh other than 1 needs the sharded runner (ROADMAP A13)")
     if args.dt_ms is None:
         args.dt_ms = args.period_ms
 
-    import numpy as np
+    from repro_torch.device import resolve_device
+    from repro_torch.distributed import ranks
+    from repro_torch.fleet.shard import parse_mesh_spec
 
-    from repro_torch.device import resolve_device, synchronize
-    from repro_torch.fleet import fleet_summary, run_periodic, run_routed
-
+    mesh_f, mesh_s = parse_mesh_spec(args.mesh)
+    if mesh_f < 1 or mesh_s < 1:
+        raise ValueError(f"bad mesh spec {args.mesh!r}: both axes must be >= 1")
     device = resolve_device(args.device)
+    if mesh_f * mesh_s == 1:
+        return _program(args, (1, 1), device)
+    ranks.spawn(mesh_f * mesh_s, _rank_program, args, (mesh_f, mesh_s), device=device)
+    return 0
+
+
+def _rank_program(args, mesh_shape) -> int:
+    from repro_torch.distributed import ranks
+
+    return _program(args, mesh_shape, ranks.device())
+
+
+def _program(args, mesh_shape, device) -> int:
+    """The CLI's run in one process or in every rank of a spawn: rank 0 runs
+    the unsharded sections, every rank the sharded ones, and rank 0 writes
+    the payload."""
+    from repro_torch.distributed import ranks
+    from repro_torch.fleet.shard import fleet_mesh, run_periodic_sharded
+
+    lead = ranks.rank() == 0
+    mesh = fleet_mesh(*mesh_shape)
     horizon_ms = args.horizon * 1000.0
     params = _build_params(args, device)
     payload: dict = {
@@ -313,99 +559,47 @@ def main(argv=None) -> int:
         },
     }
 
-    if args.mode == "periodic":
-        n_steps = max(1, int(math.ceil(horizon_ms / args.period_ms)))
-        run = lambda: run_periodic(params, n_steps)  # noqa: E731
-        counts = None
-    else:
-        n_steps = max(1, int(math.ceil(horizon_ms / args.dt_ms)))
-        counts = _global_stream(args, n_steps)
-        run = lambda: run_routed(  # noqa: E731
-            params, counts, args.dt_ms, router=args.router,
-            queue_capacity=args.queue_capacity,
-            collect_latency=args.collect_latency,
-        )
-
-    def timed(fn):
-        synchronize(device)
-        t0 = time.perf_counter()
-        out = fn()
-        synchronize(device)
-        return out, time.perf_counter() - t0
-
-    run()                                   # warm-up: capture and caches once
-    result, fleet_elapsed = timed(run)
-
-    payload["summary"] = fleet_summary(result)
-    payload["n_steps"] = n_steps
-
-    # ---- throughput: vectorized fleet vs looped scalar baseline ------------
-    # The baseline loops one Python `simulate_trace` per device over that
-    # device's *fair share* of traffic (the identical per-device workload a
-    # fleet device sees), so devices/sec extrapolates honestly to the full
-    # fleet.  The headline comparison runs the periodic kernel — the mode
-    # whose per-device semantics equal the scalar oracle's — and, when the
-    # routed mode was requested, its numbers are reported alongside.
-    n_baseline = args.baseline_devices or min(args.devices, 8 if args.smoke else 64)
-
-    def _tp(elapsed_s, n_devices, steps):
-        per_s = n_devices / elapsed_s if elapsed_s > 0 else float("inf")
-        return {
-            "elapsed_s": round(elapsed_s, 6),
-            "devices": n_devices,
-            "devices_per_s": round(per_s, 1),
-            "device_steps_per_s": round(n_devices * steps / elapsed_s, 1)
-            if elapsed_s > 0 else None,
-        }
+    timed = lambda fn: _timed(fn, device)  # noqa: E731
 
     n_steps_p = max(1, int(math.ceil(horizon_ms / args.period_ms)))
+    n_baseline = args.baseline_devices or min(args.devices, 8 if args.smoke else 64)
     if args.mode == "periodic":
-        periodic_elapsed = fleet_elapsed
-        periodic_result = result
+        n_steps = n_steps_p
     else:
-        run_periodic(params, n_steps_p)     # warm-up
-        periodic_result, periodic_elapsed = timed(lambda: run_periodic(params, n_steps_p))
+        n_steps = max(1, int(math.ceil(horizon_ms / args.dt_ms)))
+    if lead:
+        periodic_result = _unsharded_sections(args, params, payload, device, n_steps, n_steps_p, n_baseline)
 
-    fleet_tp = _tp(periodic_elapsed, args.devices, n_steps_p)
-    if args.models:
-        # no looped baseline: the scalar loop simulates the paper item, not
-        # the model mix — a same-workload comparison doesn't exist here
-        payload["throughput"] = {"periodic": {"fleet": fleet_tp}}
-    else:
-        saved_dt = args.dt_ms
-        args.dt_ms = args.period_ms
-        base_elapsed, base_served = _baseline_loop(
-            args, np.full(n_steps_p, n_baseline, dtype=np.int32), n_baseline
+    # ---- sharded periodic kernel (always emitted; --mesh 1 collapses to the
+    # unsharded semantics, so the bit-identity self-check is meaningful on a
+    # single-device host too) --------------------------------------------------
+    run_periodic_sharded(params, n_steps_p, mesh=mesh)   # warm-up: captures and caches
+    sharded_result, sharded_elapsed = timed(lambda: run_periodic_sharded(params, n_steps_p, mesh=mesh))
+    if lead:
+        bit_identical = all(
+            torch.equal(getattr(periodic_result, f), getattr(sharded_result, f))
+            for f in ("n_items", "energy_mj", "lifetime_ms", "alive", "alive_over_time")
         )
-        args.dt_ms = saved_dt
+        payload["throughput"]["sharded"] = {
+            "mesh": f"{mesh_shape[0]}x{mesh_shape[1]}",
+            "n_shards": sharded_result.n_shards,
+            "n_padding": sharded_result.n_padding,
+            "fleet": _tp(sharded_elapsed, args.devices, n_steps_p),
+            "bit_identical_to_unsharded": bool(bit_identical),
+            "runtime": sharded_result.runtime,
+        }
+        if not bit_identical:
+            raise SystemExit(
+                "sharded periodic kernel diverged from the unsharded reference "
+                f"on mesh {mesh_shape[0]}x{mesh_shape[1]} — refusing to emit the artifact"
+            )
 
-        base_tp = _tp(base_elapsed, n_baseline, n_steps_p)
-        base_tp["requests_served"] = base_served
-        payload["throughput"] = {
-            "periodic": {
-                "fleet": fleet_tp,
-                "looped_baseline": base_tp,
-                "speedup_devices_per_s": round(
-                    fleet_tp["devices_per_s"] / base_tp["devices_per_s"], 1
-                ) if base_tp["devices_per_s"] else None,
-            },
-        }
-    if args.mode == "routed" and not args.models:
-        base_args = argparse.Namespace(**vars(args))
-        base_args.devices = n_baseline
-        rbase_elapsed, rbase_served = _baseline_loop(
-            args, _global_stream(base_args, n_steps), n_baseline
-        )
-        rfleet_tp = _tp(fleet_elapsed, args.devices, n_steps)
-        rbase_tp = _tp(rbase_elapsed, n_baseline, n_steps)
-        rbase_tp["requests_served"] = rbase_served
-        payload["throughput"]["routed"] = {
-            "fleet": rfleet_tp,
-            "looped_baseline": rbase_tp,
-            "speedup_devices_per_s": round(
-                rfleet_tp["devices_per_s"] / rbase_tp["devices_per_s"], 1
-            ) if rbase_tp["devices_per_s"] else None,
-        }
+    if args.acceptance_devices:
+        acceptance = _sharded_acceptance(args, mesh, device)
+        if lead:
+            payload["sharded_acceptance"] = acceptance
+    if not lead:
+        return 0
 
     payload["oracle_self_check"] = _oracle_self_check(
         args, max_steps=2_000 if args.smoke else 6_000_000, device=device

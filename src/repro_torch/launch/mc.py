@@ -32,8 +32,12 @@ Sections (``--section`` comma list, default all):
                 ``simulate_trace`` baseline over identical streams
 
 Runs on the card (``--device cuda``, the default; raises on a host without
-one); ``--device cpu`` runs the same program on the host.  ``--mesh`` other
-than 1 (the sharded runner) raises: ROADMAP A13.
+one); ``--device cpu`` runs the same program on the host.  ``--mesh F`` /
+``FxS`` / ``auto`` shards the ensemble section over a ``("fleet", "seed")``
+mesh of ranks the CLI spawns itself (:mod:`repro_torch.distributed.ranks`:
+gloo, host-staged collectives, every rank on the same card where there is
+one); rank 0 runs the other sections and writes the payload, and the
+ensemble section equals ``--mesh 1``'s bit for bit.
 """
 from __future__ import annotations
 
@@ -205,15 +209,22 @@ def _section_ensemble(args) -> dict:
     import numpy as np
 
     from repro_torch.fleet import run_periodic
+    from repro_torch.distributed import ranks
+    from repro_torch.fleet.shard import fleet_mesh, parse_mesh_spec
     from repro_torch.fleet.step import _np
     from repro_torch.mc import run_periodic_ensemble
 
+    mesh = fleet_mesh(*parse_mesh_spec(args.mesh)) if args.mesh != "1" else None
+
     params = _build_params(args, args.devices)
     process = _make_process(args)
-    ens = run_periodic_ensemble(params, process, args.steps, args.seeds, seed=args.seed)
+    ens = run_periodic_ensemble(params, process, args.steps, args.seeds, seed=args.seed, mesh=mesh)
+    if ens is None or ranks.rank() != 0:
+        return {}
     out = {
         "process": process.name,
         "mesh": args.mesh,
+        "runtime": ranks.info() if mesh is not None else None,
         "jitter": args.jitter if args.process == "jittered" else None,
         "n_seeds": ens.n_seeds,
         "n_devices": ens.n_devices,
@@ -431,8 +442,10 @@ def main(argv=None) -> int:
     ap.add_argument("--latency-horizon-s", type=float, default=4.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", default="1",
-                    help="device mesh for the ensemble section; only '1' (the "
-                         "sharded runner comes with ROADMAP A13)")
+                    help="('fleet', 'seed') mesh of ranks for the ensemble "
+                         "section: 'F', 'FxS', or 'auto'; the CLI spawns the "
+                         "F*S ranks itself (gloo, host-staged collectives), and "
+                         "the results are bit-identical to --mesh 1")
     ap.add_argument("--smoke", action="store_true",
                     help="CI-sized run: fewer seeds/steps/resamples")
     args = ap.parse_args(argv)
@@ -442,8 +455,6 @@ def main(argv=None) -> int:
         args.steps = min(args.steps, 500)
         args.boot = min(args.boot, 200)
         args.latency_horizon_s = min(args.latency_horizon_s, 2.0)
-    if args.mesh != "1":
-        raise NotImplementedError("--mesh other than 1 needs the sharded runner (ROADMAP A13)")
     if args.seeds < 2:
         raise SystemExit("--seeds must be ≥ 2 (intervals need replication)")
     if not (0 <= args.jitter < 1):
@@ -454,9 +465,26 @@ def main(argv=None) -> int:
         raise SystemExit(f"unknown sections {sorted(unknown)}; choose from {_SECTIONS}")
 
     from repro_torch.device import resolve_device
+    from repro_torch.distributed import ranks
+    from repro_torch.fleet.shard import parse_mesh_spec
 
+    mesh_f, mesh_s = parse_mesh_spec(args.mesh)
+    if mesh_f < 1 or mesh_s < 1:
+        raise ValueError(f"bad mesh spec {args.mesh!r}: both axes must be >= 1")
     device = resolve_device(args.device)
+    if mesh_f * mesh_s == 1:
+        return _program(args, sections, device)
+    ranks.spawn(mesh_f * mesh_s, _program, args, sections, device, device=device)
+    return 0
 
+
+def _program(args, sections, device) -> int:
+    """The CLI's run in one process or in every rank of a spawn: every rank
+    runs the (sharded) ensemble section, rank 0 everything else and the
+    payload."""
+    from repro_torch.distributed import ranks
+
+    lead = ranks.rank() == 0
     payload: dict = {
         "kind": "mc",
         "config": {
@@ -474,10 +502,12 @@ def main(argv=None) -> int:
     }
     with Timer() as t:
         for name in _SECTIONS:
-            if name in sections:
+            if name in sections and (lead or name == "ensemble"):
                 with Timer() as ts:
                     payload[name] = runners[name](args)
                 payload[name]["elapsed_s"] = round(ts.elapsed_s, 3)
+    if not lead:
+        return 0
     finish_payload(payload, t.elapsed_s, sections=sections, seeds=args.seeds,
                    jitter=args.jitter)
 

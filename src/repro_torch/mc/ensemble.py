@@ -297,20 +297,40 @@ def periodic_ensemble(
     carry (CUDA graphs on a card when ``jit``); this is the timed engine of
     the ``launch.mc`` throughput row (stream sampling excluded on both
     sides, the same convention ``launch.fleet`` uses for its looped
-    baseline).  ``mesh`` (the reference's sharded runner) is not ported:
-    anything but ``None`` raises.
+    baseline).
+
+    With ``mesh`` (a ``("fleet", "seed")`` mesh from
+    :func:`repro_torch.fleet.shard.fleet_mesh`, called by every rank of a
+    spawn) the seed and device axes are partitioned over the ranks — every
+    trajectory still runs the identical body, so results are bit-identical
+    to the unsharded path; all host-side aggregation below is shared
+    verbatim.  A rank outside the mesh returns ``None``.
     """
-    if mesh is not None:
-        raise NotImplementedError("a mesh needs the sharded runner (ROADMAP A13)")
-    gaps = torch.as_tensor(gaps).to(device=params.device, dtype=torch.float64)
+    _check_mesh(mesh)
+    gaps = torch.as_tensor(gaps)
     if gaps.ndim != 3 or gaps.shape[2] != params.n_devices:
         raise ValueError(
             f"gaps must be (n_seeds, n_steps, {params.n_devices}), got shape {tuple(gaps.shape)}"
         )
     n_seeds, n_steps = int(gaps.shape[0]), int(gaps.shape[1])
     _check_step_count(n_steps, "periodic_ensemble")
-    return _periodic_result(params, _periodic_ens_loop(params, _gaps_buffer(gaps), jit),
-                            n_steps, keep_device_samples)
+    if mesh is not None:
+        if not mesh.is_member:
+            return None
+        from repro_torch.fleet.shard import sharded_periodic_ens_scan
+
+        carry = sharded_periodic_ens_scan(params, gaps, mesh, jit)
+    else:
+        gaps = gaps.to(device=params.device, dtype=torch.float64)
+        carry = _periodic_ens_loop(params, _gaps_buffer(gaps), jit)
+    return _periodic_result(params, carry, n_steps, keep_device_samples)
+
+
+def _check_mesh(mesh) -> None:
+    from repro_torch.distributed.sharding import Mesh
+
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a repro_torch Mesh (fleet.shard.fleet_mesh), got {type(mesh).__name__}")
 
 
 def _periodic_result(params, carry, n_steps, keep_device_samples) -> PeriodicEnsembleResult:
@@ -448,11 +468,19 @@ def run_periodic_ensemble(
 
     Reproducibility: results are a deterministic function of ``(seed,
     seed_chunk)`` on one device — changing the chunk size repartitions the
-    randomness (it never changes the *distribution*).  ``mesh`` (the
-    reference's sharded runner) is not ported: anything but ``None`` raises.
+    randomness (it never changes the *distribution*).
+
+    ``mesh`` (from :func:`repro_torch.fleet.shard.fleet_mesh`, every rank
+    of a spawn calling with the same arguments) shards every chunk's seed
+    and device axes over the ranks; gap sampling, chunking and all
+    host-side merging are identical, so sharded results are bit-identical
+    to the unsharded run for the same ``(seed, seed_chunk)`` on the same
+    kind of device.  Each rank draws the chunk's whole stream and keeps its
+    block.  A rank outside the mesh returns ``None``.
     """
-    if mesh is not None:
-        raise NotImplementedError("a mesh needs the sharded runner (ROADMAP A13)")
+    _check_mesh(mesh)
+    if mesh is not None and not mesh.is_member:
+        return None
     if n_seeds <= 0:
         raise ValueError(f"n_seeds must be positive, got {n_seeds}")
     if n_steps <= 0:
@@ -478,12 +506,18 @@ def run_periodic_ensemble(
         chunk = min(seed_chunk, n_seeds - done)
         generator.manual_seed(chunk_seed(seed, chunk_idx))
         gaps = process.sample_gaps(generator, chunk * n_dev, n_steps).view(chunk, n_dev, n_steps)
-        buf = _gaps_buffer(gaps.transpose(1, 2))
-        del gaps
-        if period_scale is not None:
-            buf.mul_(period_scale)
-        carry = _periodic_ens_loop(params, buf, jit)
-        del buf
+        if mesh is not None:
+            from repro_torch.fleet.shard import sharded_periodic_ens_scan
+
+            carry = sharded_periodic_ens_scan(params, gaps.transpose(1, 2), mesh, jit, period_scale)
+            del gaps
+        else:
+            buf = _gaps_buffer(gaps.transpose(1, 2))
+            del gaps
+            if period_scale is not None:
+                buf.mul_(period_scale)
+            carry = _periodic_ens_loop(params, buf, jit)
+            del buf
         parts.append(_periodic_result(params, carry, n_steps, keep_device_samples))
         done += chunk
         chunk_idx += 1

@@ -4,11 +4,13 @@
 Per-tensor symmetric int8 quantization with an error-feedback accumulator
 (Seide et al. 2014 / 1-bit SGD lineage): the quantization residual is
 carried into the next step, so compression error does not bias
-convergence.  The reference applies it to the gradients it reduces over a
-multi-pod mesh's "pod" axis (``compress_psum``); on one card there is no
-such axis, and ``compress_psum`` raises until the multi-rank slice.
+convergence.  :func:`compress_psum` is the reference's reduction of the
+gradients over a multi-pod mesh's "pod" axis: every rank of a mesh of
+ranks (:mod:`repro_torch.distributed.ranks`) quantizes its own gradients
+and the dequantized values are mean-reduced over the axis.
 :func:`error_feedback` is its local half: quantize, dequantize, carry the
-residual.
+residual.  Its use inside the train step waits, with the train step on a
+mesh, for the second half of ROADMAP A13a.
 """
 from __future__ import annotations
 
@@ -16,7 +18,8 @@ from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch.distributed.sharding import MULTI_RANK
+from repro_torch.distributed import ranks
+from repro_torch.distributed.sharding import current_mesh
 from repro_torch.tree import paths, tree_map, unflatten_like
 
 
@@ -35,7 +38,9 @@ def init_error(grads_shape: Any) -> CompressState:
 def quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-tensor int8.  Returns (q int8, scale fp32 scalar)."""
     xf = x.float()
-    scale = torch.clamp(torch.max(torch.abs(xf)), min=1e-12) / 127.0
+    # a tensor divisor: a CUDA tensor divided by a host scalar is a product
+    # with its reciprocal, which the CPU and the reference do not compute
+    scale = torch.clamp(torch.max(torch.abs(xf)), min=1e-12) / torch.full((), 127.0, device=xf.device)
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -58,7 +63,20 @@ def error_feedback(grads: Any, err: CompressState) -> tuple[Any, CompressState]:
     return unflatten_like(grads, deq), CompressState(error=unflatten_like(grads, new_e))
 
 
-def compress_psum(grads: Any, err: CompressState, axis_name: str):
+def compress_psum(grads: Any, err: CompressState, axis_name: str, mesh=None) -> tuple[Any, CompressState]:
     """The reference's error-feedback int8 all-reduce over ``axis_name``:
-    it needs the pod axis of a multi-rank mesh."""
-    raise NotImplementedError(f"compress_psum over {axis_name!r}: {MULTI_RANK}")
+    each rank's (g + e) is quantized and dequantized (:func:`error_feedback`)
+    and the dequantized values are summed over the axis and divided by its
+    size.  Called by every rank of ``mesh`` (default: the mesh installed by
+    ``use_sharding``); returns (mean-reduced fp32 grads, new error state).
+    On an axis of size 1 it is :func:`error_feedback`."""
+    mesh = mesh if mesh is not None else current_mesh()
+    if mesh is None or axis_name not in mesh.axis_names:
+        raise ValueError(
+            f"compress_psum over {axis_name!r} needs a mesh with that axis: pass mesh= or "
+            "install one with use_sharding (launch.mesh.make_rank_mesh)"
+        )
+    deq, new_err = error_feedback(grads, err)
+    n = mesh.shape[axis_name]
+    out = tree_map(lambda d: ranks.psum(d, axis_name, mesh) / torch.full((), float(n), device=d.device), deq)
+    return out, new_err

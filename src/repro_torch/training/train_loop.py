@@ -10,7 +10,8 @@ place, so the returned state holds the same tensors.
 On one device ``gather_weights_once`` has no FSDP axes to gather and
 ``grad_compress_pod`` no pod axis to reduce over: both do nothing.  A mesh
 of more than one device (the reference's compressed cross-pod branch
-among its uses) raises until the multi-rank slice.
+among its uses; ``optim.grad_compress.compress_psum`` itself runs on a mesh
+of ranks) raises until the second half of ROADMAP A13a.
 """
 from __future__ import annotations
 

@@ -142,12 +142,19 @@ def test_serialized_bytes_equal_jax_on_the_zlib_codec(zlib_reference):
     tree = _tree_np(4)
     for mode in MODES:
         assert serialize(_port_tree(tree), mode=mode) == zlib_reference.serialize(tree, mode=mode)
+        # and the leaves inflate on that many threads into the reference's restore
+        blob = zlib_reference.serialize(tree, mode=mode)
+        ours, theirs = deserialize(blob, device="cpu"), zlib_reference.deserialize(blob)
+        assert ours.keys() == theirs.keys()
+        for k in ours:
+            np.testing.assert_array_equal(ours[k].float().numpy(), np.asarray(theirs[k], dtype=np.float32))
 
 
 @pytest.mark.parametrize("threads", [1, 3])
 def test_compression_threads_write_the_reference_blob(zlib_reference, monkeypatch, threads):
     """More leaves than compressions in flight: the blob is the same at any
-    thread count, and the reference's."""
+    thread count, and the reference's; reading it on that many threads
+    restores what the reference restores."""
     import repro_torch.checkpoint.serializer as ser
 
     monkeypatch.setattr(ser, "_ZLIB_THREADS", threads)
@@ -156,6 +163,12 @@ def test_compression_threads_write_the_reference_blob(zlib_reference, monkeypatc
                           "b": rng.standard_normal((5,)).astype(np.float32)} for i in range(9)}
     for mode in MODES:
         assert serialize(_port_tree(tree), mode=mode) == zlib_reference.serialize(tree, mode=mode)
+        # and the leaves inflate on that many threads into the reference's restore
+        blob = zlib_reference.serialize(tree, mode=mode)
+        ours, theirs = deserialize(blob, device="cpu"), zlib_reference.deserialize(blob)
+        assert ours.keys() == theirs.keys()
+        for k in ours:
+            np.testing.assert_array_equal(ours[k].float().numpy(), np.asarray(theirs[k], dtype=np.float32))
 
 
 def test_zstd_codec_blob_raises(jser):

@@ -4,10 +4,13 @@ arguments, on the CPU (``--device cpu``).
 
 The payloads carry the same keys and values; timing and manifest keys are
 excepted (``meta``, ``manifest``, the throughput blocks' times and rates),
-and so is the reference fleet CLI's ``throughput.sharded`` block, which
-comes with the sharded runner (ROADMAP A13).  The sweep payloads' phase-sum
-quantities follow the scalar oracle where the reference departs from it
-(ROADMAP C-ref-6, ``tests/test_torch_batch_eval.py``)."""
+and the port's additions to the sharded blocks (``runtime``, the
+acceptance scan's ``unsharded`` replay).  ``--mesh 2`` spawns two gloo
+ranks on the CPU; its blocks equal the reference's ``--mesh 1`` (the one
+mesh a one-device JAX process has) apart from the mesh and shard count.
+The sweep payloads' phase-sum quantities follow the scalar oracle where
+the reference departs from it (ROADMAP C-ref-6,
+``tests/test_torch_batch_eval.py``)."""
 import json
 
 import numpy as np
@@ -92,8 +95,11 @@ def test_sweep_cli_gives_the_reference_payload(jref, tmp_path, name):
 
 def _strip(throughput: dict) -> dict:
     return {mode: {k: ({kk: vv for kk, vv in v.items() if kk not in TIMING} if isinstance(v, dict) else v)
-                   for k, v in block.items() if k not in TIMING}
-            for mode, block in throughput.items() if mode != "sharded"}
+                   for k, v in block.items() if k not in TIMING + PORT_ONLY}
+            for mode, block in throughput.items()}
+
+
+PORT_ONLY = ("runtime", "unsharded")
 
 
 FLEETS = {
@@ -118,14 +124,42 @@ def test_fleet_cli_gives_the_reference_payload(jref, tmp_path, name):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--mesh", "auto"], "A13"),
-    (["--mesh", "4x2"], "A13"),
-    (["--mesh", "2"], "A13"),
-    (["--acceptance-devices", "1000"], "A13"),
+    (["--mesh", "2x2x2"], "bad mesh spec"),
+    (["--mesh", "axb"], "bad mesh spec"),
+    (["--mesh", "0"], "both axes must be >= 1"),
+    (["--mesh", "2x0"], "both axes must be >= 1"),
 ])
 def test_fleet_cli_features_not_ported_raise(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """Every feature of the reference's fleet CLI is ported (``--mesh`` and
+    ``--acceptance-devices`` since the multi-rank runtime); what still
+    raises is a mesh no rank count can hold, before any rank is spawned."""
+    with pytest.raises(ValueError, match=item):
         fleet.main(["--device", "cpu", "--smoke", "--devices", "8"] + argv)
+
+
+def test_fleet_cli_mesh_2_acceptance_equals_the_reference(jref, tmp_path):
+    """``--mesh 2 --acceptance-devices 4096`` on two CPU ranks: the sharded
+    blocks bit for bit against ``run_periodic`` and equal to the
+    reference's (its ``--mesh 1``), every budget exhausted, the ledger
+    conserving within 1e-9, the runtime reported."""
+    argv = ["--smoke", "--devices", "30", "--mode", "periodic", "--budget-j", "5", "--horizon", "40",
+            "--acceptance-devices", "4096"]
+    ours = _run(fleet.main, argv + ["--device", "cpu", "--mesh", "2"], tmp_path / "ours.json")
+    ref = _run(jref["fleet"].main, argv + ["--mesh", "1"], tmp_path / "ref.json")
+    assert ours.keys() == ref.keys()
+    for key in ("kind", "config", "summary", "n_steps", "oracle_self_check"):
+        assert ours[key] == ref[key], key
+    sh, rsh = ours["throughput"]["sharded"], ref["throughput"]["sharded"]
+    assert (sh["mesh"], sh["n_shards"], rsh["mesh"]) == ("2x1", 2, "1x1")
+    assert sh["bit_identical_to_unsharded"] and rsh["bit_identical_to_unsharded"]
+    runtime = {"ranks": 2, "backend": "gloo", "staged": "host", "ranks_per_card": None}
+    assert {k: sh["runtime"][k] for k in runtime} == runtime and sh["runtime"]["spawn_s"] > 0
+    acc, racc = ours["sharded_acceptance"], ref["sharded_acceptance"]
+    same = set(racc) - set(TIMING) - {"mesh", "n_shards"}
+    assert {k: acc[k] for k in same} == {k: racc[k] for k in same}
+    assert acc["all_budget_exhausted"] and acc["ledger_conservation"]["within_1e-9"]
+    assert acc["unsharded"]["bit_identical"] and acc["runtime"]["ranks"] == 2
+    assert acc["steps_executed"] == acc["n_steps_cap"] == 4096
 
 
 def test_clis_default_to_the_card_and_raise_without_it(monkeypatch, capsys):

@@ -162,8 +162,34 @@ def test_module_list_covers_the_slice():
         "repro_torch.launch.train",
         "repro_torch.examples.train_lm",
         "repro_torch.tree",
+        "repro_torch.distributed.ranks",
+        "repro_torch.fleet.shard",
     ):
         assert name in mods
+
+
+def _modules_of_a_rank() -> list:
+    import sys
+
+    return sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+
+
+def test_the_multi_rank_modules_import_no_jax_in_their_ranks():
+    """``distributed/ranks.py`` and ``fleet/shard.py`` import neither jax
+    nor the JAX package, and a spawned rank that runs the sharded fleet
+    holds no module of either."""
+    from repro_torch.distributed import ranks
+
+    for rel in ("distributed/ranks.py", "fleet/shard.py"):
+        assert not _FORBIDDEN.search((PKG / rel).read_text()), rel
+    assert ranks.spawn(2, _sharded_fleet_modules, device="cpu", timeout_s=120) == []
+
+
+def _sharded_fleet_modules() -> list:
+    from repro_torch.fleet import fleet_mesh, run_periodic_sharded, uniform_fleet
+
+    run_periodic_sharded(uniform_fleet(6, device="cpu"), 20, mesh=fleet_mesh(2, 1))
+    return _modules_of_a_rank()
 
 
 def test_cuda_sources_ship_beside_the_package():
@@ -181,11 +207,15 @@ def test_build_demo_defaults_to_cuda_and_raises_without_it(monkeypatch, tmp_path
 
 
 def test_cli_defaults_to_cuda_and_raises_without_it(monkeypatch):
-    from repro_torch.launch import serve
+    from repro_torch.launch import fleet, mc, serve
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--requests", "1"])
+    # a mesh spawns no rank, and no CPU run, without the card
+    for main in (fleet.main, mc.main):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(["--smoke", "--mesh", "2"])
 
 
 def test_quickstart_defaults_to_cuda_and_raises_without_it(monkeypatch, capsys):

@@ -26,7 +26,7 @@ from repro_torch.core.arrivals import (
 )
 from repro_torch.core.phases import paper_lstm_item
 from repro_torch.core.strategies import IdlePowerMethod
-from repro_torch.fleet import dtypes, run_periodic, run_routed, uniform_fleet
+from repro_torch.fleet import dtypes, fleet_mesh, run_periodic, run_routed, uniform_fleet
 from repro_torch.mc import (
     Welford,
     bootstrap_interval,
@@ -160,8 +160,11 @@ def test_periodic_ensemble_eager_loop_equals_graph_request_and_the_ensemble_carr
     assert jref["dtypes"].ensemble_carry_dtypes(jparams) == dtypes.ENSEMBLE_CARRY_DTYPES
     with pytest.raises(ValueError):
         periodic_ensemble(params, np.ones((2, 10, 5)))
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(TypeError, match="Mesh"):
         periodic_ensemble(params, gaps, mesh=object())
+    one = periodic_ensemble(params, gaps, keep_device_samples=True, mesh=fleet_mesh(1, 1))
+    for f in ("per_device_items", "per_device_energy_mj", "per_device_lifetime_ms"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(one, f))
 
 
 @pytest.mark.parametrize("n_seeds", [1, 4])
@@ -244,7 +247,7 @@ def test_ensembles_are_deterministic_in_seed_and_chunk():
     assert np.all(r.p50_latency_ms <= r.p99_latency_ms)
     with pytest.raises(ValueError):
         run_periodic_ensemble(params, PoissonArrivals(40.0), 100, 0)
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(TypeError, match="Mesh"):
         run_periodic_ensemble(params, PoissonArrivals(40.0), 100, 2, mesh=object())
 
 
@@ -350,8 +353,27 @@ def test_mc_cli_headline_equals_the_reference_and_zero_jitter_is_exact(jref, tmp
     z = json.loads((tmp_path / "z.json").read_text())
     assert z["headline"]["crossover_ms"]["normal"]["lo"] == z["headline"]["crossover_ms"]["normal"]["hi"]
     assert z["ensemble"]["deterministic_agrees_with_fleet_kernel"] is True
-    with pytest.raises(NotImplementedError, match="A13"):
-        mc_cli.main(["--mesh", "2", "--device", "cpu"])
+    with pytest.raises(ValueError, match="bad mesh spec"):
+        mc_cli.main(["--mesh", "2x2x2", "--device", "cpu"])
+
+
+def test_mc_cli_mesh_2x2_ensemble_equals_mesh_1(tmp_path):
+    """``--mesh 2x2`` spawns four CPU ranks: the ensemble section equals
+    ``--mesh 1``'s bit for bit, and reports its runtime."""
+    from repro_torch.launch import mc as mc_cli
+
+    argv = ["--smoke", "--section", "ensemble", "--seeds", "32", "--steps", "200", "--device", "cpu"]
+    outs = {}
+    for mesh in ("1", "2x2"):
+        assert mc_cli.main(argv + ["--mesh", mesh, "--out", str(tmp_path / f"{mesh}.json")]) == 0
+        outs[mesh] = json.loads((tmp_path / f"{mesh}.json").read_text())["ensemble"]
+    assert outs["1"]["runtime"] is None
+    assert {k: outs["2x2"]["runtime"][k] for k in ("ranks", "backend", "staged")} == {
+        "ranks": 4, "backend": "gloo", "staged": "host"}
+    for blk in outs.values():
+        for k in ("elapsed_s", "mesh", "runtime"):
+            blk.pop(k)
+    assert outs["1"] == outs["2x2"]
 
 
 def test_mc_cli_writes_to_stdout_unless_given_out(tmp_path, monkeypatch, capsys):

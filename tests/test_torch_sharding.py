@@ -196,7 +196,7 @@ def test_constrain_is_the_identity_on_one_device_and_raises_beyond():
     with shd.use_sharding(make_host_mesh("cpu")):
         assert shd.constrain(x, ("batch", None)) is x
     with shd.use_sharding(make_production_mesh()):
-        with pytest.raises(NotImplementedError, match="multi-rank slice"):
+        with pytest.raises(NotImplementedError, match="second half of ROADMAP A13a"):
             shd.constrain(x, ("batch", None))
 
 
@@ -266,7 +266,7 @@ def test_shard_batch_places_the_batch_on_the_mesh_device():
     for k, v in raw.items():
         assert placed[k].device.type == "cpu"
         np.testing.assert_array_equal(placed[k].numpy(), v)
-    with pytest.raises(NotImplementedError, match="multi-rank slice"):
+    with pytest.raises(NotImplementedError, match="second half of ROADMAP A13a"):
         shard_batch(raw, make_production_mesh())
 
 
@@ -313,9 +313,19 @@ def test_error_feedback_unbiased_over_steps(jref):
 
 
 def test_compress_psum_waits_for_the_multi_rank_slice():
-    g = {"w": torch.ones(4)}
-    with pytest.raises(NotImplementedError, match="multi-rank slice"):
+    """``compress_psum`` needs a mesh with the axis (its multi-rank runs are
+    in ``tests/test_torch_moe_sharded.py``); over a pod axis of size 1 it
+    is the error feedback alone."""
+    g = {"w": torch.linspace(-1.0, 2.0, 9)}
+    with pytest.raises(ValueError, match="needs a mesh with that axis"):
         gc.compress_psum(g, gc.init_error(g), "pod")
+    with shd.use_sharding(make_host_mesh("cpu")):
+        with pytest.raises(ValueError, match="needs a mesh with that axis"):
+            gc.compress_psum(g, gc.init_error(g), "pod")
+    mesh = shd.Mesh((1, 2), ("pod", "data"))
+    out, err = gc.compress_psum(g, gc.init_error(g), "pod", mesh)
+    want, want_err = gc.error_feedback(g, gc.init_error(g))
+    assert torch.equal(out["w"], want["w"]) and torch.equal(err.error["w"], want_err.error["w"])
 
 
 # ---------------------------------------------------------------------------
