@@ -16,7 +16,9 @@ Phases, in order; any failure exits non-zero:
    at the reduced qwen3's prefill, at S 2048 beside SDPA, and at the new
    families' shapes: qwen3-moe's group 16, mixtral's window 4096 at 4608
    and 8192 tokens (SDPA with an explicit mask), hubert's bidirectional
-   head dim 80, llava's 608 tokens and jamba's attention position);
+   head dim 80, llava's 608 tokens and jamba's attention position; and
+   in fp32 at one rank's share of the mesh train step, B 4, S 128, 8 of
+   qwen3-1.7b's query heads and 4 KV heads);
 4. lstm — the LSTM kernel (one warp a batch row, the weights in registers
    where they fit, no block barrier in the step loop) against its plain
    version (fp32 and bf16, with and without an initial state, H from 1 to
@@ -208,8 +210,10 @@ Phases, in order; any failure exits non-zero:
    mc phase (1024 seeds × 4096 devices × 2000 steps, 64 seeds a chunk) on
    a 2 × 2 (fleet, seed) mesh bit for bit against the unsharded run on
    the card; one full-width MoE layer of qwen3-moe-235b-a22b (the
-   expert-parallel body) and mixtral-8x7b (the f-sharded body), fp32 and
-   bf16, on (data 1, model 4) and (data 2, model 2), B 2, S 64, each rank
+   expert-parallel body) and mixtral-8x7b (the f-sharded body), B 2, S
+   64, on (data 1, model 4) in fp32 and bf16 at both capacity factors and
+   on (data 2, model 2) in fp32 at capacity factor 1 (``MOE_MESH_RUNS``:
+   the train step took the phase's time), each rank
    drawing only its own weight blocks: at capacity factor 64 (nothing
    dropped) against the single-card dropless ``moe_block``, at 1 (slots
    dropped, counted) against ``moe_capacity_reference`` on the card,
@@ -217,9 +221,29 @@ Phases, in order; any failure exits non-zero:
    peaks; ``compress_psum`` over (pod 2) on one qwen3-1.7b decoder
    layer's gradient tree (50.3 M fp32 values) within 0.02 of the exact
    mean and bit for bit against two CPU ranks; ``launch.mc --smoke
-   --mesh 2x2``'s ensemble section equal to ``--mesh 1``'s;
+   --mesh 2x2``'s ensemble section equal to ``--mesh 1``'s; in the same
+   spawn, the GSPMD train step (``training/train_loop.py`` on a mesh of
+   ranks): (e) qwen3-1.7b at its published widths cut to 2 layers, fp32,
+   B 8, S 128 from ``SyntheticLMStream``, on (data 2, model 2), remat
+   full, 2 steps with ``gather_weights_once`` off and 2 with it on, the
+   flash kernel on each rank's local heads (launches exact: 2 a layer a
+   step a rank), held by rank 0 to the single-card step on the same
+   weights and batches (loss and grad norm within 1e-5 relative, step 1's
+   gathered gradients within max(1e-4, twice the plain path's distance
+   from float64) of each leaf's largest entry, the parameters after step
+   1 by the C-ref-9 rule), a step split into weight gather / forward /
+   backward / gradient reduce / tensor-parallel sums / AdamW with the bytes
+   each rank stages through the host, the ranks' memory peaks; (f) the
+   compressed cross-pod step (the reduced yi-6b on (pod 2, data 1, model
+   2), 3 steps at lr 1e-2) within the reference's bounds of the exact
+   one and within 1e-6 of four CPU ranks; (g) the reduced qwen3 through
+   ``launch.train.train(mesh=)``: 2 steps on (data 2, model 2), a
+   checkpoint, 2 more on ``plan_elastic_mesh``'s (data 1, model 2),
+   within 1e-4 of 4 uninterrupted steps, the checkpoint equal to a
+   single-card save of the gathered state bit for bit;
 26. the phases' seconds, the ``kernels`` JSON line (the flash and SSD
-   entries with their ``train_launches`` and gradient checks), the card
+   entries with their ``train_launches`` and gradient checks, flash's
+   ``mesh_train_launches``), the card
    line, and the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -490,6 +514,9 @@ def flash_phase(card: str) -> dict:
         (2, 32, 32, 64, 8, 128, True, 0, 0, "jamba prefill, GQA group 8"),
         (TRAIN_CLI_BATCH, TRAIN_CLI_SEQ, TRAIN_CLI_SEQ, 16, 8, 128, True, 0, 0,
          "training prefill of launch.train's qwen3-1.7b"),
+        (MESH_TRAIN_TOKENS[0] // MESH_TRAIN_SHAPE[0], MESH_TRAIN_TOKENS[1], MESH_TRAIN_TOKENS[1],
+         16 // MESH_TRAIN_SHAPE[1], 8 // MESH_TRAIN_SHAPE[1], 128, True, 0, 0,
+         "mesh training prefill: a rank's rows and heads of qwen3-1.7b"),
     ]
     new_families = {"qwen3-moe", "mixtral", "window", "hubert", "llava", "jamba"}
     entry, timed = None, {}
@@ -536,6 +563,10 @@ def flash_phase(card: str) -> dict:
                     f"{n_ops / k_ms / 1e9:.1f} TFLOP/s, {b_ms / k_ms:.2%} of its bound, "
                     f"{k_ms / l_ms:.3f}x sdpa's time a call"
                 )
+                if label.startswith("mesh") and not bf16:     # the mesh step trains in fp32
+                    timed[f"{label}, fp32"] = {"shape": f"B={b}, S={sq}, H={h}, KVH={kvh}, D={d}, causal, fp32",
+                                    "tflops": n_ops / k_ms / 1e9, "max_abs_err": err, "ms": k_ms,
+                                    "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms}
                 if bf16:   # fp32 sdpa runs cuBLAS, which keeps a workspace per capture stream
                     k_dev, l_dev = (graph_ms(f) for f in (lambda: fa.attention(q, k, v, **kw), sdpa))
                     line += (
@@ -568,6 +599,7 @@ def flash_phase(card: str) -> dict:
     entry["long_prefill"] = timed["long prefill"]
     entry["reduced_prefill"] = timed["reduced qwen3 prefill"]
     entry["training_prefill"] = timed["training prefill of launch.train's qwen3-1.7b"]
+    entry["mesh_training_prefill"] = timed["mesh training prefill: a rank's rows and heads of qwen3-1.7b, fp32"]
     entry["dense_prefills"] = {label.split()[0]: row for label, row in timed.items()
                                if label.split()[0] in DENSE}
     entry["new_family_prefills"] = {label: row for label, row in timed.items()
@@ -4005,6 +4037,14 @@ MOE_MESHES = ((1, 4), (2, 2))               # (data, model)
 MOE_MESH_TOKENS = (2, 64)                   # B, S
 MOE_MESH_SKEW = 0.5                         # a shared input direction, so that the routing piles up
 MOE_CF = (64.0, 1.0)                        # capacity factors: nothing drops; slots drop
+# (dtype, capacity factor) run on each mesh: (data 2, model 2) in fp32 at capacity factor 1 alone (its FSDP
+# gathers through gloo on the host take 2–11 s a call; the train step took the phase's time)
+MOE_MESH_RUNS = {(1, 4): (("float32", 64.0), ("float32", 1.0), ("bfloat16", 64.0), ("bfloat16", 1.0)),
+                 (2, 2): (("float32", 1.0),)}
+
+
+def _moe_cfs(shape, name: str) -> list:
+    return [cf for dtype, cf in MOE_MESH_RUNS[shape] if dtype == name]
 COMPRESS_LIMIT = 0.02                       # tests/test_multidevice.py::test_grad_compression_close_to_exact
 
 
@@ -4079,11 +4119,13 @@ def _moe_mesh_cases(archs, reduced: bool) -> dict:
         cfg = get_config(arch, reduced=reduced)
         for dtype in (torch.float32, torch.bfloat16):
             for shape, mesh in meshes.items():
+                if not _moe_cfs(shape, str(dtype)[6:]):
+                    continue
                 _, x = _moe_router_and_input(cfg, dtype, dev)
                 specs = moe.moe_pspecs(cfg, mesh, x.shape)
                 params = _moe_params(cfg, dtype, dev, specs, mesh)
                 xl = ranks.shard(x, specs["x"], mesh)
-                for cf in MOE_CF:
+                for cf in _moe_cfs(shape, str(dtype)[6:]):
                     synchronize(dev)
                     t0 = time.perf_counter()
                     with shd.use_sharding(mesh), torch.inference_mode():
@@ -4151,9 +4193,383 @@ def _ensemble_case(n_seeds: int, chunk: int, n_devices: int, n_steps: int) -> di
     return {"ens": ens, "s": time.perf_counter() - t0}
 
 
-def _mesh_ranks(ens_args: tuple, archs, reduced: bool) -> dict:
-    """The phase's one spawn: the sharded ensemble, the MoE layers and
-    ``compress_psum``, each rank's host and card memory peaks."""
+MESH_TRAIN_LAYERS = 2                       # qwen3-1.7b at its published widths, cut to 2 layers: the
+                                            # gloo-on-host gathers of its 311 M-parameter embedding
+MESH_TRAIN_SHAPE = (2, 2)                   # (data, model)
+MESH_TRAIN_TOKENS = (8, 128)                # B, S from SyntheticLMStream
+MESH_TRAIN_STEPS = 2                        # a run: one with gather_weights_once off, one with it on
+MESH_TRAIN_LR = 3e-4                        # launch.train's default
+MESH_TRAIN_SEED = 21
+MESH_TRAIN_LIMIT = {"loss": 1e-5, "grad_norm": 1e-5, "grad": 1e-4}   # relative; a gradient to its leaf's largest
+MESH_UPDATE_REL = 1e-6                      # parameters after step 1 where the update is decided (_decided), else 2·lr
+MESH_COMPRESS_SHAPE = (2, 1, 2)             # (pod, data, model): the reduced yi-6b, tests/test_multidevice.py:257-297
+MESH_COMPRESS_STEPS, MESH_COMPRESS_LR = 3, 1e-2
+MESH_COMPRESS_CPU = (1e-6, 1e-5)            # the card's losses against the CPU ranks', relative: the first (one
+                                            # forward on equal weights); the later ones, after AdamW steps at lr
+                                            # 1e-2 that carry the two devices' fp32 roundings and the int8
+                                            # roundings they flip (1.79e-6 at step 3 on an H100, PERF.md)
+MESH_ELASTIC = (4, 2)                       # uninterrupted steps on (data 2, model 2), then 2 + 2 across the re-mesh
+MESH_ELASTIC_LIMIT = 1e-4                   # the losses across the re-mesh (the reference allows 2e-3)
+MESH_ELASTIC_DIR = ROOT / "build" / "chip_smoke_elastic"
+
+
+def _mesh_train_cfg(reduced: bool):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(ARCH, reduced=reduced)
+    return cfg if reduced else dataclasses.replace(cfg, num_layers=MESH_TRAIN_LAYERS)
+
+
+def _mesh_train_params(cfg, dev, dtype):
+    import torch
+
+    from repro_torch.models import model_zoo as zoo
+
+    return zoo.init_params(cfg, torch.Generator(dev).manual_seed(MESH_TRAIN_SEED), dtype)
+
+
+def _mesh_train_batches(cfg, dev, mesh=None) -> list:
+    from repro_torch.data.pipeline import SyntheticLMStream, batch_for_arch, shard_batch
+    from repro_torch.launch.mesh import make_host_mesh
+
+    stream = SyntheticLMStream(cfg.vocab_size, *MESH_TRAIN_TOKENS, seed=MESH_TRAIN_SEED)
+    return [shard_batch(batch_for_arch(cfg, stream.next_batch()), mesh if mesh is not None else make_host_mesh(dev))
+            for _ in range(MESH_TRAIN_STEPS)]
+
+
+def _sync_rank() -> None:
+    import torch
+
+    from repro_torch.distributed import ranks
+
+    if ranks.device().type == "cuda":
+        torch.cuda.synchronize(ranks.device())
+
+
+def _stats_sum(stats: dict, key: str, tags=None) -> float:
+    return sum(v[key] for tag, v in stats.items() if tags is None or tag in tags)
+
+
+def _mesh_train_run(cfg, perf, mesh) -> dict:
+    """One run of ``MESH_TRAIN_STEPS`` steps on ``mesh``; the last step
+    split into weight gather / forward / backward / gradient reduce /
+    AdamW by the collectives' own seconds (``ranks.stats``).  A run with
+    ``gather_weights_once`` off keeps this rank's blocks of step 1's
+    gradients and of the parameters and second moments after it."""
+    import copy
+
+    import torch
+
+    from repro_torch.distributed import ranks
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.training.train_loop import make_train_step
+    from repro_torch.tree import paths
+
+    dev = ranks.device()
+    with shd.use_sharding(mesh):
+        fns = make_train_step(cfg, perf, mesh=mesh)
+        state = fns.init_state(_mesh_train_params(cfg, dev, torch.float32))
+    real_loss, marks = zoo.loss_fn, {}
+
+    def loss_fn(*args, **kw):                   # the end of the forward, for the split
+        out = real_loss(*args, **kw)
+        if ranks.stats is not None:
+            _sync_rank()
+            marks["forward"], marks["stats"] = time.perf_counter(), copy.deepcopy(ranks.stats)
+        return out
+
+    out = {"loss": [], "grad_norm": [], "step_s": [], "specs": paths(fns.param_pspecs)}
+    keep = not perf.gather_weights_once
+    with mock.patch.object(zoo, "loss_fn", loss_fn):
+        for step, batch in enumerate(_mesh_train_batches(cfg, dev, mesh)):
+            if step == MESH_TRAIN_STEPS - 1:
+                ranks.stats = {}
+            _sync_rank()
+            t0 = time.perf_counter()
+            loss, grads = fns.loss_and_grads(state.params, batch)
+            _sync_rank()
+            t1 = time.perf_counter()
+            if step == 0 and keep:
+                out["grads"] = {k: g.clone() for k, g in grads.items()}
+            state, m = fns.apply_grads(state, loss, grads, MESH_TRAIN_LR)
+            _sync_rank()
+            t2 = time.perf_counter()
+            del grads
+            out["loss"].append(float(m["loss"]))
+            out["grad_norm"].append(float(m["grad_norm"]))
+            out["step_s"].append(t2 - t0)
+            if step == 0 and keep:
+                out["params"] = {k: t.detach().clone() for k, t in paths(state.params).items()}
+                out["v"] = {k: t.clone() for k, t in paths(state.opt.v).items()}
+            if ranks.stats is not None:
+                stats, fwd_stats = ranks.stats, marks["stats"]
+                ranks.stats = None
+                fwd_coll = _stats_sum(fwd_stats, "s")
+                bwd_coll = _stats_sum(stats, "s", set(stats) - {"grad norm"}) - fwd_coll
+                out["split"] = {
+                    "step": t2 - t0,
+                    "weight gather": _stats_sum(stats, "s", {"weight gather"}),
+                    "forward": marks["forward"] - t0 - fwd_coll,
+                    "backward": t1 - marks["forward"] - bwd_coll,
+                    "gradient reduce": _stats_sum(stats, "s", {"gradient reduce"}),
+                    "tensor parallel": _stats_sum(stats, "s", {"tensor parallel", "loss"}),
+                    "AdamW": t2 - t1,
+                    "host bytes": _stats_sum(stats, "bytes"),
+                    "by tag": stats,
+                }
+    return out
+
+
+def _decided(v, grad_diff: float):
+    """The elements of a leaf whose first AdamW step is decided (C-ref-9):
+    ``sqrt(v̂) ≥ 1e3·eps`` and at least 100 times the largest gradient
+    difference between the two runs compared.  Elsewhere a rounding of
+    the gradient moves the element by a different part of ``lr`` (its
+    sign may flip), so the update is held within 2·lr."""
+    import torch
+
+    root = torch.sqrt(v / (1 - 0.95))
+    return (root >= 1e3 * 1e-8) & (root >= 100 * grad_diff)
+
+
+def _mesh_train_reference(cfg, runs: dict, mesh) -> dict:
+    """This rank, alone on the card: the single-card step on the same
+    weights and batches (through the flash kernel), and step 1's
+    gradients on the plain path in fp32 and float64; the mesh runs held
+    to them, this rank's blocks against the same blocks of the single-card
+    tensors (no gather)."""
+    import torch
+
+    from repro_torch.configs.perf import PerfConfig
+    from repro_torch.distributed import ranks
+    from repro_torch.training.train_loop import make_train_step
+    from repro_torch.tree import paths, tree_map
+
+    dev = ranks.device()
+    specs = runs[False]["specs"]
+    block = lambda k, t: ranks.shard(t, specs[k], mesh)  # noqa: E731
+    fns = make_train_step(cfg, PerfConfig())
+    state = fns.init_state(_mesh_train_params(cfg, dev, torch.float32))
+    ref = {"loss": [], "grad_norm": []}
+    batches = _mesh_train_batches(cfg, dev)
+    for step, batch in enumerate(batches):
+        loss, grads = fns.loss_and_grads(state.params, batch)
+        if step == 0:
+            ref["scale"] = {k: float(g.abs().max()) for k, g in grads.items()}
+            ref["grads"] = {k: block(k, g).clone() for k, g in grads.items()}
+        state, m = fns.apply_grads(state, loss, grads, MESH_TRAIN_LR)
+        del grads
+        ref["loss"].append(float(m["loss"]))
+        ref["grad_norm"].append(float(m["grad_norm"]))
+        if step == 0:
+            ref["params"] = {k: block(k, t.detach()).clone() for k, t in paths(state.params).items()}
+            ref["p_scale"] = {k: float(t.detach().abs().max()) for k, t in paths(state.params).items()}
+    del state
+    _empty_rank_cache()
+    plain = {}
+    for dtype in (torch.float32, torch.float64):
+        params = tree_map(lambda t: t.to(dtype), _mesh_train_params(cfg, dev, torch.float32))
+        with plain_path():
+            _, g = make_train_step(cfg, PerfConfig()).loss_and_grads(params, batches[0])
+        plain[dtype] = {k: block(k, t).clone() for k, t in g.items()}
+        del params, g
+        _empty_rank_cache()
+    report = {}
+    for once, got in runs.items():
+        rel = {key: max(abs(a - b) / abs(b) for a, b in zip(got[key], ref[key])) for key in ("loss", "grad_norm")}
+        entry = {"loss": got["loss"], "grad_norm": got["grad_norm"], "rel": rel,
+                 "ref_loss": ref["loss"], "ref_grad_norm": ref["grad_norm"]}
+        if "grads" in got:
+            leaves = {}
+            for k, g in ref["grads"].items():
+                dist64 = float((plain[torch.float32][k].double() - plain[torch.float64][k]).abs().max()) / ref["scale"][k]
+                diff = float((got["grads"][k] - g).abs().max())
+                decided = _decided(got["v"][k], diff)
+                err = (got["params"][k] - ref["params"][k]).abs()
+                leaves[k] = {"grad": diff / ref["scale"][k], "bound": max(MESH_TRAIN_LIMIT["grad"], 2 * dist64),
+                             "dist64": dist64,
+                             "decided": float(torch.where(decided, err, 0).max()) / ref["p_scale"][k],
+                             "other": float(torch.where(decided, 0, err).max())}
+            entry["leaves"] = leaves
+        report[once] = entry
+    return report
+
+
+def _empty_rank_cache() -> None:
+    import torch
+
+    from repro_torch.distributed import ranks
+
+    if ranks.device().type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _mesh_train_case(reduced: bool) -> dict | None:
+    """(e) every rank: full-width qwen3-1.7b (2 layers), fp32, on (data 2,
+    model 2), 2 steps with ``gather_weights_once`` off and 2 with it on;
+    then each rank in turn holds its blocks to the single-card step."""
+    import resource
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.perf import PerfConfig
+    from repro_torch.distributed import ranks
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch.mesh import make_rank_mesh
+
+    dev = ranks.device()
+    cfg = _mesh_train_cfg(reduced)
+    mesh = make_rank_mesh(MESH_TRAIN_SHAPE)
+    _empty_rank_cache()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    fa.launches = 0
+    t0 = time.perf_counter()
+    runs = {once: _mesh_train_run(cfg, PerfConfig(gather_weights_once=once), mesh) for once in (False, True)}
+    launches, seconds = fa.launches, time.perf_counter() - t0
+    peak = (resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6,
+            torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else 0.0)
+    t1 = time.perf_counter()
+    check_ = None
+    for r in range(ranks.world_size()):         # one rank at a time: each holds a single-card model meanwhile
+        if r == ranks.rank():
+            check_ = _mesh_train_reference(cfg, runs, mesh)
+        ranks.barrier(mesh)
+    mine = {"launches": launches, "peak": peak, "split": {once: run["split"] for once, run in runs.items()},
+            "check": check_, "step_s": {once: run["step_s"] for once, run in runs.items()}}
+    everyone = [None] * ranks.world_size()
+    dist.all_gather_object(everyone, mine)
+    del runs
+    _empty_rank_cache()
+    return {"ranks": everyone, "s": seconds, "reference_s": time.perf_counter() - t1}
+
+
+def _mesh_compress_train(params_np: dict, batch_np: dict) -> dict | None:
+    """(f) the compressed cross-pod step: the reduced yi-6b on (pod 2, data
+    1, model 2) under ``perf_rules``, 3 steps, compressed and not → rank
+    0's losses (on the card or the CPU, by the spawn's device)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.perf import PerfConfig
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.distributed import ranks
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import dryrun_lib
+    from repro_torch.launch.mesh import make_rank_mesh
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.training.train_loop import make_train_step
+
+    cfg = get_config("yi-6b", reduced=True)
+    mesh = make_rank_mesh(MESH_COMPRESS_SHAPE)
+    if not mesh.is_member:
+        return None
+    t0 = time.perf_counter()
+    batch = shard_batch(batch_np, mesh)
+    out = {}
+    for compress in (False, True):
+        perf = PerfConfig(grad_compress_pod=compress)
+        with shd.use_sharding(mesh, dryrun_lib.perf_rules(perf)):
+            fns = make_train_step(cfg, perf, mesh=mesh)
+            state = fns.init_state(zoo.params_from_numpy(params_np, device=ranks.device()))
+            losses = []
+            for _ in range(MESH_COMPRESS_STEPS):
+                state, m = fns.train_step(state, batch, MESH_COMPRESS_LR)
+                losses.append(float(m["loss"]))
+        out[compress] = {"losses": losses, "err": state.compress_err is not None}
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def _mesh_compress_inputs() -> tuple:
+    """The reduced yi-6b's fp32 weights and a (8, 32) batch, drawn with
+    numpy, so the card and the CPU ranks start alike."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.tree import paths, unflatten_like
+
+    cfg = get_config("yi-6b", reduced=True)
+    rng = np.random.default_rng(MESH_TRAIN_SEED)
+    shapes = zoo.param_shapes(cfg)
+    leaves = []
+    for k, t in paths(shapes).items():
+        if "norm" in k or k.endswith("ln1") or k.endswith("ln2"):
+            leaves.append(np.ones(t.shape, np.float32))
+        else:
+            leaves.append((rng.standard_normal(t.shape) / math.sqrt(t.shape[-2])).astype(np.float32))
+    batch = {k: rng.integers(0, cfg.vocab_size, (8, 32)).astype(np.int32) for k in ("tokens", "labels")}
+    return unflatten_like(shapes, leaves), batch
+
+
+def _mesh_elastic() -> dict | None:
+    """(g) the reduced qwen3 through ``launch.train.train(mesh=)``: 4 steps
+    on (data 2, model 2) uninterrupted; 2 steps and a checkpoint, then a
+    resume on ``plan_elastic_mesh(survivors=2, model_axis=2)`` for 2 more.
+    Rank 0 also saves the gathered state of step 2 on one device, to hold
+    the blob bit for bit."""
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import ranks
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.fault_tolerance import plan_elastic_mesh
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_rank_mesh
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.training.train_loop import state_pspecs
+    from repro_torch.tree import paths, unflatten_like
+
+    dev = ranks.device()
+    t0 = time.perf_counter()
+    full_steps, first_steps = MESH_ELASTIC
+    kw = dict(batch=4, seq=32, seed=3, log_every=100, device=dev)
+    mesh_a = make_rank_mesh(MESH_TRAIN_SHAPE)
+    run_dir = MESH_ELASTIC_DIR / "run"
+    if ranks.rank() == 0:
+        shutil.rmtree(MESH_ELASTIC_DIR, ignore_errors=True)
+    ranks.barrier(mesh_a)
+    with contextlib.redirect_stdout(io.StringIO()):
+        full = train_mod.train(ARCH, steps=full_steps, mesh=mesh_a, **kw)
+        first = train_mod.train(ARCH, steps=first_steps, mesh=mesh_a, ckpt_dir=str(run_dir), ckpt_every=first_steps,
+                                **kw)
+    with shd.use_sharding(mesh_a):
+        specs = paths(state_pspecs(first["state"], zoo.param_pspecs(get_config(ARCH, reduced=True), mesh_a)))
+    whole = [ranks.unshard(t, specs[k], mesh_a) if isinstance(t, torch.Tensor) else t
+             for k, t in paths(first["state"]).items()]
+    plan = plan_elastic_mesh(survivors=2, model_axis=2)
+    mesh_b = make_rank_mesh((plan.data, plan.model))
+    with contextlib.redirect_stdout(io.StringIO()):
+        second = train_mod.train(ARCH, steps=full_steps, mesh=mesh_b, ckpt_dir=str(run_dir), **kw)
+    if ranks.rank() != 0:
+        return None
+    CheckpointManager(str(MESH_ELASTIC_DIR / "single")).save(first_steps, unflatten_like(first["state"], whole))
+    name = f"step_{first_steps}.ckpt"
+    same = (run_dir / name).read_bytes() == (MESH_ELASTIC_DIR / "single" / name).read_bytes()
+    shutil.rmtree(MESH_ELASTIC_DIR, ignore_errors=True)
+    return {"full": full["losses"], "first": first["losses"], "second": second["losses"],
+            "plan": (plan.data, plan.model), "blob_equal": same, "s": time.perf_counter() - t0}
+
+
+def _mesh_train_ranks(reduced: bool, compress_inputs: tuple) -> dict:
+    """The train step's share of the phase's spawn: (e), (f), (g), with
+    the flash launches a rank of each."""
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    out = {"train": _mesh_train_case(reduced)}
+    fa.launches = 0
+    out["compress_train"] = _mesh_compress_train(*compress_inputs)
+    out["elastic"] = _mesh_elastic()
+    out["other_launches"] = fa.launches
+    return out
+
+
+def _mesh_ranks(ens_args: tuple, archs, reduced: bool, train_reduced: bool, compress_inputs: tuple) -> dict:
+    """The phase's one spawn: the sharded ensemble, the MoE layers,
+    ``compress_psum`` and the train step, each rank's host and card memory
+    peaks."""
     import resource
 
     import torch
@@ -4172,6 +4588,7 @@ def _mesh_ranks(ens_args: tuple, archs, reduced: bool) -> dict:
                                    torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else 0.0))
     out["moe"]["peaks"] = peaks
     out["compress"] = _compress_case()
+    out.update(_mesh_train_ranks(train_reduced, compress_inputs))
     return out
 
 
@@ -4288,7 +4705,7 @@ def _moe_references() -> dict:
                 refs[arch, name, "dropless"] = moe.moe_block(params, x, cfg)[0].float().cpu()
                 for shape in MOE_MESHES:
                     refs[arch, name, shape, "branch"] = moe._branch(cfg, Mesh(shape, ("data", "model")))
-                    for cf in MOE_CF:
+                    for cf in _moe_cfs(shape, name):
                         capped, _, dropped = moe.moe_capacity_reference(params, x, cfg, cf,
                                                                        dict(zip(("data", "model"), shape)))
                         refs[arch, name, shape, cf] = (capped.float().cpu(), dropped)
@@ -4316,7 +4733,7 @@ def _mesh_moe(card: str, got: dict, runtime: dict, refs: dict) -> None:
             limit = MOE_DISPATCH_LIMIT[name]
             for shape in MOE_MESHES:
                 branch = refs[arch, name, shape, "branch"]
-                for cf in MOE_CF:
+                for cf in _moe_cfs(shape, name):
                     y, _ = got["out"][arch, name, shape, cf]
                     capped, dropped = refs[arch, name, shape, cf]
                     if cf == MOE_CF[0]:
@@ -4363,13 +4780,102 @@ def _mesh_compress(card: str, card_run: dict, cpu_run: dict) -> None:
     check(n_values > 45_000_000, f"the gradient tree holds {n_values} values")
 
 
-def mesh_phase(card: str) -> None:
+def _mesh_train_report(card: str, got: dict, runtime: dict) -> int:
+    """(e) the full-width train step on (data 2, model 2) against the
+    single-card step → its flash launches, all ranks."""
+    train = got["train"]
+    per = train["ranks"]
+    cfg = _mesh_train_cfg(MOE_MESH_REDUCED)
+    per_rank = 2 * cfg.num_layers * 2 * MESH_TRAIN_STEPS if DEV == "cuda" else 0
+    b, s = MESH_TRAIN_TOKENS
+    print(f"  train step on (data {MESH_TRAIN_SHAPE[0]}, model {MESH_TRAIN_SHAPE[1]}): {ARCH} at its published "
+          f"widths, {cfg.num_layers} layers (the cut keeps the gloo-on-host gathers of the {cfg.vocab_size} x "
+          f"{cfg.d_model} embedding inside the phase), fp32, B {b}, S {s}, remat full, {runtime['ranks']} ranks on "
+          f"one card (spawn {runtime['spawn_s']:.2f} s); {train['s']:.1f} s for both runs, each rank's single-card "
+          f"reference in turn {train['reference_s']:.1f} s [{card}; one card: the runtime, not scale-out]")
+    for once in (False, True):
+        entry = per[0]["check"][once]
+        rel = {key: max(r["check"][once]["rel"][key] for r in per) for key in ("loss", "grad_norm")}
+        label = f"gather_weights_once={once}"
+        print(f"    {label}: losses {entry['loss']} against one card {entry['ref_loss']}, grad norms "
+              f"{entry['grad_norm']} against {entry['ref_grad_norm']}; worst relative loss {rel['loss']:.3g}, "
+              f"grad norm {rel['grad_norm']:.3g} over the ranks (limits {MESH_TRAIN_LIMIT['loss']}, "
+              f"{MESH_TRAIN_LIMIT['grad_norm']}); step s {[round(v, 3) for v in per[0]['step_s'][once]]}")
+        check(rel["loss"] <= MESH_TRAIN_LIMIT["loss"] and rel["grad_norm"] <= MESH_TRAIN_LIMIT["grad_norm"]
+              and all(math.isfinite(v) for v in entry["loss"]), f"the mesh train step ({label}) departs from one card")
+    leaves = [(r, k, v) for r, rank in enumerate(per) for k, v in rank["check"][False]["leaves"].items()]
+    r, leaf, worst = max(leaves, key=lambda x: x[2]["grad"] / x[2]["bound"])
+    decided = max(v["decided"] for _, _, v in leaves)
+    other = max(v["other"] for _, _, v in leaves)
+    print(f"    step 1's gradients, each rank's blocks against one card's: worst leaf {leaf} (rank {r}) "
+          f"{worst['grad']:.3g} of its largest entry (limit {worst['bound']:.3g} = max({MESH_TRAIN_LIMIT['grad']}, "
+          f"twice the plain path's distance from float64; the largest such distance "
+          f"{max(v['dist64'] for _, _, v in leaves):.3g}); parameters after step 1: {decided:.3g} of a leaf's largest "
+          f"entry where the update is decided (limit {MESH_UPDATE_REL}), {other:.3g} elsewhere (limit "
+          f"{2 * MESH_TRAIN_LR:g} = 2 lr)")
+    check(all(v["grad"] <= v["bound"] for _, _, v in leaves),
+          f"the mesh step's gradient of {leaf} is {worst['grad']:.3g} from one card's (limit {worst['bound']:.3g})")
+    check(decided <= MESH_UPDATE_REL and other <= 2 * MESH_TRAIN_LR,
+          f"the mesh step's parameters after step 1: {decided:.3g}, {other:.3g}")
+    for once in (False, True):
+        sp = per[0]["split"][once]
+        top = max(range(len(per)), key=lambda i: per[i]["split"][once]["step"])
+        print(f"    gather_weights_once={once}, step 2 on rank 0: {sp['step']:.3f} s = weight gather "
+              f"{sp['weight gather']:.3f} + forward {sp['forward']:.3f} + backward (with the recomputed forward) "
+              f"{sp['backward']:.3f} + gradient reduce {sp['gradient reduce']:.3f} + tensor-parallel and loss sums "
+              f"{sp['tensor parallel']:.3f} + AdamW {sp['AdamW']:.3f}; {sp['host bytes'] / 1e9:.3f} GB through "
+              f"the host a rank a step ({ {k: round(v['bytes'] / 1e9, 4) for k, v in sp['by tag'].items()} } GB by "
+              f"tag); slowest rank {top}, {per[top]['split'][once]['step']:.3f} s")
+    counts = [rank["launches"] for rank in per]
+    print(f"    during the mesh runs: host memory peak a rank {max(rank['peak'][0] for rank in per):.2f} GB, card "
+          f"memory peak a rank {[round(rank['peak'][1], 2) for rank in per]} GB; flash launches a rank {counts} "
+          f"(expected {per_rank}: 2 a layer a step under remat full)")
+    check(all(n == per_rank for n in counts), f"mesh train flash launches {counts}, not {per_rank}")
+    return sum(counts)
+
+
+def _mesh_compress_report(card: str, got: dict, cpu: dict) -> None:
+    """(f) the compressed cross-pod step against the uncompressed one and
+    the CPU ranks."""
+    exact, comp = got[False]["losses"], got[True]["losses"]
+    gaps = [[abs(a - b) / abs(b) for a, b in zip(got[run]["losses"], cpu[run]["losses"])] for run in (False, True)]
+    first, later = max(g[0] for g in gaps), max(v for g in gaps for v in g[1:])
+    print(f"  compressed cross-pod step, reduced yi-6b on (pod {MESH_COMPRESS_SHAPE[0]}, data {MESH_COMPRESS_SHAPE[1]}, "
+          f"model {MESH_COMPRESS_SHAPE[2]}), {MESH_COMPRESS_STEPS} steps at lr {MESH_COMPRESS_LR}: compressed {comp}, "
+          f"exact {exact}; first {abs(comp[0] - exact[0]):.3g} (limit 1e-3), last {abs(comp[-1] - exact[-1]):.3g} "
+          f"(limit 0.05); the card's losses against four CPU ranks', relative: the first {first:.3g} (limit "
+          f"{MESH_COMPRESS_CPU[0]}), the later ones {later:.3g} (limit {MESH_COMPRESS_CPU[1]}); {got['s']:.1f} s "
+          f"[{card}]")
+    check(all(math.isfinite(v) for v in comp) and abs(comp[0] - exact[0]) < 1e-3 and abs(comp[-1] - exact[-1]) < 0.05,
+          "the compressed cross-pod step departs from the exact one")
+    check(got[True]["err"], "the compressed step kept no error-feedback state")
+    check(first <= MESH_COMPRESS_CPU[0] and later <= MESH_COMPRESS_CPU[1],
+          f"the card's cross-pod losses are {first:.3g}, {later:.3g} from the CPU's")
+
+
+def _mesh_elastic_report(card: str, got: dict) -> None:
+    """(g) the elastic resume across a re-mesh."""
+    resumed = got["first"] + got["second"]
+    err = max(abs(a - b) for a, b in zip(resumed, got["full"]))
+    print(f"  elastic resume, reduced {ARCH} through launch.train.train(mesh=): {got['first']} on (data 2, model 2), "
+          f"a checkpoint, then {got['second']} on the survivors' (data {got['plan'][0]}, model {got['plan'][1]}) "
+          f"against {got['full']} uninterrupted: {err:.3g} (limit {MESH_ELASTIC_LIMIT}); the checkpoint equals a "
+          f"single-card save of the gathered state bit for bit: {got['blob_equal']}; {got['s']:.1f} s [{card}]")
+    check(got["plan"] == (1, 2) and len(resumed) == len(got["full"]) and err <= MESH_ELASTIC_LIMIT,
+          f"the elastic resume departs by {err:.3g}")
+    check(got["blob_equal"], "the mesh checkpoint differs from a single-card save of the same state")
+
+
+def mesh_phase(card: str) -> int:
     """The multi-rank runtime on one card: the sharded acceptance scan
     through ``launch.fleet``; then one spawn of four ranks for the sharded
-    ensemble, the MoE's two sharded bodies at full width and
-    ``compress_psum``, while this process computes the MoE layers'
-    single-card references and runs ``compress_psum`` on two CPU ranks;
-    each sharded result held to its single-device version."""
+    ensemble, the MoE's two sharded bodies at full width,
+    ``compress_psum`` and the GSPMD train step (full-width qwen3-1.7b, the
+    compressed cross-pod step, the elastic resume), while this process
+    computes the MoE layers' single-card references and runs
+    ``compress_psum`` and the cross-pod step on CPU ranks; each sharded
+    result held to its single-device version → the train step's flash
+    launches."""
     import threading
 
     import torch
@@ -4380,11 +4886,12 @@ def mesh_phase(card: str) -> None:
         torch.cuda.empty_cache()
     _mesh_acceptance(card)
     box: dict = {}
+    compress_inputs = _mesh_compress_inputs()
 
     def run_ranks():
         try:
             box["got"] = ranks.spawn(MESH_RANKS, _mesh_ranks, (MC_SEEDS, MESH_ENS_CHUNK, MC_DEVICES, MC_STEPS),
-                                     MOE_MESH_ARCHS, MOE_MESH_REDUCED, device=DEV)
+                                     MOE_MESH_ARCHS, MOE_MESH_REDUCED, MOE_MESH_REDUCED, compress_inputs, device=DEV)
         except BaseException as e:              # re-raised below, once this process's share is done
             box["error"] = e
 
@@ -4393,6 +4900,7 @@ def mesh_phase(card: str) -> None:
     thread.start()
     refs = _moe_references()
     cpu_compress = ranks.spawn(2, _compress_case, device="cpu")
+    cpu_crosspod = ranks.spawn(math.prod(MESH_COMPRESS_SHAPE), _mesh_compress_train, *compress_inputs, device="cpu")
     s_here = time.perf_counter() - t0
     thread.join()
     if "error" in box:
@@ -4401,10 +4909,15 @@ def mesh_phase(card: str) -> None:
     rt = got["runtime"]
     print(f"  the phase's ranks: {rt['ranks']} ({rt['ranks_per_card']} a card, {rt['backend']} staged on the "
           f"{rt['staged']}), spawned in {rt['spawn_s']:.2f} s, done in {time.perf_counter() - t0:.1f} s; the "
-          f"single-card MoE references and the CPU's compress_psum meanwhile here ({s_here:.1f} s)")
+          f"single-card MoE references and the CPU's compress_psum and cross-pod step meanwhile here ({s_here:.1f} s)")
     _mesh_ensemble(card, got["ensemble"], rt)
     _mesh_moe(card, got["moe"], rt, refs)
     _mesh_compress(card, got["compress"], cpu_compress)
+    launches = _mesh_train_report(card, got, rt)
+    _mesh_compress_report(card, got["compress_train"], cpu_crosspod)
+    _mesh_elastic_report(card, got["elastic"])
+    print(f"  flash launches of the compressed and elastic runs, rank 0: {got['other_launches']}")
+    return launches
 
 
 @contextlib.contextmanager
@@ -4553,7 +5066,10 @@ def main() -> None:
         control_phase(card)
 
     with timed_phase("mesh", seconds):
-        mesh_phase(card)
+        n_fa = mesh_phase(card)
+        fa_entry["launches"] += n_fa
+        fa_entry["mesh_train_launches"] = n_fa
+        check(n_fa > 0, "the flash kernel was never launched on the mesh train step's path")
 
     print(f"phase seconds: {json.dumps(seconds)}")
     print(card)

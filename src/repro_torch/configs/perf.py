@@ -2,13 +2,18 @@
 
 Defaults are the reference's baseline.  The training levers act here:
 ``num_microbatches``, ``remat`` (``full | dots | none``),
-``optimizer_moment_dtype``, ``loss_chunk`` and ``ssd_chunk``.  Nothing on
-one device reads the sharding levers, ``moe_capacity_factor`` (the
-reference's ``moe_block`` ignores it without a mesh) or
-``grad_compress_pod`` (no pod axis): they keep the reference's surface
-until the train step on a mesh (the second half of ROADMAP A13a) wires
-them.  ``models.moe.moe_block`` on a mesh of ranks takes its capacity
-factor as an argument.
+``optimizer_moment_dtype``, ``loss_chunk`` and ``ssd_chunk``.  The train
+step on a mesh of ranks (``training/train_loop.py``) reads
+``gather_weights_once`` (gather the FSDP blocks once a step, not at each
+use) and ``grad_compress_pod`` (the compressed cross-pod branch, with
+``launch.dryrun_lib.perf_rules``); on one device both do nothing.  The
+rest keeps the reference's surface until the slices that read it
+(ROADMAP): ``seq_parallel_residual``, ``shard_long_cache_over_model`` and
+``shard_cache_seq_over_model`` (which ``perf_rules`` maps into the rule
+table, but no sharded prefill or decode reads yet) and
+``moe_capacity_factor`` (the reference's ``moe_block`` ignores it without
+a mesh; ``models.moe.moe_block`` on a mesh of ranks takes its capacity
+factor as an argument).
 
 The reference's kernel-choice fields (``attention_impl``, ``ssd_impl``,
 ``attn_scores_dtype``, ``attn_triangular``) are left out: on the card the

@@ -6,21 +6,23 @@ reference, so the two give the same batches element for element:
     resume-after-failure is exact and data needs no checkpoint beyond the
     step counter);
   * ``batch_for_arch`` — adapt a token batch to the arch's modality;
-  * ``shard_batch`` — place a host batch on the mesh's device as tensors;
+  * ``shard_batch`` — place a host batch on the mesh's device as tensors
+    (on a mesh of ranks, this rank's rows);
   * ``TimeSeriesStream`` — the paper's sensor workload (windowed IMU-like
     series → class labels) feeding the LSTM accelerator examples.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import MULTI_RANK
+from repro_torch.distributed import ranks
+from repro_torch.distributed.sharding import P
 
 
 @dataclasses.dataclass
@@ -83,16 +85,30 @@ def batch_for_arch(cfg: ArchConfig, stream_batch: dict) -> dict:
     }
 
 
-def shard_batch(batch: dict, mesh) -> dict:
+def shard_batch(batch: dict, mesh, pspecs: Optional[dict] = None) -> Optional[dict]:
     """Host arrays → tensors on the mesh's device (the card when ``mesh`` is
-    None).  On one device the whole batch goes there; a mesh of more
-    devices raises (the second half of ROADMAP A13a)."""
+    None).  On one device the whole batch goes there.  On a mesh of more
+    devices this rank gets its block of each leaf: under ``pspecs[k]``
+    where given, else its rows along the leading axis when the product of
+    the mesh's (pod, data) axes divides them, and the whole leaf otherwise
+    (the reference's rule); a rank outside the mesh gets ``None``."""
     if mesh is None:
         device = resolve_device("cuda")
-    elif mesh.size == 1 and mesh.device is not None:
-        device = mesh.device
+    elif mesh.size == 1:
+        device = mesh.device if mesh.device is not None else resolve_device("cuda")
     else:
-        raise NotImplementedError(f"shard_batch onto a {mesh.shape} mesh: {MULTI_RANK}")
+        if not mesh.is_member:
+            return None
+        dp = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+        n = int(np.prod([mesh.shape[a] for a in dp])) if dp else 1
+
+        def spec(k, x):
+            if pspecs is not None and k in pspecs:
+                return pspecs[k]
+            return P(dp if dp and x.shape[0] % n == 0 else None)
+
+        return {k: ranks.shard(torch.from_numpy(np.ascontiguousarray(v)), spec(k, v), mesh).to(mesh.device)
+                for k, v in batch.items()}
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
 
 

@@ -10,7 +10,19 @@ result.  Inside a rank, :func:`make_mesh` builds a
 ``torch.distributed.device_mesh.DeviceMesh`` (one process group a named
 axis), and :func:`psum`, :func:`pmean`, :func:`all_gather` and
 :func:`all_to_all` are the reference's ``lax`` collectives over one named
-mesh axis (or several, major to minor).
+mesh axis (or several, major to minor), and :func:`psum_scatter` is
+``lax.psum_scatter``.
+
+**Autograd.**  The collectives above move values only.  A train step on
+local blocks needs three that autograd differentiates, each the transpose
+of the other's forward: :func:`grad_psum` (identity forward, ``psum`` of
+the gradient backward: where a replicated tensor enters a region whose
+ranks each add a part of its gradient), :func:`value_psum` (``psum``
+forward, identity backward: where the ranks' parts of a value are summed
+into one that every rank then uses alike) and :func:`gather` (an
+all-gather forward, :func:`psum_scatter` of the gradient backward: FSDP's
+weight gather).  Under ``torch.utils.checkpoint`` the recomputed forward
+runs them again, in the same order on every rank.
 
 **Backend.**  Gloo, with a ``FileStore`` rendezvous in a fresh temporary
 directory (never a fixed port, so two spawns at once do not collide) and a
@@ -18,13 +30,22 @@ timeout on the group and on the join.  Gloo has no ``all_to_all`` on CUDA
 tensors, so on the card every collective copies its operand to pinned host
 memory, runs there and copies the result back — the four collectives below
 are the only place it happens — and :data:`RUNTIME` is what a mesh's report
-says (``backend: "gloo", staged: "host"``).  NCCL, one rank a card, waits
+says (``backend: "gloo", staged: "host"``).  Gloo has no reduce-scatter,
+so :func:`psum_scatter` is a :func:`psum` of the whole tensor followed by
+this rank's block: it moves the whole tensor where a reduce-scatter would
+move a block, and :data:`stats` counts those bytes.  NCCL, one rank a card, waits
 for a machine with as many cards as ranks.
 
 **Devices.**  Each rank computes on the caller's device: ``cuda:(rank mod
 cards)`` — ``cuda:0`` for every rank on a one-card machine — or the CPU
 when asked.  A throughput measured with several ranks on one card measures
 this runtime and its host-staged collectives, not scale-out.
+
+**Traffic.**  While :data:`stats` is a dict, each staged collective
+synchronizes the device first (so its time is its own) and adds to
+``stats[tag]`` its calls, the bytes it stages (the operand to the host and
+the result back) and its seconds; ``tag`` names what the caller moves
+("weight gather", "gradient reduce", "tensor parallel", ...).
 
 **Failures.**  A rank that raises sends its traceback; :func:`spawn` then
 tears the other ranks down and raises :class:`RankError` with it.  A rank
@@ -35,6 +56,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 import os
 import pickle
 import queue
@@ -53,15 +75,21 @@ __all__ = [
     "RankError",
     "all_gather",
     "all_to_all",
+    "barrier",
     "device",
+    "gather",
+    "grad_psum",
     "info",
     "make_mesh",
     "pmean",
     "psum",
+    "psum_scatter",
     "rank",
     "shard",
     "spawn",
+    "stats",
     "unshard",
+    "value_psum",
     "world_size",
 ]
 
@@ -69,6 +97,10 @@ __all__ = [
 RUNTIME = {"backend": "gloo", "staged": "host"}
 
 Axes = Union[str, Sequence[str]]
+
+#: per tag: {"calls", "bytes", "s"} of the staged collectives while a dict
+#: (see the module docstring); None counts nothing
+stats: Optional[dict] = None
 
 
 class RankError(RuntimeError):
@@ -324,53 +356,83 @@ def _back(h: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return h.to(like.device)
 
 
-def psum(x: torch.Tensor, axes: Axes, mesh=None) -> torch.Tensor:
+def _sync(t: torch.Tensor) -> None:
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+
+
+def _recorded(tag: str, x: torch.Tensor, run: Callable[[], torch.Tensor]) -> torch.Tensor:
+    """``run()``, a staged collective of ``x``, added to :data:`stats`
+    while it is a dict: its operand's and result's bytes and its seconds,
+    the device synchronized before and after."""
+    if stats is None:
+        return run()
+    _sync(x)
+    t0 = time.perf_counter()
+    out = run()
+    _sync(out)
+    entry = stats.setdefault(tag, {"calls": 0, "bytes": 0, "s": 0.0})
+    entry["calls"] += 1
+    entry["bytes"] += x.numel() * x.element_size() + out.numel() * out.element_size()
+    entry["s"] += time.perf_counter() - t0
+    return out
+
+
+def psum(x: torch.Tensor, axes: Axes, mesh=None, *, tag: str = "psum") -> torch.Tensor:
     """``lax.psum``: the sum over the named axes (16-bit floats are summed
     in fp32 and rounded once)."""
     import torch.distributed as dist
 
     mesh = _mesh(mesh)
-    out = x
-    for axis in _axes(axes):
-        if mesh.shape[axis] == 1:
-            continue
-        wide = out.float() if out.dtype in (torch.bfloat16, torch.float16) else out
-        h = _host(wide)
-        h = h.clone() if h is wide else h
-        dist.all_reduce(h, op=dist.ReduceOp.SUM, group=_group(mesh, axis))
-        out = _back(h, wide).to(x.dtype)
-    return out
+    if not _live(axes, mesh):
+        return x
+
+    def run():
+        out = x
+        for axis in _live(axes, mesh):
+            wide = out.float() if out.dtype in (torch.bfloat16, torch.float16) else out
+            h = _host(wide)
+            h = h.clone() if h is wide else h
+            dist.all_reduce(h, op=dist.ReduceOp.SUM, group=_group(mesh, axis))
+            out = _back(h, wide).to(x.dtype)
+        return out
+
+    return _recorded(tag, x, run)
 
 
-def pmean(x: torch.Tensor, axes: Axes, mesh=None) -> torch.Tensor:
+def pmean(x: torch.Tensor, axes: Axes, mesh=None, *, tag: str = "psum") -> torch.Tensor:
     """``lax.pmean``: :func:`psum` divided by the axes' size."""
     mesh = _mesh(mesh)
     n = 1
     for axis in _axes(axes):
         n *= mesh.shape[axis]
-    return psum(x, axes, mesh) / n if n > 1 else x
+    return psum(x, axes, mesh, tag=tag) / n if n > 1 else x
 
 
-def all_gather(x: torch.Tensor, axes: Axes, dim: int = 0, mesh=None) -> torch.Tensor:
+def all_gather(x: torch.Tensor, axes: Axes, dim: int = 0, mesh=None, *, tag: str = "all_gather") -> torch.Tensor:
     """``lax.all_gather(..., tiled=True)``: the axis members' blocks
     concatenated along ``dim`` in coordinate order; several axes gather the
     minor axis first, so the blocks come out major to minor."""
     import torch.distributed as dist
 
     mesh = _mesh(mesh)
-    out = x
-    for axis in reversed(_axes(axes)):
-        n = mesh.shape[axis]
-        if n == 1:
-            continue
-        h = _host(out)
-        parts = [torch.empty_like(h) for _ in range(n)]
-        dist.all_gather(parts, h, group=_group(mesh, axis))
-        out = _back(torch.cat(parts, dim=dim), out)
-    return out
+    if not _live(axes, mesh):
+        return x
+
+    def run():
+        out = x
+        for axis in reversed(_live(axes, mesh)):
+            h = _host(out)
+            parts = [torch.empty_like(h) for _ in range(mesh.shape[axis])]
+            dist.all_gather(parts, h, group=_group(mesh, axis))
+            out = _back(torch.cat(parts, dim=dim), out)
+        return out
+
+    return _recorded(tag, x, run)
 
 
-def all_to_all(x: torch.Tensor, axis: str, split_dim: int, concat_dim: int, mesh=None) -> torch.Tensor:
+def all_to_all(x: torch.Tensor, axis: str, split_dim: int, concat_dim: int, mesh=None, *,
+               tag: str = "all_to_all") -> torch.Tensor:
     """``lax.all_to_all(..., tiled=True)`` over one axis: ``x`` is cut into
     the axis' size blocks along ``split_dim``, block j goes to member j, and
     the blocks received are concatenated along ``concat_dim`` in the
@@ -383,10 +445,109 @@ def all_to_all(x: torch.Tensor, axis: str, split_dim: int, concat_dim: int, mesh
         return x
     if x.shape[split_dim] % n:
         raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)} does not split {n} ways")
-    send = _host(torch.stack(torch.chunk(x, n, dim=split_dim)))
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=_group(mesh, axis))
-    return _back(torch.cat(list(recv.unbind(0)), dim=concat_dim), x)
+
+    def run():
+        send = _host(torch.stack(torch.chunk(x, n, dim=split_dim)))
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=_group(mesh, axis))
+        return _back(torch.cat(list(recv.unbind(0)), dim=concat_dim), x)
+
+    return _recorded(tag, x, run)
+
+
+def _block(t: torch.Tensor, axes: tuple, dim: int, mesh) -> torch.Tensor:
+    """This rank's block of ``t`` along ``dim``, split over ``axes`` (major
+    to minor, as :func:`shard` cuts)."""
+    n = math.prod(mesh.shape[a] for a in axes)
+    if t.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split over {axes} ({n})")
+    return t.chunk(n, dim)[mesh.index(axes)].contiguous()
+
+
+def psum_scatter(x: torch.Tensor, axes: Axes, dim: int = 0, mesh=None, *, tag: str = "psum_scatter") -> torch.Tensor:
+    """``lax.psum_scatter(..., tiled=True)``: the sum over the named axes,
+    of which this rank keeps its block along ``dim``.  Gloo has no
+    reduce-scatter: this is a :func:`psum` of the whole tensor, then the
+    block."""
+    mesh = _mesh(mesh)
+    axes = _live(axes, mesh)
+    return _block(psum(x, axes, mesh, tag=tag), axes, dim, mesh) if axes else x
+
+
+def barrier(mesh=None) -> None:
+    """Wait until every rank of ``mesh`` arrives (a sum over all its axes)."""
+    mesh = _mesh(mesh)
+    psum(torch.zeros(1, device=mesh.device), mesh.axis_names, mesh, tag="barrier")
+
+
+# ---------------------------------------------------------------------------
+# Collectives that autograd differentiates
+# ---------------------------------------------------------------------------
+class _GradPsum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh, tag):
+        ctx.args = axes, mesh, tag
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        axes, mesh, tag = ctx.args
+        return psum(g, axes, mesh, tag=tag), None, None, None
+
+
+class _ValuePsum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh, tag):
+        return psum(x, axes, mesh, tag=tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, dim, mesh, tags, reduce):
+        ctx.args = axes, dim, mesh, tags[1], reduce
+        return all_gather(x, axes, dim, mesh, tag=tags[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        axes, dim, mesh, tag, reduce = ctx.args
+        g = psum_scatter(g, axes, dim, mesh, tag=tag) if reduce else _block(g, axes, dim, mesh)
+        return g, None, None, None, None, None
+
+
+def _live(axes: Axes, mesh) -> tuple:
+    return tuple(a for a in _axes(axes) if mesh.shape[a] > 1)
+
+
+def grad_psum(x: torch.Tensor, axes: Axes, mesh=None, *, tag: str = "psum") -> torch.Tensor:
+    """Identity forward, :func:`psum` of the gradient over ``axes``
+    backward (Megatron's *f*)."""
+    mesh = _mesh(mesh)
+    axes = _live(axes, mesh)
+    return _GradPsum.apply(x, axes, mesh, tag) if axes else x
+
+
+def value_psum(x: torch.Tensor, axes: Axes, mesh=None, *, tag: str = "psum") -> torch.Tensor:
+    """:func:`psum` forward, identity backward (Megatron's *g*)."""
+    mesh = _mesh(mesh)
+    axes = _live(axes, mesh)
+    return _ValuePsum.apply(x, axes, mesh, tag) if axes else x
+
+
+def gather(x: torch.Tensor, axes: Axes, dim: int = 0, mesh=None, *,
+           tags: tuple = ("all_gather", "psum_scatter"), reduce: bool = True) -> torch.Tensor:
+    """:func:`all_gather` forward, :func:`psum_scatter` of the gradient
+    backward: the whole tensor from this rank's block, each rank's gradient
+    summed back into the blocks.  With ``reduce=False`` the backward keeps
+    this rank's block of the gradient unsummed: for a whole tensor that
+    every rank of ``axes`` uses alike, whose gradient is the same on each.
+    ``tags`` name the forward's and the backward's traffic."""
+    mesh = _mesh(mesh)
+    axes = _live(axes, mesh)
+    return _Gather.apply(x, axes, dim, mesh, tuple(tags), reduce) if axes else x
 
 
 # ---------------------------------------------------------------------------

@@ -11,16 +11,30 @@ On one card the mesh is 1×1 (``launch.mesh.make_host_mesh``) and every
 constraint is the identity.  Inside the ranks of
 :func:`repro_torch.distributed.ranks.spawn` a mesh of more devices is
 backed by a ``torch.distributed`` ``DeviceMesh`` (one process group a named
-axis, and this rank's coordinate on each), which the explicitly collective
-code — the sharded fleet and ensemble, the MoE's expert-parallel and
-f-sharded bodies, ``compress_psum`` — runs over.  Placing a tensor by its
-logical axes on such a mesh (:func:`constrain`, the GSPMD half of the
-reference) is the second half of ROADMAP A13a: :func:`constrain` raises
-there.
+axis, and this rank's coordinate on each), over which the explicitly
+collective code runs: the sharded fleet and ensemble, the MoE's
+expert-parallel and f-sharded bodies, ``compress_psum`` and the GSPMD
+train step (``training/train_loop.py``).
+
+**Placing by logical axes on a mesh of ranks.**  Eager torch has no
+sharding propagation: a tensor does not know its layout, so there is
+nothing for ``with_sharding_constraint`` to re-lay.  The port's model code
+works on *local blocks* and moves between layouts with explicit
+collectives (:class:`Layout`: FSDP's weight gather, the tensor-parallel
+pair, the vocab-parallel sums).  :func:`constrain` is therefore an
+**assertion**: on a mesh of more than one device it checks that the local
+block has the shape ``logical_to_pspec(axes, shape=global)`` implies for
+the global ``shape`` the caller names, raises ``ValueError`` if not, and
+returns the block unchanged.  Every ``constrain`` of the reference's dense
+decoder has its counterpart at the same place of the port's.  One departs
+from the reference's layout, with the same numbers: where the KV heads
+divide over ``model``, each rank keeps only the KV heads its query heads
+read (``("batch", "act_seq", "act_heads", None)``) where the reference
+replicates them (``"act_kv"``).
 
 Usage:
     with use_sharding(mesh, rules):
-        y = constrain(x, ("batch", None, "tp"))
+        y = constrain(x, ("batch", None, "tp"), shape=global_shape)
     pspec = logical_to_pspec(("embed", "mlp"), rules, mesh)
 """
 from __future__ import annotations
@@ -33,14 +47,11 @@ from typing import Any, Optional, Sequence, Union
 
 import torch
 
+from repro_torch.distributed import ranks
+from repro_torch.tree import paths, unflatten_like
+
 Logical = Union[str, None]
 Rules = dict[str, Union[str, tuple, None]]
-
-MULTI_RANK = (
-    "placing tensors by their logical axes over a mesh of more than one "
-    "device (constrain, shard_batch, the GSPMD train step) waits for the "
-    "second half of ROADMAP A13a"
-)
 
 # The reference's rule table (its DESIGN.md §6).
 DEFAULT_RULES: Rules = {
@@ -213,13 +224,45 @@ def logical_to_pspec(
     return PartitionSpec(*out)
 
 
-def constrain(x: torch.Tensor, axes: Sequence[Logical]) -> torch.Tensor:
-    """The identity with no mesh or on a one-device mesh; raises on a mesh
-    of more devices (the second half of ROADMAP A13a)."""
-    mesh = current_mesh()
+def _entry_axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def block_shape(shape: Sequence[int], pspec: PartitionSpec, mesh: Mesh) -> tuple:
+    """The shape of one rank's block of a ``shape`` tensor under ``pspec``."""
+    out = list(shape)
+    for dim, entry in enumerate(pspec):
+        out[dim] //= math.prod(mesh.shape[a] for a in _entry_axes(entry))
+    return tuple(out)
+
+
+def constrain(
+    x: torch.Tensor,
+    axes: Sequence[Logical],
+    shape: Optional[Sequence[int]] = None,
+    mesh: Optional[Mesh] = None,
+    rules: Optional[Rules] = None,
+) -> torch.Tensor:
+    """``x`` unchanged.  With no mesh or on a one-device mesh that is all;
+    on a mesh of more devices ``x`` is this rank's block of a tensor of the
+    global ``shape``, and its shape must be the block ``axes`` imply
+    (``logical_to_pspec(axes, rules, mesh, shape)``), else ``ValueError``
+    (see the module docstring)."""
+    mesh = mesh if mesh is not None else current_mesh()
     if mesh is None or mesh.size == 1:
         return x
-    raise NotImplementedError(f"constrain{tuple(axes)} on a {mesh.shape} mesh: {MULTI_RANK}")
+    if shape is None:
+        raise ValueError(f"constrain{tuple(axes)} on a {mesh.shape} mesh needs the global shape of the block")
+    pspec = logical_to_pspec(axes, rules, mesh, shape)
+    want = block_shape(shape, pspec, mesh)
+    if tuple(x.shape) != want:
+        raise ValueError(
+            f"constrain{tuple(axes)}: a block of the global {tuple(shape)} under {pspec} on a "
+            f"{mesh.shape} mesh is {want}, got {tuple(x.shape)}"
+        )
+    return x
 
 
 def axis_size(logical: str, mesh: Optional[Mesh] = None) -> int:
@@ -257,3 +300,138 @@ def divisible(dim: int, logical: str, mesh: Optional[Mesh] = None) -> bool:
             "call in use_sharding(mesh, rules) or pass mesh= explicitly"
         )
     return dim % axis_size(logical, mesh) == 0
+
+
+# ---------------------------------------------------------------------------
+# Parameters held as blocks by a train step on a mesh of ranks
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """How a train step on a mesh of ranks holds a model's parameters and
+    runs its forward on local blocks (``training/train_loop.py``).
+
+    Each parameter is stored as this rank's block under its PartitionSpec
+    (``pspecs``, by tree path).  Before use a block is gathered over its
+    FSDP axes (every axis of its spec but ``tp``): :meth:`fetch` does it
+    where the weight is used, per microbatch and per remat replay, with an
+    autograd gather whose backward sums the ranks' gradients back into the
+    blocks; with ``gathered`` the step did it once (:meth:`gather_all`) and
+    reduces the gradients once (:meth:`reduce_all`).  The ``tp`` (model)
+    axis stays split in use: heads, ``d_ff`` and vocab are local, and
+    :meth:`enter` / :meth:`exit` are the tensor-parallel pair around each
+    region whose ranks each compute a part.
+
+    Each rank's loss is its rows' share of the global mean, so the step's
+    gradient is the sum of the ranks' over ``batch_axes`` (the axes the
+    batch rows are split over): every leaf's gradient is summed over those
+    axes, inside :meth:`fetch`'s backward or in :meth:`reduce_all`."""
+
+    mesh: Mesh
+    rules: Rules
+    pspecs: dict                 # {tree path: PartitionSpec of the stored block}
+    gathered: bool = False
+
+    def __post_init__(self):
+        for path, spec in self.pspecs.items():
+            for _, axes in self._fsdp_dims(spec):
+                if not set(axes) <= set(self.batch_axes):
+                    raise ValueError(f"{path}: FSDP axes {axes} of {spec} are not among the batch axes "
+                                     f"{self.batch_axes}")
+
+    @property
+    def tp(self) -> Optional[str]:
+        """The tensor-parallel axis, ``None`` where ``model`` is absent or 1."""
+        return "model" if self.mesh.shape.get("model", 1) > 1 else None
+
+    @property
+    def tp_size(self) -> int:
+        return self.mesh.shape[self.tp] if self.tp else 1
+
+    @property
+    def tp_index(self) -> int:
+        return self.mesh.index(self.tp) if self.tp else 0
+
+    @property
+    def batch_axes(self) -> tuple:
+        """The mesh axes the batch rows are split over, major to minor."""
+        entry = logical_to_pspec(("batch",), self.rules, self.mesh)
+        return tuple(a for a in _entry_axes(entry[0] if entry else None) if self.mesh.shape[a] > 1)
+
+    @property
+    def batch_size(self) -> int:
+        return math.prod(self.mesh.shape[a] for a in self.batch_axes)
+
+    def _fsdp_dims(self, spec) -> list:
+        out = []
+        for dim, entry in enumerate(spec):
+            axes = tuple(a for a in _entry_axes(entry) if a != "model" and self.mesh.shape[a] > 1)
+            if axes:
+                out.append((dim, axes))
+        return out
+
+    def _reduction(self, spec) -> tuple:
+        """(the FSDP dims of ``spec``, the batch axes none of them covers):
+        a gradient is summed over the latter and scattered over the
+        former."""
+        dims = self._fsdp_dims(spec)
+        covered = {a for _, axes in dims for a in axes}
+        return dims, [a for a in self.batch_axes if a not in covered]
+
+    def _spec(self, path: str, stacked: bool):
+        spec = self.pspecs[path]
+        return PartitionSpec(*spec[1:]) if stacked else spec
+
+    def fetch(self, tree: dict, prefix: str, stacked: bool = False) -> dict:
+        """The leaves of ``tree`` (under ``prefix`` in the parameter tree; a
+        layer's slice of the stacked periods when ``stacked``) gathered over
+        their FSDP axes, their gradients summed over the batch axes; as
+        they are where the step gathered them once."""
+        if self.gathered:
+            return tree
+        out = []
+        for key, t in paths(tree).items():
+            dims, rest = self._reduction(self._spec(f"{prefix}/{key}" if prefix else key, stacked))
+            t = ranks.grad_psum(t, rest, self.mesh, tag="gradient reduce")
+            for dim, axes in dims:
+                t = ranks.gather(t, axes, dim, self.mesh, tags=("weight gather", "gradient reduce"))
+            out.append(t)
+        return unflatten_like(tree, out)
+
+    def gather_all(self, params: dict) -> dict:
+        """Every block gathered over its FSDP axes (no autograd)."""
+        out = []
+        for key, t in paths(params).items():
+            for dim, axes in self._fsdp_dims(self.pspecs[key]):
+                t = ranks.all_gather(t, axes, dim, self.mesh, tag="weight gather")
+            out.append(t)
+        return unflatten_like(params, out)
+
+    def reduce_all(self, grads: dict) -> dict:
+        """Gradients of gathered leaves ({path: tensor}) summed over the
+        batch axes, each rank keeping its block."""
+        out = {}
+        for key, g in grads.items():
+            dims, rest = self._reduction(self.pspecs[key])
+            g = ranks.psum(g, rest, self.mesh, tag="gradient reduce")
+            for dim, axes in dims:
+                g = ranks.psum_scatter(g, axes, dim, self.mesh, tag="gradient reduce")
+            out[key] = g
+        return out
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """Into a tensor-parallel region: identity, the gradient summed over
+        ``tp``."""
+        return ranks.grad_psum(x, self.tp, self.mesh, tag="tensor parallel") if self.tp else x
+
+    def exit(self, x: torch.Tensor) -> torch.Tensor:
+        """Out of a tensor-parallel region: the ranks' parts summed over
+        ``tp``."""
+        return ranks.value_psum(x, self.tp, self.mesh, tag="tensor parallel") if self.tp else x
+
+    def check(self, x: torch.Tensor, axes: Sequence[Logical], shape: Sequence[int]) -> torch.Tensor:
+        """:func:`constrain` on this layout's mesh and rules."""
+        return constrain(x, axes, shape, self.mesh, self.rules)
+
+    def sharded_axes(self, path: str) -> tuple:
+        """The live mesh axes a stored leaf is split over."""
+        return tuple(a for entry in self.pspecs[path] for a in _entry_axes(entry) if self.mesh.shape[a] > 1)

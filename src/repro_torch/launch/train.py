@@ -10,6 +10,13 @@ run the flash and SSD kernels in the forward pass (and again where
 versions (``kernels/*/ops.py``).  With ``--ckpt-dir`` the state is saved
 every ``--ckpt-every`` steps on a writer thread, and a restart resumes from
 the newest complete checkpoint and the data stream's step.
+
+Called inside ``distributed.ranks.spawn`` with ``mesh=make_rank_mesh(...)``
+(a dense decoder), :func:`train` runs the train step on that mesh of ranks:
+each rank takes its rows of the same stream's batches (``shard_batch``)
+and holds its blocks of the state; checkpoints are the whole state, so a
+run may resume on a mesh of another shape (``plan_elastic_mesh``).  The
+CLI has no mesh option, as the reference's has none.
 """
 from __future__ import annotations
 
@@ -28,7 +35,7 @@ from repro_torch.distributed.fault_tolerance import StragglerDetector
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import model_zoo as zoo
 from repro_torch.optim import cosine_with_warmup
-from repro_torch.training.train_loop import make_train_step
+from repro_torch.training.train_loop import make_train_step, state_pspecs
 
 
 def train(
@@ -51,11 +58,16 @@ def train(
     """Train ``arch`` for ``steps`` steps → {"final_loss", "first_loss",
     "losses", "step_s", "state"}, from bf16 weights drawn from ``seed`` as
     in the reference.  ``step_s`` holds each step's seconds, the device
-    synchronized."""
+    synchronized.  On a mesh of ranks every rank of it calls this and gets
+    its blocks of the state (a rank outside the mesh gets ``None``); the
+    first rank prints."""
     cfg = get_config(arch, reduced=reduced)
     perf = PerfConfig(num_microbatches=num_microbatches)
     mesh = mesh if mesh is not None else make_host_mesh(device)
+    if not mesh.is_member:
+        return None
     dev = mesh.device
+    say = print if not any(mesh.coordinate) else (lambda *a, **k: None)
 
     stream = SyntheticLMStream(
         vocab_size=max(cfg.vocab_size, 2), global_batch=batch, seq_len=seq, seed=seed
@@ -65,6 +77,8 @@ def train(
         fns = make_train_step(cfg, perf, mesh=mesh)
         params = zoo.init_params(cfg, torch.Generator(dev).manual_seed(seed))
         state = fns.init_state(params)
+        del params
+        pspecs = state_pspecs(state, fns.param_pspecs) if mesh.size > 1 else None
         start_step = 0
 
         manager = ckpt = None
@@ -72,12 +86,12 @@ def train(
             manager = CheckpointManager(ckpt_dir, keep=3)
             ckpt = AsyncCheckpointer(manager)
             if resume:
-                latest, restored = manager.restore_latest(state, device=dev)
+                latest, restored = manager.restore_latest(state, device=dev, pspecs=pspecs, mesh=mesh)
                 if restored is not None:
                     state = restored
                     start_step = latest
                     stream.restore({"step": latest, "seed": seed})
-                    print(f"resumed from step {latest}")
+                    say(f"resumed from step {latest}")
 
         detector = StragglerDetector()
         losses, step_s = [], []
@@ -94,14 +108,14 @@ def train(
             losses.append(loss)
             step_s.append(dt)
             if step % log_every == 0 or step == steps - 1:
-                print(
+                say(
                     f"step {step:5d}  loss {loss:.4f}  gnorm "
                     f"{float(metrics['grad_norm']):.3f}  {dt*1000:.0f} ms"
                 )
             if ckpt and (step + 1) % ckpt_every == 0:
-                ckpt.save(step + 1, state)
+                ckpt.save(step + 1, state, pspecs, mesh)
         if ckpt:
-            ckpt.save(steps, state)
+            ckpt.save(steps, state, pspecs, mesh)
             ckpt.wait()
     return {
         "final_loss": losses[-1] if losses else float("nan"),

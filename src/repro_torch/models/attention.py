@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed import ranks
 from repro_torch.kernels.flash_attention import ops as attn_ops
 from repro_torch.kernels.flash_attention.ref import attention_reference
 from repro_torch.models.common import Spec, apply_rope, rms_norm, rope_angles
@@ -80,9 +81,18 @@ def attention_block(
     cfg: ArchConfig,
     *,
     q_offset: int = 0,
+    layout=None,
 ) -> torch.Tensor:
-    """Full-sequence attention with no cache (the encoder's forward).
-    Returns (B, S, d)."""
+    """Full-sequence attention with no cache (the encoder's forward and
+    the train step's).  Returns (B, S, d); with a ``layout`` whose ``wq``
+    is split over ``model``, on this rank's heads (module docstring)."""
+    if layout is not None and params["wq"].shape[-1] != cfg.q_dim:
+        if cfg.num_heads % layout.tp_size == 0:
+            return _attention_sharded(params, x, cfg, layout, q_offset)
+        params = {k: ranks.gather(w, layout.tp, w.dim() - 1 if k != "wo" else 0, layout.mesh,
+                                  tags=("tensor parallel",) * 2, reduce=False)
+                  if k in ("wq", "wk", "wv", "wo") and w.shape != _whole(k, cfg) else w
+                  for k, w in params.items()}
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device) + q_offset
     q, k, v = _project_qkv(params, x, cfg, positions)
@@ -90,6 +100,51 @@ def attention_block(
         q, k, v, causal=cfg.causal, window=cfg.sliding_window, q_offset=q_offset
     )
     return y.reshape(b, s, cfg.q_dim) @ params["wo"]
+
+
+def _whole(leaf: str, cfg: ArchConfig) -> tuple:
+    d, q, kv = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    return {"wq": (d, q), "wk": (d, kv), "wv": (d, kv), "wo": (q, d)}[leaf]
+
+
+def _attention_sharded(params, x, cfg: ArchConfig, layout, q_offset: int) -> torch.Tensor:
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    rows = b * layout.batch_size
+    h = layout.enter(x)
+    wq, wk, wv = params["wq"], params["wk"], params["wv"]
+    n_q = wq.shape[-1] // hd
+    q = (h @ wq).reshape(b, s, n_q, hd)
+    local_kv = wk.shape[-1] != cfg.kv_dim and cfg.num_kv_heads % layout.tp_size == 0
+    if not local_kv:
+        if wk.shape[-1] == cfg.kv_dim:          # replicated: each rank adds a part of its gradient
+            wk, wv = layout.enter(wk), layout.enter(wv)
+        else:                                   # split inside a head: gather over model
+            wk = ranks.gather(wk, layout.tp, wk.dim() - 1, layout.mesh, tags=("tensor parallel",) * 2)
+            wv = ranks.gather(wv, layout.tp, wv.dim() - 1, layout.mesh, tags=("tensor parallel",) * 2)
+    k = (h @ wk).reshape(b, s, -1, hd)
+    v = (h @ wv).reshape(b, s, -1, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, layout.enter(params["q_norm"]), cfg.norm_eps)
+        k = rms_norm(k, layout.enter(params["k_norm"]), cfg.norm_eps)
+    positions = torch.arange(s, device=x.device) + q_offset
+    cos, sin = rope_angles(positions, hd, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    q = layout.check(q, ("batch", "act_seq", "act_heads", None), (rows, s, cfg.num_heads, hd))
+    if local_kv:
+        k = layout.check(k, ("batch", "act_seq", "act_heads", None), (rows, s, cfg.num_kv_heads, hd))
+        v = layout.check(v, ("batch", "act_seq", "act_heads", None), (rows, s, cfg.num_kv_heads, hd))
+    else:
+        k = layout.check(k, ("batch", "act_seq", "act_kv", None), (rows, s, cfg.num_kv_heads, hd))
+        v = layout.check(v, ("batch", "act_seq", "act_kv", None), (rows, s, cfg.num_kv_heads, hd))
+        # the KV head of each local query head (GQA: h // group), one a query head
+        first = layout.tp_index * n_q
+        read = torch.arange(first, first + n_q, device=x.device) // (cfg.num_heads // cfg.num_kv_heads)
+        k, v = k.index_select(2, read), v.index_select(2, read)
+    y = attn_ops.attention(q, k, v, causal=cfg.causal, window=cfg.sliding_window, q_offset=q_offset)
+    y = layout.check(y, ("batch", "act_seq", "act_heads", None), (rows, s, cfg.num_heads, hd))
+    return layout.exit(y.reshape(b, s, n_q * hd) @ params["wo"])
 
 
 def attention_decode(

@@ -21,6 +21,20 @@ keeps the outputs of the unbatched matmuls (a selective-checkpoint policy,
 the counterpart of ``checkpoint_dots_with_no_batch_dims``), ``none`` keeps
 everything.  A rematerialized period runs its forward again in the
 backward pass, kernels included.
+
+On a mesh of ranks the train step passes a ``Layout``
+(``distributed/sharding.py``) to :func:`lm_loss`, which runs the dense
+decoder on local blocks: each period's weights are fetched (gathered over
+their FSDP axes) inside its rematerialized forward, so a replay gathers
+them again; attention and the MLP run their tensor-parallel bodies; the
+token embedding is vocab-parallel (rows outside this rank's block give 0,
+then a sum over ``model``), and so are the tied or untied head's logits,
+whose log-sum-exp and label pick take the max and the sums over
+``model``.  Each rank's loss is its rows' negative log-likelihood over the
+count of every rank's labels (a sum over the batch axes), so the ranks'
+losses and gradients add up to the global mean's.  The reference's
+``constrain`` calls have their counterparts here as
+``Layout.check``.
 """
 from __future__ import annotations
 
@@ -32,6 +46,7 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.perf import BASELINE, PerfConfig
+from repro_torch.distributed import ranks
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import mlp as mlp_mod
@@ -154,10 +169,16 @@ def _ffn_residual(bp: dict, x: torch.Tensor, cfg: ArchConfig, pos: int):
 
 
 def forward_block(bp: dict, x: torch.Tensor, cfg: ArchConfig, pos: int,
-                  perf: PerfConfig = BASELINE):
+                  perf: PerfConfig = BASELINE, layout=None):
     """The block at position ``pos`` over a full sequence, with no cache
-    → (x, MoE aux loss or None)."""
+    → (x, MoE aux loss or None); with a ``layout``, on local blocks (a
+    dense block: attention and the MLP)."""
     h = rms_norm(x, bp["ln1"], cfg.norm_eps)
+    if layout is not None:
+        x = x + attn.attention_block(bp["attn"], h, cfg, layout=layout)
+        x = x + mlp_mod.mlp_block(bp["mlp"], rms_norm(x, bp["ln2"], cfg.norm_eps), cfg, layout)
+        b, s, d = x.shape
+        return layout.check(x, ("batch", "act_seq", None), (b * layout.batch_size, s, d)), None
     if cfg.layer_kind(pos) == "attn":
         mix = attn.attention_block(bp["attn"], h, cfg)
     else:
@@ -192,10 +213,13 @@ def decode_block(bp: dict, x: torch.Tensor, cache, cfg: ArchConfig, pos: int):
 # Forward (full sequence) and loss
 # ---------------------------------------------------------------------------
 def _period_forward(pp: dict, x: torch.Tensor, aux: torch.Tensor, cfg: ArchConfig,
-                    perf: PerfConfig):
-    """One period's positions in order → (x, aux)."""
+                    perf: PerfConfig, layout=None):
+    """One period's positions in order → (x, aux); with a ``layout``, its
+    weights fetched first."""
+    if layout is not None:
+        pp = layout.fetch(pp, "periods", stacked=True)
     for i in range(period_len(cfg)):
-        x, a = forward_block(pp[f"pos{i}"], x, cfg, i, perf)
+        x, a = forward_block(pp[f"pos{i}"], x, cfg, i, perf, layout)
         if a is not None:
             aux = aux + a
     return x, aux
@@ -229,13 +253,13 @@ def _needs_grad(params: dict, x: torch.Tensor) -> bool:
 
 
 def forward_hidden(params: dict, x: torch.Tensor, cfg: ArchConfig,
-                   perf: PerfConfig = BASELINE) -> tuple[torch.Tensor, torch.Tensor]:
+                   perf: PerfConfig = BASELINE, layout=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Embedding-space input → final hidden states (+ summed aux loss).
     Under autograd each period is rematerialized by ``perf.remat``."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     run = _rematerialized(perf.remat) if _needs_grad(params, x) else _period_forward
     for p in range(num_periods(cfg)):
-        x, aux = run(_layer(params["periods"], p), x, aux, cfg, perf)
+        x, aux = run(_layer(params["periods"], p), x, aux, cfg, perf, layout)
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
@@ -245,18 +269,31 @@ def lm_loss(
     cfg: ArchConfig,
     perf: PerfConfig = BASELINE,
     aux_weight: float = 0.01,
+    layout=None,
 ) -> torch.Tensor:
     """Mean next-token (or frame-label) CE, chunked over the sequence by
     ``perf.loss_chunk`` so the full (B, S, V) logits are never formed at
-    once; labels of −1 are masked; plus ``aux_weight`` × the MoE aux loss."""
-    x = embed_inputs(params, batch, cfg)
-    hidden, aux = forward_hidden(params, x, cfg, perf)
+    once; labels of −1 are masked; plus ``aux_weight`` × the MoE aux loss.
+    With a ``layout``, this rank's share of it on local blocks (module
+    docstring)."""
+    if layout is None:
+        x = embed_inputs(params, batch, cfg)
+    else:
+        params = {**layout.fetch({k: v for k, v in params.items() if k != "periods"}, ""),
+                  "periods": params["periods"]}
+        x = _embed_sharded(params["embed"], batch["tokens"], cfg, layout)
+        rows = x.shape[0] * layout.batch_size
+        x = layout.check(x, ("batch", "act_seq", None), (rows, x.shape[1], cfg.d_model))
+    hidden, aux = forward_hidden(params, x, cfg, perf, layout)
     labels = batch["labels"].long()
     if cfg.causal:
         # next-token prediction: shift left
         hidden = hidden[:, :-1]
         labels = labels[:, 1:]
     head = _lm_head(params)
+    split = head.shape[1] != cfg.vocab_size        # a vocab-parallel head on a mesh
+    if split:
+        hidden = layout.enter(hidden)
     s = hidden.shape[1]
     chunk = min(perf.loss_chunk, s)
     nll = torch.zeros((), dtype=torch.float32, device=hidden.device)
@@ -264,13 +301,46 @@ def lm_loss(
     for start in range(0, s, chunk):
         hc, lc = hidden[:, start:start + chunk], labels[:, start:start + chunk]
         logits = (hc @ head).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, lc.clamp(min=0)[..., None])[..., 0]
+        if layout is not None:
+            logits = layout.check(logits, ("batch", None, "act_vocab"), (rows, hc.shape[1], cfg.vocab_size))
+        if split:
+            lse, ll = _vocab_parallel_lse_and_pick(logits, lc, layout)
+        else:
+            lse = torch.logsumexp(logits, dim=-1)
+            ll = torch.gather(logits, -1, lc.clamp(min=0)[..., None])[..., 0]
         mask = (lc != -1).float()
         nll = nll + torch.sum((lse - ll) * mask)
         count = count + torch.sum(mask)
+    if layout is not None:                      # every rank's labels
+        count = ranks.psum(count, layout.batch_axes, layout.mesh, tag="loss")
     loss = nll / torch.clamp(count, min=1.0)
     return loss + aux_weight * aux
+
+
+def _embed_sharded(embed: torch.Tensor, tokens: torch.Tensor, cfg: ArchConfig, layout) -> torch.Tensor:
+    """The token embedding from this rank's rows of ``embed``: a row
+    outside the block gives 0, and the parts are summed over ``model``."""
+    tok = tokens.long()
+    n = embed.shape[0]
+    if n == cfg.vocab_size:
+        return embed[tok]
+    local = tok - layout.tp_index * n
+    inside = (local >= 0) & (local < n)
+    rows = embed[local.clamp(0, n - 1)]
+    return layout.exit(torch.where(inside[..., None], rows, torch.zeros((), dtype=rows.dtype, device=rows.device)))
+
+
+def _vocab_parallel_lse_and_pick(logits: torch.Tensor, labels: torch.Tensor, layout):
+    """The log-sum-exp over the whole vocabulary and the label's logit from
+    this rank's columns of it: the max and the sums over ``model``."""
+    n = logits.shape[-1]
+    top = ranks.all_gather(logits.detach().amax(-1, keepdim=True), layout.tp, -1, layout.mesh,
+                           tag="tensor parallel").amax(-1)
+    lse = top + torch.log(layout.exit(torch.sum(torch.exp(logits - top[..., None]), dim=-1)))
+    local = labels - layout.tp_index * n
+    inside = (local >= 0) & (local < n)
+    pick = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    return lse, layout.exit(torch.where(inside, pick, torch.zeros((), device=pick.device)))
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,10 @@
 """Dense FFN: SwiGLU (3 matrices) or GELU (2 matrices) (port of
 ``repro.models.mlp``).
 
+The GELU is On a mesh of ranks (a ``Layout``) whose ``model`` axis splits ``d_ff``,
+the block runs on this rank's columns of ``w_gate``/``w_up`` and rows of
+``w_down``, and the parts are summed over ``model``.
+
 The GELU is ``jax.nn.gelu``'s default, the tanh approximation
 0.5·x·(1 + tanh(√(2/π)·(x + 0.044715·x³))): ``approximate="tanh"``.
 """
@@ -27,9 +31,16 @@ def mlp_specs(cfg: ArchConfig) -> dict:
     }
 
 
-def mlp_block(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def mlp_block(params: dict, x: torch.Tensor, cfg: ArchConfig, layout=None) -> torch.Tensor:
+    split = layout is not None and params["w_up"].shape[-1] != cfg.d_ff
+    if split:
+        x = layout.enter(x)
     if cfg.mlp_kind == "swiglu":
         h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
     else:
         h = F.gelu(x @ params["w_up"], approximate="tanh")
-    return h @ params["w_down"]
+    if not split:
+        return h @ params["w_down"]
+    b, s, _ = x.shape
+    h = layout.check(h, ("batch", "act_seq", "act_mlp"), (b * layout.batch_size, s, cfg.d_ff))
+    return layout.exit(h @ params["w_down"])

@@ -85,10 +85,11 @@ def make_batch(
 
 
 def loss_fn(
-    params: dict, batch: dict, cfg: ArchConfig, perf: PerfConfig = BASELINE
+    params: dict, batch: dict, cfg: ArchConfig, perf: PerfConfig = BASELINE, layout=None
 ) -> torch.Tensor:
-    """The training loss (:func:`decoder.lm_loss`)."""
-    return decoder.lm_loss(params, batch, cfg, perf)
+    """The training loss (:func:`decoder.lm_loss`; this rank's share of it
+    on local blocks with a ``layout``)."""
+    return decoder.lm_loss(params, batch, cfg, perf, layout=layout)
 
 
 def prefill_fn(

@@ -28,7 +28,7 @@ training passes a Python float and stays in fp32.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -53,16 +53,34 @@ def _sqrt32(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.double()).float()
 
 
-def global_norm(tree: dict) -> torch.Tensor:
-    """fp32 L2 norm over every tensor of ``tree`` (a 0-d tensor)."""
-    leaves = [torch.sum(torch.square(g.float())) for g in paths(tree).values()]
-    return _sqrt32(torch.sum(torch.stack(leaves)))
+def global_norm(tree: dict, split_over: Optional[dict] = None, mesh=None) -> torch.Tensor:
+    """fp32 L2 norm over every tensor of ``tree`` (a 0-d tensor).
+
+    On a mesh of ranks, ``tree`` holds this rank's blocks and
+    ``split_over`` maps each leaf's path to the mesh axes it is split
+    across: the sums of squares of the leaves split alike are added, then
+    summed over those axes (so a leaf replicated over an axis counts once),
+    and the root is taken of the total.  The order of the sums differs from
+    one device's, so the norm agrees to about 1e-7 relative."""
+    flat = paths(tree)
+    if split_over is None:
+        return _sqrt32(torch.sum(torch.stack([torch.sum(torch.square(g.float())) for g in flat.values()])))
+    from repro_torch.distributed import ranks
+
+    groups: dict = {}
+    for k, g in flat.items():
+        groups.setdefault(tuple(split_over[k]), []).append(torch.sum(torch.square(g.float())))
+    total = sum(ranks.psum(torch.sum(torch.stack(sq)), axes, mesh, tag="grad norm")
+                for axes, sq in groups.items())
+    return _sqrt32(total)
 
 
-def clip_by_global_norm(tree: dict, max_norm: float) -> tuple[dict, torch.Tensor]:
+def clip_by_global_norm(tree: dict, max_norm: float, split_over: Optional[dict] = None,
+                        mesh=None) -> tuple[dict, torch.Tensor]:
     """``tree`` scaled so its global norm is at most ``max_norm`` (new
-    tensors, same structure), and the norm before clipping."""
-    norm = global_norm(tree)
+    tensors, same structure), and the norm before clipping (of the blocks
+    of a mesh of ranks with ``split_over``: :func:`global_norm`)."""
+    norm = global_norm(tree, split_over, mesh)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), tree), norm
 
@@ -77,18 +95,20 @@ def adamw(
 ) -> AdamW:
     """Returns (init, update).  ``update(grads, state, params, lr)`` →
     ``(params, state, grad_norm)``, with params and moments updated in
-    place."""
+    place.  On a mesh of ranks every tree holds this rank's blocks, and
+    ``update(..., split_over=, mesh=)`` takes the global norm over them
+    (:func:`global_norm`); the rest of the update is elementwise."""
 
     def init(params: dict) -> AdamWState:
         zeros = lambda p: torch.zeros(p.shape, dtype=moment_dtype, device=p.device)
         return AdamWState(step=0, m=tree_map(zeros, params), v=tree_map(zeros, params))
 
     @torch.no_grad()
-    def update(grads: dict, state: AdamWState, params: dict, lr):
+    def update(grads: dict, state: AdamWState, params: dict, lr, *, split_over=None, mesh=None):
         if clip_norm is not None:
-            grads, gnorm = clip_by_global_norm(grads, clip_norm)
+            grads, gnorm = clip_by_global_norm(grads, clip_norm, split_over, mesh)
         else:
-            gnorm = global_norm(grads)
+            gnorm = global_norm(grads, split_over, mesh)
         step = state.step + 1
         wide = isinstance(lr, torch.Tensor) and lr.dtype == torch.float64
         # the reference raises b1, b2 to the step in fp32

@@ -9,8 +9,8 @@ gradients over a multi-pod mesh's "pod" axis: every rank of a mesh of
 ranks (:mod:`repro_torch.distributed.ranks`) quantizes its own gradients
 and the dequantized values are mean-reduced over the axis.
 :func:`error_feedback` is its local half: quantize, dequantize, carry the
-residual.  Its use inside the train step waits, with the train step on a
-mesh, for the second half of ROADMAP A13a.
+residual.  The train step's compressed cross-pod branch
+(``training/train_loop.py``) calls :func:`compress_psum` over ``pod``.
 """
 from __future__ import annotations
 
@@ -78,5 +78,5 @@ def compress_psum(grads: Any, err: CompressState, axis_name: str, mesh=None) -> 
         )
     deq, new_err = error_feedback(grads, err)
     n = mesh.shape[axis_name]
-    out = tree_map(lambda d: ranks.psum(d, axis_name, mesh) / torch.full((), float(n), device=d.device), deq)
+    out = tree_map(lambda d: ranks.psum(d, axis_name, mesh, tag="gradient reduce") / torch.full((), float(n), device=d.device), deq)
     return out, new_err

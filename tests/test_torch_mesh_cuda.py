@@ -1,8 +1,9 @@
 """The multi-rank runtime on the card, at a reduced size: four ranks on one
 card (gloo, collectives staged through host memory) for the sharded
 acceptance scan, the sharded ensemble, the MoE's expert-parallel and
-f-sharded bodies and ``compress_psum``, each held to its single-device
-version on the card (and ``compress_psum`` to the CPU's ranks bit for bit).
+f-sharded bodies, ``compress_psum`` and a train step of the reduced qwen3
+on (data 2, model 2), each held to its single-device version on the card
+(and ``compress_psum`` to the CPU's ranks bit for bit).
 
 These need a CUDA card and skip where there is none.  They import neither
 jax nor the JAX package, so they run on a card machine without them:
@@ -30,6 +31,13 @@ from repro_torch.mc import run_periodic_ensemble
 from repro_torch.models import moe
 from repro_torch.obs.ledger import AXES
 from repro_torch.optim import grad_compress as gc
+from repro_torch.configs.perf import PerfConfig
+from repro_torch.data.pipeline import SyntheticLMStream, shard_batch
+from repro_torch.kernels.flash_attention import ops as fa
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import model_zoo as zoo
+from repro_torch.training.train_loop import make_train_step
+from repro_torch.tree import paths
 
 pytestmark = pytest.mark.cuda
 
@@ -86,6 +94,35 @@ def _compress():
     return {"out": out, "err": err.error}
 
 
+def _train_inputs():
+    """The reduced qwen3's fp32 weights (drawn on the CPU, so every rank and
+    the test process hold the same) and one (8, 32) batch."""
+    cfg = get_config("qwen3-1.7b", reduced=True)
+    params = zoo.init_params(cfg, torch.Generator().manual_seed(0), torch.float32)
+    return cfg, params, SyntheticLMStream(cfg.vocab_size, 8, 32, seed=2).next_batch()
+
+
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}
+
+
+def _train_step():
+    """One train step on (data 2, model 2): the loss, the gradient norm, the
+    gathered gradients and this rank's flash launches."""
+    cfg, params, raw = _train_inputs()
+    mesh = make_rank_mesh((2, 2))
+    with shd.use_sharding(mesh):
+        fns = make_train_step(cfg, PerfConfig(), mesh=mesh)
+        state = fns.init_state(_to(params, ranks.device()))
+        fa.launches = 0
+        loss, grads = fns.loss_and_grads(state.params, shard_batch(raw, mesh))
+        launches = fa.launches
+        specs = paths(fns.param_pspecs)
+        whole = {k: ranks.unshard(g, specs[k], mesh) for k, g in grads.items()}
+        _, m = fns.apply_grads(state, loss, grads, 1e-3)
+    return {"loss": float(loss), "grad_norm": float(m["grad_norm"]), "grads": whole, "launches": launches}
+
+
 def _ranks_body():
     dev = ranks.device()
     n_seeds, n_dev, n_steps, chunk = ENS
@@ -104,6 +141,7 @@ def _ranks_body():
                                          ranks.shard(x, specs["x"]), cfg, capacity_factor=cf)
                 out["moe"][shape, branch, cf, dtype] = ranks.unshard(y, specs["x"], mesh)
     out["compress"] = _compress()
+    out["train"] = _train_step()
     return out
 
 
@@ -172,3 +210,22 @@ def test_compress_psum_card_equals_cpu_and_the_exact_mean(on_card, cuda):
         assert torch.equal(card["out"][k], cpu["out"][k]) and torch.equal(card["err"][k], cpu["err"][k]), k
         exact = (g0[k].double() + g1[k].double()) / 2
         assert float((card["out"][k].double() - exact).abs().max() / exact.abs().max()) < 0.02
+
+
+def test_train_step_on_a_mesh_of_ranks_equals_one_card(on_card, cuda):
+    """The reduced qwen3 on (data 2, model 2), four ranks on the card,
+    against the single-card step: loss and gradient norm within 1e-5
+    relative, each gathered gradient within 1e-4 of its leaf's largest
+    entry (chip_smoke's MESH_TRAIN_LIMIT), two flash launches a layer a
+    step on each rank (remat full)."""
+    cfg, params, raw = _train_inputs()
+    fns = make_train_step(cfg, PerfConfig())
+    state = fns.init_state(_to(params, cuda))
+    loss, grads = fns.loss_and_grads(state.params, shard_batch(raw, make_host_mesh()))
+    _, m = fns.apply_grads(state, loss, {k: g.clone() for k, g in grads.items()}, 1e-3)
+    got = on_card["train"]
+    assert got["loss"] == pytest.approx(float(loss), rel=1e-5)
+    assert got["grad_norm"] == pytest.approx(float(m["grad_norm"]), rel=1e-5)
+    for k, g in grads.items():
+        assert float((got["grads"][k].to(cuda) - g).abs().max()) <= 1e-4 * float(g.abs().max()), k
+    assert got["launches"] == 2 * cfg.num_layers

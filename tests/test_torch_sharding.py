@@ -191,12 +191,19 @@ def test_axis_size_with_explicit_and_installed_meshes(jref):
 
 
 def test_constrain_is_the_identity_on_one_device_and_raises_beyond():
+    """On a mesh of more devices ``constrain`` asserts the block's shape:
+    the identity on the block ``logical_to_pspec`` implies, ``ValueError``
+    on any other and without the global shape."""
     x = torch.ones(4, 4)
     assert shd.constrain(x, ("batch", None)) is x
     with shd.use_sharding(make_host_mesh("cpu")):
         assert shd.constrain(x, ("batch", None)) is x
     with shd.use_sharding(make_production_mesh()):
-        with pytest.raises(NotImplementedError, match="second half of ROADMAP A13a"):
+        assert shd.constrain(x, ("batch", None), shape=(64, 4)) is x          # 64 rows over data 16
+        assert shd.constrain(x, ("batch", "act_vocab"), shape=(64, 64)) is x  # and 64 columns over model 16
+        with pytest.raises(ValueError, match=r"is \(4, 1\), got \(4, 4\)"):
+            shd.constrain(x, ("batch", "act_vocab"), shape=(64, 16))
+        with pytest.raises(ValueError, match="needs the global shape"):
             shd.constrain(x, ("batch", None))
 
 
@@ -266,8 +273,17 @@ def test_shard_batch_places_the_batch_on_the_mesh_device():
     for k, v in raw.items():
         assert placed[k].device.type == "cpu"
         np.testing.assert_array_equal(placed[k].numpy(), v)
-    with pytest.raises(NotImplementedError, match="second half of ROADMAP A13a"):
-        shard_batch(raw, make_production_mesh())
+    # a rank of a (pod 2, data 2, model 2) mesh at (1, 0, 1): rows 4-5 of 8
+    # (block 2 of 4 over (pod, data)), all 2 rows where 4 do not divide them
+    rank_mesh = shd.Mesh((2, 2, 2), ("pod", "data", "model"), device=torch.device("cpu"), coordinate=(1, 0, 1))
+    placed = shard_batch(raw, rank_mesh)
+    for k, v in raw.items():
+        np.testing.assert_array_equal(placed[k].numpy(), v)
+    wide = {"tokens": np.arange(8 * 3, dtype=np.int32).reshape(8, 3)}
+    np.testing.assert_array_equal(shard_batch(wide, rank_mesh)["tokens"].numpy(), wide["tokens"][4:6])
+    np.testing.assert_array_equal(
+        shard_batch(wide, rank_mesh, pspecs={"tokens": shd.P("model")})["tokens"].numpy(), wide["tokens"][4:])
+    assert shard_batch(raw, make_production_mesh()) is None          # a descriptor: no block here
 
 
 # ---------------------------------------------------------------------------
