@@ -17,8 +17,9 @@ Phases, in order; any failure exits non-zero:
    families' shapes: qwen3-moe's group 16, mixtral's window 4096 at 4608
    and 8192 tokens (SDPA with an explicit mask), hubert's bidirectional
    head dim 80, llava's 608 tokens and jamba's attention position; and
-   in fp32 at one rank's share of the mesh train step, B 4, S 128, 8 of
-   qwen3-1.7b's query heads and 4 KV heads);
+   in fp32 at one rank's share of the mesh train step, B 4, S 128, and of
+   the sharded prefill, B 2, S 128, each 8 of qwen3-1.7b's query heads
+   and 4 KV heads);
 4. lstm — the LSTM kernel (one warp a batch row, the weights in registers
    where they fit, no block barrier in the step loop) against its plain
    version (fp32 and bf16, with and without an initial state, H from 1 to
@@ -119,7 +120,7 @@ Phases, in order; any failure exits non-zero:
    499.0607 ms;
 18. fleet — ``python -m repro_torch.launch.fleet`` (4096 devices, 10 s
    routed, round-robin, the strategy mix, the looped baseline and the N=1
-   self-check) as a subprocess; N=1 against ``simulate(mode="step")`` and
+   self-check) in this process; N=1 against ``simulate(mode="step")`` and
    ``simulate_trace``; the CUDA-graph tick loop against the eager one and
    the card against the CPU at 4096 devices (three routers, direct
    streams, periodic), a chunked continuation; 1,048,576 devices periodic
@@ -240,10 +241,27 @@ Phases, in order; any failure exits non-zero:
    ``launch.train.train(mesh=)``: 2 steps on (data 2, model 2), a
    checkpoint, 2 more on ``plan_elastic_mesh``'s (data 1, model 2),
    within 1e-4 of 4 uninterrupted steps, the checkpoint equal to a
-   single-card save of the gathered state bit for bit;
-26. the phases' seconds, the ``kernels`` JSON line (the flash and SSD
+   single-card save of the gathered state bit for bit; (h) the sharded
+   prefill and decode of the dense decoders (``model_zoo.prefill_fn`` /
+   ``decode_fn`` with ``mesh=``): qwen3-1.7b at its published widths cut
+   to 2 layers, fp32, B 4, prompt 128, then 8 greedy decode steps on (data
+   2, model 2), the flash kernel on each rank's local heads (launches
+   exact: 2 a prefill a rank, none in decode), each rank's logits within
+   1e-4 of the largest of one card's run on the same weights and tokens
+   and its greedy tokens equal, the bytes each rank stages by tag equal to
+   the roofline counter's dry count of the same cell on ``meta``;
+26. roofline — the cells the card ran, counted by ``launch/roofline.py``
+   on ``meta`` at a 1×1 mesh: ``launch.train``'s qwen3-1.7b and
+   mamba2-370m steps, the served prefill and decode step of qwen3-1.7b,
+   and the sharded prefill of (h) at the gloo rate its ranks measured, each
+   bound on the card's own ceilings against the time measured above (fail
+   above 1); then ``python -m repro_torch.launch.dryrun --all --mesh both``
+   over the 80 cells of both production meshes on ``meta`` (run in the
+   mesh phase, by this process while the ranks work): the 24 dense cells
+   ``ok``, every error naming its ROADMAP item;
+27. the phases' seconds, the ``kernels`` JSON line (the flash and SSD
    entries with their ``train_launches`` and gradient checks, flash's
-   ``mesh_train_launches``), the card
+   ``mesh_train_launches`` and ``mesh_serve_launches``), the card
    line, and the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -260,6 +278,7 @@ import sys
 import time
 import types
 from pathlib import Path
+from typing import Any
 from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
@@ -517,6 +536,9 @@ def flash_phase(card: str) -> dict:
         (MESH_TRAIN_TOKENS[0] // MESH_TRAIN_SHAPE[0], MESH_TRAIN_TOKENS[1], MESH_TRAIN_TOKENS[1],
          16 // MESH_TRAIN_SHAPE[1], 8 // MESH_TRAIN_SHAPE[1], 128, True, 0, 0,
          "mesh training prefill: a rank's rows and heads of qwen3-1.7b"),
+        (MESH_SERVE_TOKENS[0] // MESH_TRAIN_SHAPE[0], MESH_SERVE_TOKENS[1], MESH_SERVE_TOKENS[1],
+         16 // MESH_TRAIN_SHAPE[1], 8 // MESH_TRAIN_SHAPE[1], 128, True, 0, 0,
+         "mesh serving prefill: a rank's rows and heads of qwen3-1.7b"),
     ]
     new_families = {"qwen3-moe", "mixtral", "window", "hubert", "llava", "jamba"}
     entry, timed = None, {}
@@ -600,6 +622,7 @@ def flash_phase(card: str) -> dict:
     entry["reduced_prefill"] = timed["reduced qwen3 prefill"]
     entry["training_prefill"] = timed["training prefill of launch.train's qwen3-1.7b"]
     entry["mesh_training_prefill"] = timed["mesh training prefill: a rank's rows and heads of qwen3-1.7b, fp32"]
+    entry["mesh_serving_prefill"] = timed["mesh serving prefill: a rank's rows and heads of qwen3-1.7b, fp32"]
     entry["dense_prefills"] = {label.split()[0]: row for label, row in timed.items()
                                if label.split()[0] in DENSE}
     entry["new_family_prefills"] = {label: row for label, row in timed.items()
@@ -859,9 +882,10 @@ def duty_cycle_example_phase(card: str) -> int:
 # ---------------------------------------------------------------------------
 # Phase 7: serving
 # ---------------------------------------------------------------------------
-def output_check() -> None:
+def output_check(restored: dict) -> None:
     """The kernel path against the plain path on the same weights: a small
-    fp32 model, and the full-width model in fp32 and in bf16.  The plain
+    fp32 model, and the full-width model in fp32 and in bf16 (``restored``:
+    the serving checkpoint's weights, restored onto the card).  The plain
     path is the same prefill with the flash-attention wrapper swapped for
     its plain version inside this function only.  fp32 is held to 1e-4 of
     the largest logit; bf16, whose roundings of the two paths drift apart
@@ -869,13 +893,11 @@ def output_check() -> None:
     largest logit (the readings are in PERF.md)."""
     import torch
 
-    from repro_torch.checkpoint import CheckpointManager
     from repro_torch.checkpoint.serializer import flatten, unflatten_like
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.ref import attention_reference
     from repro_torch.models import attention
     from repro_torch.models import model_zoo as zoo
-    from repro_torch.serving.engine import bring_up_from_checkpoint
 
     def plain_prefill(*args):
         with mock.patch.object(attention.attn_ops, "attention", attention_reference):
@@ -895,11 +917,10 @@ def output_check() -> None:
     # full width: the restored bf16 weights, and the same weights in fp32,
     # where the two paths differ only by the kernel's fp32 rounding
     cfg = get_config(ARCH)
-    engine = bring_up_from_checkpoint(cfg, CheckpointManager(str(CKPT_DIR)), 96)
     tokens = torch.randint(0, cfg.vocab_size, (2, 32), device="cuda",
                            generator=torch.Generator("cuda").manual_seed(3))
-    p32 = unflatten_like(engine.params, [t.float() for _, t in flatten(engine.params)])
-    for name, params in (("bf16", engine.params), ("fp32", p32)):
+    p32 = unflatten_like(restored, [t.float() for _, t in flatten(restored)])
+    for name, params in (("bf16", restored), ("fp32", p32)):
         with torch.inference_mode():
             a, _ = zoo.prefill_fn(params, {"tokens": tokens}, cfg, 96)
             b, _ = plain_prefill(params, {"tokens": tokens}, cfg, 96)
@@ -916,14 +937,14 @@ def output_check() -> None:
                             f"{rel:.3g} of the largest logit, limit {limit}")
         check(same == 2, f"full-width {name} prefill: argmax differs in {2 - same} of 2 rows")
     del p32
-    engine.release()
 
 
-def configuration_split(card: str, arch: str = ARCH, ckpt_dir: Path = CKPT_DIR) -> None:
-    """Where one bring-up's time goes: file read, msgpack unpack, zlib
-    inflate (on the reader's threads, as the restore inflates), and the rest
+def configuration_split(card: str, arch: str = ARCH, ckpt_dir: Path = CKPT_DIR) -> dict:
+    """Where one bring-up's time goes: file read, msgpack unpack, inflate
+    by the blob's codec (on the reader's threads, as the restore inflates),
+    and the rest
     of a restore onto the card (host-to-device copies and the dequant
-    kernels)."""
+    kernels) → the restored weights, as a bring-up holds them."""
     from concurrent.futures import ThreadPoolExecutor
 
     import torch
@@ -938,6 +959,7 @@ def configuration_split(card: str, arch: str = ARCH, ckpt_dir: Path = CKPT_DIR) 
     t1 = time.perf_counter()
     payload = _msgpack.unpackb(data)
     t2 = time.perf_counter()
+    codec = payload["codec"]
     blobs = [b for record in payload["leaves"]
              for b in ([record["quant"]["q"], record["quant"]["scales"]] if "quant" in record else [record["data"]])]
     with ThreadPoolExecutor(serializer._ZLIB_THREADS) as pool:
@@ -947,14 +969,14 @@ def configuration_split(card: str, arch: str = ARCH, ckpt_dir: Path = CKPT_DIR) 
     params = serializer.deserialize(data, zoo.param_shapes(get_config(arch)), device="cuda")
     torch.cuda.synchronize()
     t4 = time.perf_counter()
-    del params
-    torch.cuda.empty_cache()
     rest = (t4 - t3) - (t2 - t1) - (t3 - t2)
-    print(f"  {arch} configuration split ({len(data) / 1e9:.3f} GB file, {n_raw / 1e9:.3f} GB inflated): "
-          f"read {t1 - t0:.3f} s, msgpack unpack {t2 - t1:.3f} s, zlib inflate on "
+    print(f"  {arch} configuration split ({len(data) / 1e9:.3f} GB file, {n_raw / 1e9:.3f} GB inflated; codec "
+          f"{codec}: 'zstandard' {'installed' if serializer.HAVE_ZSTD else 'not installed'} on this host): "
+          f"read {t1 - t0:.3f} s, msgpack unpack {t2 - t1:.3f} s, {codec} inflate on "
           f"{serializer._ZLIB_THREADS} threads {t3 - t2:.3f} s, "
           f"restore onto the card {t4 - t3:.3f} s of which copies + dequant + other "
-          f"{rest:.3f} s [{card}]")
+          f"{rest:.3f} s; restore s by codec {({codec: round(t4 - t3, 3)})} [{card}]")
+    return params
 
 
 def serving_phase(card: str) -> tuple[int, int]:
@@ -1019,16 +1041,18 @@ def serving_phase(card: str) -> tuple[int, int]:
         check(after < 1e8, f"{strategy}: {after} bytes still allocated after release")
         results[strategy], controllers[strategy] = res, controller
     oo, iw, auto = (results[k] for k in ("on_off", "idle_waiting", "auto"))
-    cross = duty_cycle_serving.median_crossover_ms(controllers["on_off"])
-    print(f"  energy ratio On-Off / Idle-Waiting: {oo.energy_mj / iw.energy_mj:.4f}, median measured "
-          f"crossover {cross:.1f} ms")
-    side = duty_cycle_serving.check_ordering(PERIOD_S, cross, oo, iw, auto)
+    cross, oo_shared, iw_shared = duty_cycle_serving.shared_results(
+        {k: (results[k], controllers[k]) for k in ("on_off", "idle_waiting")})
+    print(f"  energy ratio On-Off / Idle-Waiting: {oo.energy_mj / iw.energy_mj:.4f} live, "
+          f"{oo_shared.energy_mj / iw_shared.energy_mj:.4f} at the shared median phases, median "
+          f"measured crossover {cross:.1f} ms")
+    side = duty_cycle_serving.check_ordering(PERIOD_S, cross, oo_shared, iw_shared, auto)
     check(side == "below", f"{PERIOD_S} s lies {side} the full-width crossover of {cross:.1f} ms")
-    configuration_split(card)
+    output_check(configuration_split(card))
+    torch.cuda.empty_cache()
     n_dq, n_fa = process_schedule(card)
     launches["dequant"] += n_dq
     launches["flash"] += n_fa
-    output_check()
     return launches["dequant"], launches["flash"]
 
 
@@ -1575,6 +1599,7 @@ def mamba2_serving_phase(card: str) -> tuple[int, int]:
     print(f"  {MAMBA} energy ratio On-Off / Idle-Waiting: {oo.energy_mj / iw.energy_mj:.4f}")
     check(iw.energy_mj < oo.energy_mj, "Idle-Waiting must use less energy than On-Off at 0.5 s")
     configuration_split(card, MAMBA, CKPT_DIR_MAMBA)
+    torch.cuda.empty_cache()
     mamba2_output_check(card)
     shutil.rmtree(CKPT_DIR_MAMBA, ignore_errors=True)
     return launches["dequant"], launches["ssd"]
@@ -3172,7 +3197,7 @@ def optimize_phase(card: str) -> None:
     devices against the exhaustive sweeps and the CPU; the densified clock
     axes; the λ-traced frontier against the exact one; the budget planner on a 1,048,576-device periodic fleet under both
     objectives, replayed through ``run_periodic`` on the card bit for bit;
-    ``launch.optimize --smoke`` as a subprocess."""
+    ``launch.optimize --smoke`` in this process."""
     import numpy as np
     import torch
 
@@ -3307,7 +3332,7 @@ def _policy_training(card: str, item, cal):
     saved = ROOT / "build" / "chip_smoke_trained_policy.json"
     # calibrated: the power-up overhead of the reference's acceptance tests
     p = _launcher("policy", ROOT / "build" / "chip_smoke_policy.json", "--smoke", "--calibrated",
-                  "--policy-out", str(saved), timeout=900)
+                  "--policy-out", str(saved))
     tr, ns = p["train"], p["nonstationary"]
     smoke_s = tr["train_s"]
     print(f"  launch.policy --smoke: train_policy at TrainSettings.smoke() {smoke_s} s ({tr['improvement_frac']:+.2%}), "
@@ -3522,30 +3547,44 @@ MC_CHUNK = 128                              # seeds a chunk: a 8.4 GB gap buffer
 MC_CPU_STRIDE = 16                          # the CPU reruns every 16th seed of chunk 0
 
 
-def _launcher(module: str, out: Path, *extra: str, timeout: int = 600, device: str | None = None) -> dict:
+def _launcher(module: str, out: Path, *extra: str, device: str | None = None) -> dict:
     """``python -m repro_torch.launch.<module>`` at its defaults on ``device``
     (the card, ``DEV``, unless given), its JSON written to ``out`` → the
-    payload."""
+    payload.  The CLI's ``main`` runs in this process, its standard output
+    printed indented: a process of its own would spend seconds importing
+    torch and starting CUDA before its first kernel."""
+    import gc
+    import importlib
+
+    import torch
+
     device = device or DEV
-    env = {**os.environ, "PYTHONPATH": str(SRC)}
     out.parent.mkdir(parents=True, exist_ok=True)
+    out.unlink(missing_ok=True)
+    said = io.StringIO()
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", f"repro_torch.launch.{module}", "--device", device,
-                           "--out", str(out), *extra],
-                          capture_output=True, text=True, timeout=timeout, cwd=str(ROOT), env=env)
-    print("\n".join(f"  {line}" for line in proc.stdout.strip().splitlines()))
-    check(proc.returncode == 0, f"python -m repro_torch.launch.{module} failed: {proc.stderr[-2000:]}")
-    print(f"  launch.{module} on {device}: {time.perf_counter() - t0:.1f} s with start-up")
+    try:
+        with contextlib.redirect_stdout(said):
+            rc = importlib.import_module(f"repro_torch.launch.{module}").main(
+                ["--device", device, "--out", str(out), *extra])
+    finally:
+        print("\n".join(f"  {line}" for line in said.getvalue().strip().splitlines()))
+    check(rc in (0, None), f"python -m repro_torch.launch.{module} exited {rc}")
+    gc.collect()
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    print(f"  launch.{module} {' '.join(extra)} on {device}: {time.perf_counter() - t0:.1f} s in this process")
     payload = json.loads(out.read_text())
     check(device == "cpu" or payload["manifest"]["card"] is not None, f"the {module} CLI's manifest has no card")
     return payload
 
 
-def obs_phase(card: str) -> tuple[int, int]:
+def obs_phase(card: str) -> tuple[int, int, dict]:
     """An On-Off request pair of full-width qwen3-1.7b from the serving
     phase's checkpoint with a ``MetricsRegistry`` on the engine, its counts
     held to the controller's; then ``launch.obs`` at its defaults and its
-    Chrome trace validated → (dequant, flash launches)."""
+    Chrome trace validated → (dequant, flash launches, the mean prefill and
+    decode step seconds the registry measured)."""
     import numpy as np
     import torch
 
@@ -3611,7 +3650,10 @@ def obs_phase(card: str) -> tuple[int, int]:
     print(f"  launch.obs: conservation {json.dumps(cons)} (limit 1e-9); trace {payload['trace']['n_events']} "
           f"events on {payload['trace']['n_tracks']} tracks, valid; observability-off periodic "
           f"{tp['device_steps_per_s']} device-steps/s [{card}]")
-    return n_dq, n_fa
+    served = {"prefill_s": d["engine_prefill_ms"]["mean"] / 1e3,
+              "decode_step_s": d["engine_decode_ms"]["mean"] / 1e3 / OBS_NEW, "batch": batch, "prompt": 32,
+              "max_len": 96}
+    return n_dq, n_fa, served
 
 
 def mc_phase(card: str) -> None:
@@ -3960,7 +4002,7 @@ def control_phase(card: str) -> None:
           f"{calls_per_day} calls x {split[8, True] * 1e3:.2f} ms = {day_s:.0f} s through graphs captured "
           f"in every call ({calls_per_day * split[8, False]:.0f} s eager) [{card}]")
     if day_s < CONTROL_DEFAULT_LIMIT_S:
-        payload = _launcher("control", ROOT / "build" / "chip_smoke_control_day.json", timeout=900)
+        payload = _launcher("control", ROOT / "build" / "chip_smoke_control_day.json")
         print(f"  the defaults: {json.dumps(payload['self_check'])}")
     else:
         print(f"  the defaults not run (above {CONTROL_DEFAULT_LIMIT_S:.0f} s): the day sim waits for "
@@ -4211,6 +4253,11 @@ MESH_COMPRESS_CPU = (1e-6, 1e-5)            # the card's losses against the CPU 
 MESH_ELASTIC = (4, 2)                       # uninterrupted steps on (data 2, model 2), then 2 + 2 across the re-mesh
 MESH_ELASTIC_LIMIT = 1e-4                   # the losses across the re-mesh (the reference allows 2e-3)
 MESH_ELASTIC_DIR = ROOT / "build" / "chip_smoke_elastic"
+MESH_SERVE_TOKENS = (4, 128)                # B, prompt of the sharded prefill (qwen3-1.7b at MESH_TRAIN_LAYERS
+                                            # layers, fp32, on MESH_TRAIN_SHAPE)
+MESH_SERVE_NEW = 8                          # greedy decode steps after it
+MESH_SERVE_LIMIT = 1e-4                     # each rank's logits against one card's, of the largest logit
+MESH_SERVE_SEED = 23
 
 
 def _mesh_train_cfg(reduced: bool):
@@ -4553,9 +4600,104 @@ def _mesh_elastic() -> dict | None:
             "plan": (plan.data, plan.model), "blob_equal": same, "s": time.perf_counter() - t0}
 
 
+def _tagged(stats: dict) -> dict:
+    return {tag: (v["calls"], v["bytes"]) for tag, v in stats.items()}
+
+
+def _mesh_serve_case(reduced: bool) -> dict | None:
+    """(h) every rank: the sharded prefill (``MESH_SERVE_TOKENS``) and
+    ``MESH_SERVE_NEW`` greedy decode steps of qwen3-1.7b at its published
+    widths cut to ``MESH_TRAIN_LAYERS`` layers, fp32, on (data 2, model
+    2), the prefill and the decode steps timed apart with the bytes each
+    stages through the host by tag; the same cell on ``meta`` at this
+    rank's coordinate (the roofline counter's dry mode), whose staged bytes
+    must equal those; then each rank's rows against one card's run of the
+    same weights and tokens (all ranks at once: 1.65 GB of fp32 weights a
+    rank)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import ranks
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch import dryrun_lib, roofline
+    from repro_torch.launch.mesh import make_rank_mesh
+    from repro_torch.models import model_zoo as zoo
+
+    dev = ranks.device()
+    cfg = _mesh_train_cfg(reduced)
+    mesh = make_rank_mesh(MESH_TRAIN_SHAPE)
+    b, s = MESH_SERVE_TOKENS
+    max_len = s + MESH_SERVE_NEW
+    whole = _mesh_train_params(cfg, dev, torch.float32)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=torch.Generator(dev).manual_seed(MESH_SERVE_SEED),
+                           device=dev, dtype=torch.int32)
+    rows = ranks.shard(tokens, shd.P("data"), mesh)
+    with shd.use_sharding(mesh):
+        blocks = zoo.shard_params(whole, cfg, mesh)
+    ranks.barrier(mesh)
+    with torch.no_grad():
+        fa.launches = 0
+        ranks.stats = {}
+        _sync_rank()
+        t0 = time.perf_counter()
+        logits, state = zoo.prefill_fn(blocks, {"tokens": rows}, cfg, max_len, mesh=mesh)
+        _sync_rank()
+        t1 = time.perf_counter()
+        pre_stats, ranks.stats = ranks.stats, {}
+        pre_launches = fa.launches
+        outs = [logits]
+        for _ in range(MESH_SERVE_NEW):
+            logits, state = zoo.decode_fn(blocks, state, torch.argmax(logits, -1).to(torch.int32), cfg, mesh=mesh)
+            outs.append(logits)
+        _sync_rank()
+        t2 = time.perf_counter()
+        dec_stats, ranks.stats = ranks.stats, None
+        launches = (pre_launches, fa.launches - pre_launches)
+        del state
+        # the same cell on meta, at this rank's coordinate
+        dry = dryrun_lib.dry_mesh(shd.Mesh(mesh.axis_sizes, mesh.axis_names), mesh.coordinate)
+        with shd.use_sharding(dry):
+            meta_blocks = zoo.shard_params(zoo.param_shapes(cfg, torch.float32), cfg, dry)
+            meta_rows = torch.empty(tuple(rows.shape), dtype=torch.int32, device="meta")
+            (m_logits, m_state), pre_cost = roofline.count(zoo.prefill_fn, meta_blocks, {"tokens": meta_rows}, cfg,
+                                                           max_len, mesh=dry)
+
+            def decode(x, st):
+                for _ in range(MESH_SERVE_NEW):
+                    x, st = zoo.decode_fn(meta_blocks, st, torch.argmax(x, -1).to(torch.int32), cfg, mesh=dry)
+                return x
+
+            _, dec_cost = roofline.count(decode, m_logits, m_state)
+        # one card: the whole batch on the whole weights
+        ref, lo = [], mesh.index("data") * rows.shape[0]
+        logits, state = zoo.prefill_fn(whole, {"tokens": tokens}, cfg, max_len)
+        ref.append(logits)
+        for _ in range(MESH_SERVE_NEW):
+            logits, state = zoo.decode_fn(whole, state, torch.argmax(logits, -1).to(torch.int32), cfg)
+            ref.append(logits)
+        mine = [r[lo:lo + rows.shape[0]] for r in ref]
+        err = max(float((a - w).abs().max()) / float(w.abs().max()) for a, w in zip(outs, mine))
+        same_tokens = all(bool(torch.equal(a.argmax(-1), w.argmax(-1))) for a, w in zip(outs, mine))
+        spread = min(float(w.std()) for w in mine)
+        finite = all(bool(torch.isfinite(a).all()) for a in outs)
+    del whole, blocks, ref, outs
+    _empty_rank_cache()
+    rec = {"launches": launches, "prefill_s": t1 - t0, "decode_s": t2 - t1,
+           "live": {"prefill": _tagged(pre_stats), "decode": _tagged(dec_stats)},
+           "seconds": {"prefill": _stats_sum(pre_stats, "s"), "decode": _stats_sum(dec_stats, "s")},
+           "dry": {"prefill": _tagged(pre_cost.staged), "decode": _tagged(dec_cost.staged)},
+           "cost": {"flops": pre_cost.flops, "hbm_bytes": pre_cost.hbm_bytes,
+                    "ring_bytes": pre_cost.collective_bytes, "by_kind": pre_cost.coll_bytes},
+           "err": err, "same_tokens": same_tokens, "spread": spread, "finite": finite}
+    everyone = [None] * ranks.world_size()
+    dist.all_gather_object(everyone, rec)
+    return {"ranks": everyone}
+
+
 def _mesh_train_ranks(reduced: bool, compress_inputs: tuple) -> dict:
     """The train step's share of the phase's spawn: (e), (f), (g), with
-    the flash launches a rank of each."""
+    the flash launches a rank of each; then the sharded serving step (h)."""
     from repro_torch.kernels.flash_attention import ops as fa
 
     out = {"train": _mesh_train_case(reduced)}
@@ -4563,6 +4705,7 @@ def _mesh_train_ranks(reduced: bool, compress_inputs: tuple) -> dict:
     out["compress_train"] = _mesh_compress_train(*compress_inputs)
     out["elastic"] = _mesh_elastic()
     out["other_launches"] = fa.launches
+    out["serve"] = _mesh_serve_case(reduced)
     return out
 
 
@@ -4602,23 +4745,10 @@ def _mc_fleet(n, dev, budget_mj=1500.0):
                          powerup_overhead_mj=em.CALIBRATED_POWERUP_OVERHEAD_MJ, device=dev)
 
 
-def _in_process_cli(module, out: Path, *argv: str) -> dict:
-    """``repro_torch.launch.<module>.main`` in this process (its ranks are
-    spawned all the same) on ``DEV``, its JSON written to ``out``."""
-    import importlib
-
-    out.parent.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    check(importlib.import_module(f"repro_torch.launch.{module}").main(
-        [*argv, "--device", DEV, "--out", str(out)]) == 0, f"launch.{module} {' '.join(argv)} failed")
-    print(f"  launch.{module} {' '.join(argv)} on {DEV}: {time.perf_counter() - t0:.1f} s")
-    return json.loads(out.read_text())
-
-
 def _mesh_acceptance(card: str) -> None:
     """(a) ``launch.fleet --mesh 4 --acceptance-devices 1048576``."""
-    payload = _in_process_cli("fleet", ROOT / "build" / "chip_smoke_fleet_mesh.json", "--smoke", "--mode",
-                              "periodic", "--mesh", str(MESH_RANKS), "--acceptance-devices", str(MESH_ACCEPTANCE))
+    payload = _launcher("fleet", ROOT / "build" / "chip_smoke_fleet_mesh.json", "--smoke", "--mode",
+                        "periodic", "--mesh", str(MESH_RANKS), "--acceptance-devices", str(MESH_ACCEPTANCE))
     acc, sh = payload["sharded_acceptance"], payload["throughput"]["sharded"]
     con, ref, rt = acc["ledger_conservation"], acc["unsharded"], acc["runtime"]
     print(f"  sharded acceptance: {acc['devices']} devices on a {acc['mesh']} mesh ({rt['ranks']} ranks, "
@@ -4671,9 +4801,9 @@ def _mesh_ensemble(card: str, got: dict, runtime: dict) -> None:
     del ref, ens, params
     if DEV == "cuda":
         torch.cuda.empty_cache()
-    one = _in_process_cli("mc", ROOT / "build" / "chip_smoke_mc_mesh1.json", "--smoke", "--section", "ensemble")
-    two = _in_process_cli("mc", ROOT / "build" / "chip_smoke_mc_mesh2x2.json", "--smoke", "--section", "ensemble",
-                          "--mesh", "2x2")
+    one = _launcher("mc", ROOT / "build" / "chip_smoke_mc_mesh1.json", "--smoke", "--section", "ensemble")
+    two = _launcher("mc", ROOT / "build" / "chip_smoke_mc_mesh2x2.json", "--smoke", "--section", "ensemble",
+                    "--mesh", "2x2")
     a, b = dict(one["ensemble"]), dict(two["ensemble"])
     for blk in (a, b):
         for k in ("elapsed_s", "mesh", "runtime"):
@@ -4866,7 +4996,36 @@ def _mesh_elastic_report(card: str, got: dict) -> None:
     check(got["blob_equal"], "the mesh checkpoint differs from a single-card save of the same state")
 
 
-def mesh_phase(card: str) -> int:
+def _mesh_serve_report(card: str, got: dict, runtime: dict) -> tuple[int, dict]:
+    """(h) the sharded prefill and decode against one card and against the
+    dry mode's count → (their flash launches, all ranks; what the roofline
+    phase needs of the sharded prefill)."""
+    per = got["serve"]["ranks"]
+    cfg = _mesh_train_cfg(MOE_MESH_REDUCED)
+    b, s = MESH_SERVE_TOKENS
+    want = (cfg.num_layers if DEV == "cuda" else 0, 0)
+    print(f"  sharded prefill and decode on (data {MESH_TRAIN_SHAPE[0]}, model {MESH_TRAIN_SHAPE[1]}): {ARCH} at its "
+          f"published widths, {cfg.num_layers} layers, fp32, B {b}, prompt {s}, {MESH_SERVE_NEW} greedy decode steps, "
+          f"{runtime['ranks']} ranks on one card [{card}; one card: the runtime, not scale-out]")
+    for r, rank in enumerate(per):
+        live, dry = rank["live"], rank["dry"]
+        rate = {k: sum(v[1] for v in live[k].values()) / rank["seconds"][k] / 1e9 if rank["seconds"][k] else 0.0
+                for k in live}
+        print(f"    rank {r}: prefill {rank['prefill_s']:.3f} s, {MESH_SERVE_NEW} decode steps {rank['decode_s']:.3f} s "
+              f"({rank['decode_s'] / MESH_SERVE_NEW * 1e3:.1f} ms a step); logits against one card's rows "
+              f"{rank['err']:.3g} of the largest (limit {MESH_SERVE_LIMIT}), greedy tokens equal {rank['same_tokens']}; "
+              f"flash launches prefill / decode {rank['launches']} (expected {want}); staged through the host "
+              f"(calls, bytes) by tag: prefill {live['prefill']}, decode {live['decode']}, at "
+              f"{rate['prefill']:.2f} / {rate['decode']:.2f} GB/s; the dry mode's count equal: "
+              f"{dry == live}")
+        check(rank["finite"] and rank["spread"] > 0 and rank["err"] <= MESH_SERVE_LIMIT and rank["same_tokens"],
+              f"rank {r}'s sharded prefill and decode depart from one card's ({rank['err']:.3g})")
+        check(tuple(rank["launches"]) == want, f"rank {r}: flash launches {rank['launches']}, not {want}")
+        check(dry == live, f"rank {r}: the dry mode counts {dry}, the run staged {live}")
+    return sum(sum(rank["launches"]) for rank in per), {"ranks": per, "cfg": cfg}
+
+
+def mesh_phase(card: str, meanwhile: tuple = ()) -> tuple[int, int, dict, Any]:
     """The multi-rank runtime on one card: the sharded acceptance scan
     through ``launch.fleet``; then one spawn of four ranks for the sharded
     ensemble, the MoE's two sharded bodies at full width,
@@ -4874,9 +5033,13 @@ def mesh_phase(card: str) -> int:
     compressed cross-pod step, the elastic resume), while this process
     computes the MoE layers' single-card references and runs
     ``compress_psum`` and the cross-pod step on CPU ranks; each sharded
-    result held to its single-device version → the train step's flash
-    launches."""
+    result held to its single-device version; then the sharded prefill
+    and decode.  Beside them a process of its own calls ``meanwhile``
+    (``(fn, *args)``: the roofline phase's counts on ``meta``, no card) →
+    (the train step's flash launches, the serving step's, what the roofline
+    phase needs of the sharded prefill, what ``meanwhile`` returned)."""
     import threading
+    from concurrent.futures import ProcessPoolExecutor
 
     import torch
 
@@ -4898,18 +5061,23 @@ def mesh_phase(card: str) -> int:
     t0 = time.perf_counter()
     thread = threading.Thread(target=run_ranks)
     thread.start()
-    refs = _moe_references()
-    cpu_compress = ranks.spawn(2, _compress_case, device="cpu")
-    cpu_crosspod = ranks.spawn(math.prod(MESH_COMPRESS_SHAPE), _mesh_compress_train, *compress_inputs, device="cpu")
-    s_here = time.perf_counter() - t0
+    with ProcessPoolExecutor(1, mp_context=ranks.process_context()) as pool:
+        counting = pool.submit(_clocked, *meanwhile) if meanwhile else None
+        refs = _moe_references()
+        cpu_compress = ranks.spawn(2, _compress_case, device="cpu")
+        cpu_crosspod = ranks.spawn(math.prod(MESH_COMPRESS_SHAPE), _mesh_compress_train, *compress_inputs,
+                                   device="cpu")
+        s_here = time.perf_counter() - t0
+        extra, s_extra = counting.result() if counting else (None, 0.0)
     thread.join()
     if "error" in box:
         raise box["error"]
     got = box["got"]
     rt = got["runtime"]
     print(f"  the phase's ranks: {rt['ranks']} ({rt['ranks_per_card']} a card, {rt['backend']} staged on the "
-          f"{rt['staged']}), spawned in {rt['spawn_s']:.2f} s, done in {time.perf_counter() - t0:.1f} s; the "
-          f"single-card MoE references and the CPU's compress_psum and cross-pod step meanwhile here ({s_here:.1f} s)")
+          f"{rt['staged']}), spawned in {rt['spawn_s']:.2f} s, done in {time.perf_counter() - t0:.1f} s; "
+          f"meanwhile here the single-card MoE references and the CPU's compress_psum and cross-pod step "
+          f"({s_here:.1f} s), and in a process beside them the roofline phase's counts on meta ({s_extra:.1f} s)")
     _mesh_ensemble(card, got["ensemble"], rt)
     _mesh_moe(card, got["moe"], rt, refs)
     _mesh_compress(card, got["compress"], cpu_compress)
@@ -4917,7 +5085,137 @@ def mesh_phase(card: str) -> int:
     _mesh_compress_report(card, got["compress_train"], cpu_crosspod)
     _mesh_elastic_report(card, got["elastic"])
     print(f"  flash launches of the compressed and elastic runs, rank 0: {got['other_launches']}")
-    return launches
+    serve_launches, serve = _mesh_serve_report(card, got, rt)
+    return launches, serve_launches, serve, extra
+
+
+DENSE_DECODERS = ("qwen3-1.7b", "yi-6b", "internlm2-20b", "qwen3-32b")
+DRYRUN_OUT = ROOT / "build" / "chip_smoke_dryrun.json"
+
+
+def _dryrun_cli() -> dict:
+    """``python -m repro_torch.launch.dryrun --all --mesh both`` in this
+    process, on ``meta`` → its cells, seconds and exit code."""
+    from repro_torch.launch import dryrun
+
+    DRYRUN_OUT.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    rc = dryrun.main(["--all", "--mesh", "both", "--out", str(DRYRUN_OUT)])
+    return {"got": json.loads(DRYRUN_OUT.read_text()), "s": time.perf_counter() - t0, "rc": rc}
+
+
+def _roofline_line(label: str, terms, measured_s: float, card: str) -> float:
+    """Print one counted cell's terms beside the time measured → bound /
+    time."""
+    ratio = terms.step_time_lower_bound_s / measured_s
+    print(f"  {label}: {terms.flops_per_device:.4g} FLOPs, {terms.bytes_per_device / 1e9:.4g} GB HBM, "
+          f"{terms.collective_bytes_per_device / 1e9:.4g} GB collective (ring model) → compute "
+          f"{terms.compute_s * 1e3:.4g} ms (peak {terms.peak_flops / 1e12:g} TFLOP/s), memory "
+          f"{terms.memory_s * 1e3:.4g} ms, collective {terms.collective_s * 1e3:.4g} ms (at "
+          f"{terms.collective_bw / 1e9:.3g} GB/s); dominant {terms.dominant}; bound "
+          f"{terms.step_time_lower_bound_s * 1e3:.4g} ms against {measured_s * 1e3:.4g} ms measured: bound / time "
+          f"{ratio:.4g}, mfu_bound {terms.mfu_bound:.4g}, measured MFU "
+          f"{terms.model_flops / (terms.chips * terms.peak_flops * measured_s):.4g} [{card}]")
+    check(ratio <= 1.0, f"{label}: the bound {terms.step_time_lower_bound_s:.4g} s exceeds the measured "
+                        f"{measured_s:.4g} s: a counting error")
+    return ratio
+
+
+def _clocked(fn, *args):
+    """``fn(*args)`` and its seconds on the host's clock."""
+    t0 = time.perf_counter()
+    return fn(*args), time.perf_counter() - t0
+
+
+def roofline_counts(train_step_s: dict, served: dict) -> dict:
+    """What the roofline phase holds to the card's times, counted on
+    ``meta`` with no card, so that the mesh phase can run it in a process
+    of its own while its ranks work: (b)'s cells at a 1×1 mesh
+    (``dryrun_lib.lower_cell``; ``train_step_s``: ``launch.train``'s step
+    by arch) and (c) ``python -m repro_torch.launch.dryrun --all --mesh
+    both`` → each cell's (label, roofline, measured seconds, counting
+    seconds) and the dry run."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed.sharding import Mesh
+    from repro_torch.launch import dryrun_lib
+
+    one = Mesh((1, 1), ("data", "model"))
+    cells = [
+        (f"{ARCH} launch.train step (B {TRAIN_CLI_BATCH}, S {TRAIN_CLI_SEQ}, bf16)", ARCH,
+         ShapeSpec("train", TRAIN_CLI_SEQ, TRAIN_CLI_BATCH, "train"), train_step_s[ARCH]),
+        (f"{MAMBA} launch.train step (B {TRAIN_CLI_BATCH}, S {TRAIN_CLI_SEQ}, bf16)", MAMBA,
+         ShapeSpec("train", TRAIN_CLI_SEQ, TRAIN_CLI_BATCH, "train"), train_step_s[MAMBA]),
+        (f"{ARCH} served prefill (B {served['batch']}, S {served['prompt']}, bf16)", ARCH,
+         ShapeSpec("prefill", served["prompt"], served["batch"], "prefill"), served["prefill_s"]),
+        (f"{ARCH} served decode step (B {served['batch']}, cache {served['max_len']}, bf16)", ARCH,
+         ShapeSpec("decode", served["max_len"], served["batch"], "decode"), served["decode_step_s"]),
+    ]
+    counted = []
+    for label, arch, shape, measured in cells:
+        t0 = time.perf_counter()
+        res = dryrun_lib.lower_cell(arch, shape.name, mesh=one, shape=shape)
+        check(res.status == "ok", f"{label}: {res.status} {res.reason}")
+        counted.append((label, res.roofline, measured, time.perf_counter() - t0))
+    return {"cells": counted, "dryrun": _dryrun_cli()}
+
+
+def roofline_phase(card: str, counted: dict, mesh_serve: dict) -> dict:
+    """(b) the cells the card ran, counted by ``launch/roofline.py`` on
+    ``meta`` (``roofline_counts``, which the mesh phase ran in this process
+    while its ranks worked) and held to the times the earlier phases
+    measured: ``launch.train``'s step of qwen3-1.7b and mamba2-370m (B 8,
+    S 128, bf16; ``_train_step_split``), the served prefill (B 2, S 32)
+    and decode step (cache 96) of qwen3-1.7b (the obs phase's registry
+    means), and the mesh phase's sharded prefill (each rank's counts times
+    the ranks sharing the card, its collectives at the gloo rate that rank
+    measured): bound / time at most 1 on the card's own ceilings; (c)
+    ``python -m repro_torch.launch.dryrun --all --mesh both``: every dense
+    decoder's train, prefill and decode cell ``ok`` on both meshes, every
+    other cell skipped or failing as data that names its ROADMAP item →
+    the ratios."""
+    from repro_torch.launch import roofline as rf
+
+    ratios = {}
+    for label, r, measured, secs in counted["cells"]:
+        terms = rf.RooflineTerms(r["flops_per_device"], r["bytes_per_device"], r["collective_bytes_per_device"],
+                                 r["chips"], r["model_flops"], peak_flops=rf.PEAK_FLOPS_BF16)
+        ratios[label] = _roofline_line(f"{label}, counted in {secs:.1f} s", terms, measured, card)
+    cfg, per = mesh_serve["cfg"], mesh_serve["ranks"]
+    b, s = MESH_SERVE_TOKENS
+    worst = 0.0
+    for i, rank in enumerate(per):
+        live = rank["live"]["prefill"]
+        rate = sum(v[1] for v in live.values()) / rank["seconds"]["prefill"]
+        cost = rank["cost"]
+        terms = rf.RooflineTerms(cost["flops"] * len(per), cost["hbm_bytes"] * len(per), cost["ring_bytes"], 1,
+                                 cfg.model_flops_per_token(False) * b * s, peak_flops=rf.PEAK_FLOPS_FP32,
+                                 collective_bw=rate)
+        worst = max(worst, _roofline_line(
+            f"sharded prefill, rank {i} of {len(per)} on the card ({ARCH}, {cfg.num_layers} layers, fp32, B {b}, "
+            f"S {s}; ring bytes by kind {cost['by_kind']})", terms, rank["prefill_s"], card))
+    ratios["sharded prefill (worst rank)"] = worst
+
+    got, secs, rc = (counted["dryrun"][k] for k in ("got", "s", "rc"))
+    status = {k: v["status"] for k, v in got.items()}
+    count = {st: sum(v == st for v in status.values()) for st in ("ok", "skipped", "error")}
+    dense = [k for k in got if k.split("|")[0] in DENSE_DECODERS and k.split("|")[1] != "long_500k"]
+    errors = [v["reason"] for v in got.values() if v["status"] == "error"]
+    print(f"  launch.dryrun --all --mesh both: {len(got)} cells, {count['ok']} ok, {count['skipped']} skipped, "
+          f"{count['error']} error (each naming its ROADMAP item), {secs:.1f} s on meta during the mesh phase "
+          f"(exit {rc})")
+    for k in dense:
+        v = got[k]
+        if v["status"] == "ok":
+            r = v["roofline"]
+            print(f"    {k}: dominant {r['dominant']}, bound {r['step_time_lower_bound_s']:.4g} s (compute "
+                  f"{r['compute_s']:.4g}, memory {r['memory_s']:.4g}, collective {r['collective_s']:.4g}), "
+                  f"mfu_bound {r['mfu_bound']:.4g}, {v['memory']['per_device_total_gb']:.3f} GB a rank")
+    check(len(got) == 80 and sum(count.values()) == 80, f"the dry run covered {len(got)} cells, not 80")
+    check(len(dense) == 24 and all(status[k] == "ok" for k in dense),
+          f"dense cells not ok: {[k for k in dense if status[k] != 'ok']}")
+    check(all("ROADMAP" in reason for reason in errors), "a dry-run error names no ROADMAP item")
+    check(rc == (1 if errors else 0), f"launch.dryrun exited {rc}")
+    return ratios
 
 
 @contextlib.contextmanager
@@ -5046,7 +5344,7 @@ def main() -> None:
         check(n_dq > 0 and n_fa > 0, "a kernel of the learned-policy serving path was never launched")
 
     with timed_phase("obs", seconds):
-        n_dq, n_fa = obs_phase(card)
+        n_dq, n_fa, served = obs_phase(card)
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
         dq_entry["launches"] += n_dq
         fa_entry["launches"] += n_fa
@@ -5066,10 +5364,16 @@ def main() -> None:
         control_phase(card)
 
     with timed_phase("mesh", seconds):
-        n_fa = mesh_phase(card)
-        fa_entry["launches"] += n_fa
+        train_step_s = {arch: sum(train_report[arch]["step_split_s"].values()) for arch in (ARCH, MAMBA)}
+        n_fa, n_serve, mesh_serve, counted = mesh_phase(card, (roofline_counts, train_step_s, served))
+        fa_entry["launches"] += n_fa + n_serve
         fa_entry["mesh_train_launches"] = n_fa
+        fa_entry["mesh_serve_launches"] = n_serve
         check(n_fa > 0, "the flash kernel was never launched on the mesh train step's path")
+        check(n_serve > 0, "the flash kernel was never launched on the sharded prefill's path")
+
+    with timed_phase("roofline", seconds):
+        roofline_phase(card, counted, mesh_serve)
 
     print(f"phase seconds: {json.dumps(seconds)}")
     print(card)

@@ -10,11 +10,13 @@ compute.  Three modes:
     zstd+int8  blocked int8 quantization (kernels/dequant) + compression
                (≈4× smaller; dequantize-on-load)
 
-The port writes the zlib codec (the reference's fallback when
-``zstandard`` is absent; every blob records its codec) and reads zlib
-blobs; a blob written with the zstd codec raises.  Payloads go through the
-bundled msgpack codec (``_msgpack``), and bf16 leaves through torch, so
-the port needs neither ``msgpack``, ``zstandard`` nor ``ml_dtypes``.
+The codec is the reference's choice: zstd at ``level`` (3) where the
+optional ``zstandard`` package is installed, stdlib zlib at level 6
+otherwise; every blob records its codec, and both codecs are read (a zstd
+blob where ``zstandard`` is absent raises ``ModuleNotFoundError``).
+Payloads go through the bundled msgpack codec (``_msgpack``), and bf16
+leaves through torch, so the port needs neither ``msgpack`` nor
+``ml_dtypes``, and ``zstandard`` only to use zstd.
 
 Restore dequantizes where the tensors are sent: with ``device="cuda"`` the
 int8 values and scales move to the card and the dequant kernel writes the
@@ -31,6 +33,11 @@ from typing import Any
 
 import torch
 
+try:  # optional: stdlib zlib is the codec where zstandard is absent
+    import zstandard
+except ImportError:  # pragma: no cover - exercised on hosts without the package
+    zstandard = None
+
 from repro_torch import tree as trees
 from repro_torch.checkpoint import _msgpack
 from repro_torch.device import resolve_device
@@ -39,7 +46,10 @@ from repro_torch.kernels.dequant import ops as dq
 MODES = ("none", "zstd", "zstd+int8")
 _QUANT_GROUP = 128
 _ZLIB_LEVEL = 6
-_ZLIB_THREADS = min(8, os.cpu_count() or 1)  # zlib releases the GIL while it (de)compresses
+_ZLIB_THREADS = min(8, os.cpu_count() or 1)  # zlib and zstd release the GIL while they (de)compress
+
+#: whether the "zstd" modes write the zstd codec (else zlib), as the reference's flag
+HAVE_ZSTD = zstandard is not None
 
 _DTYPES = {
     "float32": torch.float32,
@@ -56,15 +66,25 @@ _DTYPES = {
 _NAMES = {v: k for k, v in _DTYPES.items()}
 
 
+def _compressor(level: int):
+    """(codec name, bytes → bytes) for the "zstd" modes: the reference's
+    choice.  A zstd context is made per call, so the pool's threads share
+    none."""
+    if HAVE_ZSTD:
+        return "zstd", lambda raw: zstandard.ZstdCompressor(level=level).compress(raw)
+    return "zlib", lambda raw: zlib.compress(raw, _ZLIB_LEVEL)
+
+
 def _decompress(codec: str, data: bytes) -> bytes:
     if codec == "zlib":
         return zlib.decompress(data)
     if codec == "zstd":
-        raise ModuleNotFoundError(
-            "checkpoint was written with the zstd codec, which the port does "
-            "not read; write it with the zlib codec (the reference does so "
-            "when 'zstandard' is not installed)"
-        )
+        if not HAVE_ZSTD:
+            raise ModuleNotFoundError(
+                "checkpoint was written with the zstd codec but the 'zstandard' "
+                "package is not installed"
+            )
+        return zstandard.ZstdDecompressor().decompress(data)
     raise ValueError(f"unknown checkpoint codec {codec!r}")
 
 
@@ -108,19 +128,21 @@ def _from_bytes(raw: bytes, dtype: torch.dtype, shape, device) -> torch.Tensor:
     return t.to(device) if device.type != "cpu" else t.clone()
 
 
-def serialize(tree: Any, mode: str = "zstd") -> bytes:
+def serialize(tree: Any, mode: str = "zstd", level: int = 3) -> bytes:
     """Nested dict of tensors → bytes.  Quantization runs where the
     tensors lie (the kernel-free quantizer, on the card for CUDA tensors);
-    the leaves are compressed on ``_ZLIB_THREADS`` host threads, at most
-    twice that many in flight, into the bytes one thread would write."""
+    the leaves are compressed (module docstring: the codec) on
+    ``_ZLIB_THREADS`` host threads, at most twice that many in flight, into
+    the bytes one thread would write."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}")
+    codec, pack = _compressor(level)
     leaves = []
     pending = collections.deque()             # (record, key, future), in the leaves' order
     with ThreadPoolExecutor(_ZLIB_THREADS) as pool:
 
         def compress(record: dict, key: str, raw: bytes) -> None:
-            pending.append((record, key, pool.submit(zlib.compress, raw, _ZLIB_LEVEL)))
+            pending.append((record, key, pool.submit(pack, raw)))
             while len(pending) > 2 * _ZLIB_THREADS:
                 done, k, future = pending.popleft()
                 done[k] = future.result()
@@ -155,7 +177,7 @@ def serialize(tree: Any, mode: str = "zstd") -> bytes:
     payload = {
         "version": 1,
         "mode": mode,
-        "codec": "zlib",
+        "codec": codec,
         "leaves": leaves,
     }
     return _msgpack.packb(payload)
@@ -163,7 +185,8 @@ def serialize(tree: Any, mode: str = "zstd") -> bytes:
 
 def _inflated(pool: ThreadPoolExecutor, codec: str, blobs: list):
     """The blobs decompressed on ``pool``, at most twice its threads in
-    flight, yielded in order (zlib releases the GIL while it inflates)."""
+    flight, yielded in order (both codecs release the GIL while they
+    inflate)."""
     pending = collections.deque()
     for blob in blobs:
         pending.append(pool.submit(_decompress, codec, blob))

@@ -2,15 +2,19 @@
 
 Defaults are the reference's baseline.  The training levers act here:
 ``num_microbatches``, ``remat`` (``full | dots | none``),
-``optimizer_moment_dtype``, ``loss_chunk`` and ``ssd_chunk``.  The train
-step on a mesh of ranks (``training/train_loop.py``) reads
-``gather_weights_once`` (gather the FSDP blocks once a step, not at each
-use) and ``grad_compress_pod`` (the compressed cross-pod branch, with
+``optimizer_moment_dtype``, ``loss_chunk`` and ``ssd_chunk`` (also read by
+the single-device prefill of the Mamba-2 layers).  The train step on a mesh
+of ranks (``training/train_loop.py``) reads ``gather_weights_once``
+(gather the FSDP blocks once a step, not at each use) and
+``grad_compress_pod`` (the compressed cross-pod branch, with
 ``launch.dryrun_lib.perf_rules``); on one device both do nothing.  The
-rest keeps the reference's surface until the slices that read it
-(ROADMAP): ``seq_parallel_residual``, ``shard_long_cache_over_model`` and
-``shard_cache_seq_over_model`` (which ``perf_rules`` maps into the rule
-table, but no sharded prefill or decode reads yet) and
+sharded prefill and decode (``model_zoo.prefill_fn`` / ``decode_fn`` with
+``mesh=``) read ``gather_weights_once`` (every block gathered once a call)
+and refuse ``shard_cache_seq_over_model`` and
+``shard_long_cache_over_model`` (a cache split over its sequence waits for
+a later slice, ROADMAP; ``perf_rules`` maps both into the rule table and
+``dryrun_lib.batch_pspecs`` raises for them).  Still read by nothing:
+``seq_parallel_residual`` (the sequence-parallel residual, ROADMAP) and
 ``moe_capacity_factor`` (the reference's ``moe_block`` ignores it without
 a mesh; ``models.moe.moe_block`` on a mesh of ranks takes its capacity
 factor as an argument).

@@ -3,8 +3,8 @@ runtime.
 
 The reference gets its devices from XLA and runs one SPMD program over them
 (``shard_map``).  Torch needs processes: :func:`spawn` starts ``n`` ranks
-(``torch.multiprocessing``, start method ``spawn``), joins them into one
-gloo process group, runs the same function in each and returns rank 0's
+(``torch.multiprocessing``, start method ``forkserver``: see
+:func:`process_context`), joins them into one gloo process group, runs the same function in each and returns rank 0's
 result.  Inside a rank, :func:`make_mesh` builds a
 :class:`~repro_torch.distributed.sharding.Mesh` backed by a
 ``torch.distributed.device_mesh.DeviceMesh`` (one process group a named
@@ -47,6 +47,16 @@ synchronizes the device first (so its time is its own) and adds to
 the result back) and its seconds; ``tag`` names what the caller moves
 ("weight gather", "gradient reduce", "tensor parallel", ...).
 
+**Dry mode.**  On ``meta`` tensors every collective creates no process
+group and moves nothing: it returns a ``meta`` tensor of the result's shape
+and counts as the live one would, so a rank's step can be run on ``meta``
+on a descriptor mesh (``sharding.Mesh`` with this rank's ``coordinate``)
+to count its traffic (``launch/roofline.py``).  :data:`stats` takes the
+same calls and bytes under the same tags as a live run's (and no seconds);
+:data:`traffic` takes, live or dry, the reference's ring model of each
+collective (``repro.launch.roofline._ring_factor``) by kind over its
+group's size.
+
 **Failures.**  A rank that raises sends its traceback; :func:`spawn` then
 tears the other ranks down and raises :class:`RankError` with it.  A rank
 that dies without a word (killed, out of memory) or a run past
@@ -82,6 +92,7 @@ __all__ = [
     "info",
     "make_mesh",
     "pmean",
+    "process_context",
     "psum",
     "psum_scatter",
     "rank",
@@ -101,6 +112,11 @@ Axes = Union[str, Sequence[str]]
 #: per tag: {"calls", "bytes", "s"} of the staged collectives while a dict
 #: (see the module docstring); None counts nothing
 stats: Optional[dict] = None
+
+#: per kind ("all-reduce", "all-gather", "all-to-all"): {"bytes", "count"}
+#: of the reference's ring model of each collective while a dict; None
+#: counts nothing
+traffic: Optional[dict] = None
 
 
 class RankError(RuntimeError):
@@ -192,6 +208,19 @@ def _entry(r, n, store_path, dev_type, threads, timeout_s, t0, fn, args, kwargs,
             dist.destroy_process_group()
 
 
+def process_context():
+    """The start method of the ranks: ``forkserver``, whose server imports
+    torch once, so that each rank is forked from it instead of importing
+    torch itself, which on a card host takes seconds a process.  The server
+    never starts CUDA; each rank starts its own.  It holds the environment
+    of the moment it started, and ends with this process."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("forkserver")
+    ctx.set_forkserver_preload(["torch"])
+    return ctx
+
+
 def spawn(
     n: int,
     fn: Callable,
@@ -209,13 +238,11 @@ def spawn(
     whole join.  The host's cores are shared among the ranks' torch
     threads.
     """
-    import torch.multiprocessing as mp
-
     if n < 1:
         raise ValueError(f"spawn needs at least one rank, got {n}")
     dev = resolve_device(device)
     threads = max(1, (os.cpu_count() or 1) // n)
-    ctx = mp.get_context("spawn")
+    ctx = process_context()
     tmp = tempfile.mkdtemp(prefix="repro_torch_ranks_")
     results = ctx.Queue()
     t0 = time.time()
@@ -361,10 +388,24 @@ def _sync(t: torch.Tensor) -> None:
         torch.cuda.synchronize(t.device)
 
 
-def _recorded(tag: str, x: torch.Tensor, run: Callable[[], torch.Tensor]) -> torch.Tensor:
-    """``run()``, a staged collective of ``x``, added to :data:`stats`
-    while it is a dict: its operand's and result's bytes and its seconds,
-    the device synchronized before and after."""
+def _ring_factor(kind: str, n: int) -> float:
+    """The reference's ring model: bytes moved a member per result byte."""
+    if n <= 1:
+        return 0.0
+    return (2.0 if kind == "all-reduce" else 1.0) * (n - 1) / n
+
+
+def _recorded(tag: str, x: torch.Tensor, run: Callable[[], torch.Tensor], ring: Sequence = ()) -> torch.Tensor:
+    """``run()``, a staged collective of ``x`` (a ``meta`` result for a
+    ``meta`` ``x``), added to :data:`stats` while it is a dict: its
+    operand's and result's bytes and its seconds, the device synchronized
+    before and after; and to :data:`traffic` while it is a dict, each
+    (kind, group size, result bytes) of ``ring`` by the ring model."""
+    if traffic is not None:
+        for kind, n, nbytes in ring:
+            entry = traffic.setdefault(kind, {"bytes": 0.0, "count": 0})
+            entry["bytes"] += _ring_factor(kind, n) * nbytes
+            entry["count"] += 1
     if stats is None:
         return run()
     _sync(x)
@@ -374,8 +415,12 @@ def _recorded(tag: str, x: torch.Tensor, run: Callable[[], torch.Tensor]) -> tor
     entry = stats.setdefault(tag, {"calls": 0, "bytes": 0, "s": 0.0})
     entry["calls"] += 1
     entry["bytes"] += x.numel() * x.element_size() + out.numel() * out.element_size()
-    entry["s"] += time.perf_counter() - t0
+    entry["s"] += 0.0 if x.is_meta else time.perf_counter() - t0
     return out
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
 
 
 def psum(x: torch.Tensor, axes: Axes, mesh=None, *, tag: str = "psum") -> torch.Tensor:
@@ -387,9 +432,13 @@ def psum(x: torch.Tensor, axes: Axes, mesh=None, *, tag: str = "psum") -> torch.
     if not _live(axes, mesh):
         return x
 
+    live = _live(axes, mesh)
+
     def run():
+        if x.is_meta:
+            return torch.empty_like(x)
         out = x
-        for axis in _live(axes, mesh):
+        for axis in live:
             wide = out.float() if out.dtype in (torch.bfloat16, torch.float16) else out
             h = _host(wide)
             h = h.clone() if h is wide else h
@@ -397,7 +446,7 @@ def psum(x: torch.Tensor, axes: Axes, mesh=None, *, tag: str = "psum") -> torch.
             out = _back(h, wide).to(x.dtype)
         return out
 
-    return _recorded(tag, x, run)
+    return _recorded(tag, x, run, [("all-reduce", mesh.shape[a], _nbytes(x)) for a in live])
 
 
 def pmean(x: torch.Tensor, axes: Axes, mesh=None, *, tag: str = "psum") -> torch.Tensor:
@@ -419,16 +468,26 @@ def all_gather(x: torch.Tensor, axes: Axes, dim: int = 0, mesh=None, *, tag: str
     if not _live(axes, mesh):
         return x
 
+    steps, size = [], _nbytes(x)
+    for axis in reversed(_live(axes, mesh)):
+        size *= mesh.shape[axis]
+        steps.append(("all-gather", mesh.shape[axis], size))
+
     def run():
         out = x
         for axis in reversed(_live(axes, mesh)):
+            if x.is_meta:
+                shape = list(out.shape)
+                shape[dim] *= mesh.shape[axis]
+                out = out.new_empty(shape)
+                continue
             h = _host(out)
             parts = [torch.empty_like(h) for _ in range(mesh.shape[axis])]
             dist.all_gather(parts, h, group=_group(mesh, axis))
             out = _back(torch.cat(parts, dim=dim), out)
         return out
 
-    return _recorded(tag, x, run)
+    return _recorded(tag, x, run, steps)
 
 
 def all_to_all(x: torch.Tensor, axis: str, split_dim: int, concat_dim: int, mesh=None, *,
@@ -447,12 +506,17 @@ def all_to_all(x: torch.Tensor, axis: str, split_dim: int, concat_dim: int, mesh
         raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)} does not split {n} ways")
 
     def run():
+        if x.is_meta:
+            shape = list(x.shape)
+            shape[split_dim] //= n
+            shape[concat_dim] *= n
+            return x.new_empty(shape)
         send = _host(torch.stack(torch.chunk(x, n, dim=split_dim)))
         recv = torch.empty_like(send)
         dist.all_to_all_single(recv, send, group=_group(mesh, axis))
         return _back(torch.cat(list(recv.unbind(0)), dim=concat_dim), x)
 
-    return _recorded(tag, x, run)
+    return _recorded(tag, x, run, [("all-to-all", n, _nbytes(x))])
 
 
 def _block(t: torch.Tensor, axes: tuple, dim: int, mesh) -> torch.Tensor:

@@ -30,7 +30,11 @@ decoder has its counterpart at the same place of the port's.  One departs
 from the reference's layout, with the same numbers: where the KV heads
 divide over ``model``, each rank keeps only the KV heads its query heads
 read (``("batch", "act_seq", "act_heads", None)``) where the reference
-replicates them (``"act_kv"``).
+replicates them (``"act_kv"``).  The serving step runs on the same
+:class:`Layout` (``model_zoo.serving_layout``); a decode state's KV cache
+is a local block, its batch over (pod, data) (``cache_batch``), its
+sequence whole, and its heads the KV heads this rank's query heads read
+(``models/attention.py::cache_heads``), where the reference keeps all.
 
 Usage:
     with use_sharding(mesh, rules):

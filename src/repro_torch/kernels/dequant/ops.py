@@ -1,10 +1,11 @@
 """Public dequant op: the CUDA kernel for CUDA tensors, the plain version
-for CPU tensors (port of ``repro.kernels.dequant.ops``)."""
+for CPU tensors (port of ``repro.kernels.dequant.ops``), and the kernel's
+stand-in from ``kernels/meta_ops.py`` for ``meta`` tensors."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _lib
+from repro_torch.kernels import _lib, meta_ops
 from repro_torch.kernels.dequant.ref import (
     dequantize_blocked_reference,
     quantize_blocked,
@@ -22,6 +23,8 @@ def dequantize(
     """int8 q (R, C) · fp32 scales (R, C/group) → (R, C) in ``dtype``."""
     if q.device.type == "cpu":
         return dequantize_blocked_reference(q, scales, group=group, dtype=dtype)
+    if q.is_meta:
+        return meta_ops.dequantize(q, scales, group, dtype)
     return dequantize_cuda(q, scales, group=group, dtype=dtype)
 
 

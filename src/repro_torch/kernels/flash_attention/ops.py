@@ -10,6 +10,9 @@ own gradient off the TPU (XLA's autodiff of its plain path; the Pallas
 kernel has no ``custom_vjp``), written in PyTorch, as ``kernels/lstm/ops.py``
 does for the LSTM.
 
+On ``meta`` tensors the op is ``kernels/meta_ops.py``'s stand-in for the
+kernel (shapes and counts for the roofline counter, no launch).
+
 Decode over a ring-buffer cache (``kv_positions``) is not this op's job:
 as in the reference, it goes through the plain version
 (``models/attention.py::attention_decode``)."""
@@ -19,7 +22,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _lib
+from repro_torch.kernels import _lib, meta_ops
 from repro_torch.kernels.flash_attention.ref import attention_reference
 
 #: kernel launches since the count was last set to 0
@@ -48,6 +51,13 @@ def _card(q, k, v, causal, window, q_offset):
     else the kernel alone."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _FlashFunction.apply(q, k, v, causal, window, q_offset)
+    return _kernel(q, k, v, causal, window, q_offset)
+
+
+def _kernel(q, k, v, causal, window, q_offset):
+    """The kernel on CUDA tensors; its meta stand-in on ``meta`` tensors."""
+    if q.is_meta:
+        return meta_ops.flash_attention(q, k, v, causal, window, q_offset)
     return flash_attention_cuda(q, k, v, causal=causal, window=window, q_offset=q_offset)
 
 
@@ -121,7 +131,7 @@ class _FlashFunction(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window, q_offset):
         ctx.save_for_backward(q, k, v)
         ctx.mask = causal, window, q_offset
-        return flash_attention_cuda(q, k, v, causal=causal, window=window, q_offset=q_offset)
+        return _kernel(q, k, v, causal, window, q_offset)
 
     @staticmethod
     def backward(ctx, d_out):

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _lib
+from repro_torch.kernels import _lib, meta_ops
 from repro_torch.kernels.lstm.ref import lstm_reference
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -38,8 +38,16 @@ def lstm(
             t is not None and t.requires_grad for t in (x, w_ih, w_hh, b, h0, c0)):
         hs, h, c = _LstmFunction.apply(x, w_ih, w_hh, b, h0, c0)
     else:   # nothing to differentiate: the kernel alone (an inference call takes some 25 µs)
-        hs, h, c = lstm_cuda(x, w_ih, w_hh, b, h0, c0)
+        hs, h, c = _kernel(x, w_ih, w_hh, b, h0, c0)
     return hs, (h, c)
+
+
+def _kernel(x, w_ih, w_hh, b, h0, c0):
+    """The kernel on CUDA tensors; its meta stand-in on ``meta`` tensors
+    (``kernels/meta_ops.py``)."""
+    if x.is_meta:
+        return meta_ops.lstm(x, w_ih, w_hh, b, h0, c0)
+    return lstm_cuda(x, w_ih, w_hh, b, h0, c0)
 
 
 def lstm_cuda(
@@ -106,7 +114,7 @@ class _LstmFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w_ih, w_hh, b, h0, c0):
         ctx.save_for_backward(x, w_ih, w_hh, b, h0, c0)
-        return lstm_cuda(x, w_ih, w_hh, b, h0, c0)
+        return _kernel(x, w_ih, w_hh, b, h0, c0)
 
     @staticmethod
     def backward(ctx, d_hs, d_h, d_c):

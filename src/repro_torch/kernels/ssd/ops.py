@@ -19,7 +19,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _lib
+from repro_torch.kernels import _lib, meta_ops
 from repro_torch.kernels.ssd.ref import ssd_chunked, ssd_decode_step
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -56,6 +56,14 @@ def _card(x, dt, a, b_mat, c_mat, d_vec, *, chunk, init_state):
     inputs = (x, dt, a, b_mat, c_mat, d_vec, init_state)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
         return _SsdFunction.apply(*inputs, chunk)
+    return _kernel(x, dt, a, b_mat, c_mat, d_vec, chunk, init_state)
+
+
+def _kernel(x, dt, a, b_mat, c_mat, d_vec, chunk, init_state):
+    """The kernels on CUDA tensors; their meta stand-in on ``meta`` tensors
+    (``kernels/meta_ops.py``)."""
+    if x.is_meta:
+        return meta_ops.ssd(x, dt, a, b_mat, c_mat, d_vec, chunk, init_state)
     return ssd_cuda(x, dt, a, b_mat, c_mat, d_vec, chunk=chunk, init_state=init_state)
 
 
@@ -67,7 +75,7 @@ class _SsdFunction(torch.autograd.Function):
     def forward(ctx, x, dt, a, b_mat, c_mat, d_vec, init_state, chunk):
         ctx.save_for_backward(x, dt, a, b_mat, c_mat, d_vec, init_state)
         ctx.chunk = chunk
-        return ssd_cuda(x, dt, a, b_mat, c_mat, d_vec, chunk=chunk, init_state=init_state)
+        return _kernel(x, dt, a, b_mat, c_mat, d_vec, chunk, init_state)
 
     @staticmethod
     def backward(ctx, d_y, d_state):

@@ -35,6 +35,15 @@ count of every rank's labels (a sum over the batch axes), so the ranks'
 losses and gradients add up to the global mean's.  The reference's
 ``constrain`` calls have their counterparts here as
 ``Layout.check``.
+
+The serving step takes the same kind of ``Layout`` (built by
+``model_zoo.prefill_fn`` / ``decode_fn`` from a mesh): :func:`prefill` and
+:func:`decode_step` run on this rank's rows, each period's weights fetched
+over their FSDP axes before use (or gathered once a call with
+``gather_weights_once``), attention and the MLP on local heads and
+columns, the cache a local block (``models/attention.py``), the embedding
+vocab-parallel; :func:`logits_at` assembles each row's whole (V,) logits
+over ``model``.
 """
 from __future__ import annotations
 
@@ -149,9 +158,14 @@ def _lm_head(params: dict) -> torch.Tensor:
     return params["embed"].T   # tied
 
 
-def logits_at(params: dict, hidden: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """Vocab logits for given hidden positions (B, S', d) → (B, S', V) fp32."""
-    return (hidden @ _lm_head(params)).float()
+def logits_at(params: dict, hidden: torch.Tensor, cfg: ArchConfig, layout=None) -> torch.Tensor:
+    """Vocab logits for given hidden positions (B, S', d) → (B, S', V) fp32;
+    with a ``layout`` whose head is split over ``model``, this rank's
+    columns gathered into every row's whole logits."""
+    logits = (hidden @ _lm_head(params)).float()
+    if layout is not None and logits.shape[-1] != cfg.vocab_size:
+        logits = ranks.all_gather(logits, layout.tp, logits.dim() - 1, layout.mesh, tag="logits")
+    return logits
 
 
 # ---------------------------------------------------------------------------
@@ -186,21 +200,32 @@ def forward_block(bp: dict, x: torch.Tensor, cfg: ArchConfig, pos: int,
     return _ffn_residual(bp, x + mix, cfg, pos)
 
 
-def prefill_block(bp: dict, x: torch.Tensor, cfg: ArchConfig, pos: int, max_len: int):
+def prefill_block(bp: dict, x: torch.Tensor, cfg: ArchConfig, pos: int, max_len: int,
+                  perf: PerfConfig = BASELINE, layout=None):
     """The block at position ``pos`` over a full sequence → (x, its decode
-    cache: a ``KVCache`` or an ``SSMCache``)."""
+    cache: a ``KVCache`` or an ``SSMCache``); with a serving ``layout``, a
+    dense block on local blocks (module docstring)."""
     h = rms_norm(x, bp["ln1"], cfg.norm_eps)
+    if layout is not None:
+        mix, cache = attn.prefill_cache(bp["attn"], h, cfg, max_len, layout)
+        x = x + mix
+        return x + mlp_mod.mlp_block(bp["mlp"], rms_norm(x, bp["ln2"], cfg.norm_eps), cfg, layout), cache
     if cfg.layer_kind(pos) == "attn":
         mix, cache = attn.prefill_cache(bp["attn"], h, cfg, max_len)
     else:
-        mix, cache = m2.mamba2_block(bp["ssm"], h, cfg, return_state=True)
+        mix, cache = m2.mamba2_block(bp["ssm"], h, cfg, chunk=perf.ssd_chunk, return_state=True)
     x, _ = _ffn_residual(bp, x + mix, cfg, pos)
     return x, cache
 
 
-def decode_block(bp: dict, x: torch.Tensor, cache, cfg: ArchConfig, pos: int):
-    """The block at position ``pos`` for one token (B, 1, d) → (x, cache)."""
+def decode_block(bp: dict, x: torch.Tensor, cache, cfg: ArchConfig, pos: int, layout=None):
+    """The block at position ``pos`` for one token (B, 1, d) → (x, cache);
+    with a serving ``layout``, a dense block on local blocks."""
     h = rms_norm(x, bp["ln1"], cfg.norm_eps)
+    if layout is not None:
+        mix, cache = attn.attention_decode(bp["attn"], h, cache, cfg, layout)
+        x = x + mix
+        return x + mlp_mod.mlp_block(bp["mlp"], rms_norm(x, bp["ln2"], cfg.norm_eps), cfg, layout), cache
     if cfg.layer_kind(pos) == "attn":
         mix, cache = attn.attention_decode(bp["attn"], h, cache, cfg)
     else:
@@ -351,21 +376,43 @@ class DecodeState(NamedTuple):
 
 
 def init_decode_state(
-    cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16, device="cuda"
+    cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16, device="cuda",
+    kv_heads: int | None = None,
 ) -> DecodeState:
     """Empty caches for every period on ``device`` (the card by default;
     raises without one unless ``device="cpu"``), each its own tensors since
-    decode writes them in place."""
+    decode writes them in place; ``kv_heads`` as ``attention.init_cache``
+    takes it (a serving rank's, ``attention.cache_heads``)."""
     caches = []
     for _ in range(num_periods(cfg)):
         period = {}
         for i in range(period_len(cfg)):
             if cfg.layer_kind(i) == "attn":
-                period[f"pos{i}"] = attn.init_cache(cfg, batch, max_len, dtype, device)
+                period[f"pos{i}"] = attn.init_cache(cfg, batch, max_len, dtype, device, kv_heads)
             else:
                 period[f"pos{i}"] = m2.init_ssm_cache(cfg, batch, dtype, device)
         caches.append(period)
     return DecodeState(caches=caches)
+
+
+def _serving_params(params: dict, layout) -> dict:
+    """The top-level leaves fetched over their FSDP axes (all of them with
+    ``gather_weights_once``); the periods are fetched one at a time."""
+    if layout.gathered:
+        return layout.gather_all(params)
+    return {**layout.fetch({k: v for k, v in params.items() if k != "periods"}, ""),
+            "periods": params["periods"]}
+
+
+def _serving_blocks(params: dict, cfg: ArchConfig, layout):
+    """:func:`blocks` of a serving step: each period fetched (by
+    ``layout``, when given) as it is reached."""
+    for p in range(num_periods(cfg)):
+        period = _layer(params["periods"], p)
+        if layout is not None:
+            period = layout.fetch(period, "periods", stacked=True)
+        for i in range(period_len(cfg)):
+            yield i, period[f"pos{i}"]
 
 
 def prefill(
@@ -373,17 +420,30 @@ def prefill(
     batch: dict,
     cfg: ArchConfig,
     max_len: int,
+    perf: PerfConfig = BASELINE,
+    long_context: bool = False,
+    layout=None,
 ) -> tuple[torch.Tensor, DecodeState]:
     """Full-context forward that materializes decode caches.
-    Returns (last-position logits (B, V), state)."""
-    x = embed_inputs(params, batch, cfg)
+    Returns (last-position logits (B, V), state).  ``long_context`` names
+    the reference's long-cache placement, which a mesh takes in a later
+    slice (``model_zoo.serving_layout`` raises); with a serving ``layout``
+    this rank's rows on local blocks (module docstring)."""
+    if layout is None:
+        x = embed_inputs(params, batch, cfg)
+    else:
+        params = _serving_params(params, layout)
+        x = _embed_sharded(params["embed"], batch["tokens"], cfg, layout)
     caches: list = []
-    for pos, bp in blocks(params, cfg):
+    for pos, bp in _serving_blocks(params, cfg, layout):
         if pos == 0:
             caches.append({})
-        x, caches[-1][f"pos{pos}"] = prefill_block(bp, x, cfg, pos, max_len)
+        x, caches[-1][f"pos{pos}"] = prefill_block(bp, x, cfg, pos, max_len, perf, layout)
+        if layout is not None:
+            b, s, d = x.shape
+            x = layout.check(x, ("batch", "act_seq", None), (b * layout.batch_size, s, d))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = logits_at(params, x[:, -1:, :], cfg)[:, 0]
+    logits = logits_at(params, x[:, -1:, :], cfg, layout)[:, 0]
     return logits, DecodeState(caches=caches)
 
 
@@ -392,15 +452,24 @@ def decode_step(
     state: DecodeState,
     token: torch.Tensor,         # (B,) int
     cfg: ArchConfig,
+    perf: PerfConfig = BASELINE,
+    long_context: bool = False,
+    layout=None,
 ) -> tuple[torch.Tensor, DecodeState]:
-    """One decode step for every sequence in the batch → (logits (B,V), state)."""
-    x = params["embed"][token.long()[:, None]]
+    """One decode step for every sequence in the batch → (logits (B,V), state);
+    with a serving ``layout`` this rank's rows on local blocks."""
+    if layout is None:
+        x = params["embed"][token.long()[:, None]]
+    else:
+        params = _serving_params(params, layout)
+        x = _embed_sharded(params["embed"], token[:, None], cfg, layout)
+        x = layout.check(x, ("batch", None, None), (x.shape[0] * layout.batch_size, 1, cfg.d_model))
     caches: list = []
-    for layer, (pos, bp) in enumerate(blocks(params, cfg)):
+    for layer, (pos, bp) in enumerate(_serving_blocks(params, cfg, layout)):
         if pos == 0:
             caches.append({})
         old = state.caches[layer // period_len(cfg)][f"pos{pos}"]
-        x, caches[-1][f"pos{pos}"] = decode_block(bp, x, old, cfg, pos)
+        x, caches[-1][f"pos{pos}"] = decode_block(bp, x, old, cfg, pos, layout)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = logits_at(params, x, cfg)[:, 0]
+    logits = logits_at(params, x, cfg, layout)[:, 0]
     return logits, DecodeState(caches=caches)

@@ -144,12 +144,11 @@ def make_train_step(
 
 def _mesh_train_step(cfg: ArchConfig, perf: PerfConfig, opt: AdamW, mesh) -> TrainStepFns:
     """The step on a mesh of ranks (module docstring)."""
-    dense = cfg.family == "dense" and cfg.frontend == "none" and not cfg.attn_every and not any(
-        cfg.layer_is_moe(i) for i in range(cfg.num_layers))
-    if not dense:
+    if not zoo.dense_decoder(cfg):
         raise NotImplementedError(
             f"{cfg.name}: a train step on a mesh of ranks takes the dense decoder family; the MoE, "
-            "Mamba-2, hybrid and frontend families wait for a later slice (ROADMAP)")
+            "Mamba-2, hybrid and frontend families wait for mesh training of the other families "
+            "(ROADMAP Queue A)")
     compress = perf.grad_compress_pod and "pod" in mesh.axis_names
     pspecs = zoo.param_pspecs(cfg, mesh)
     flat_specs = paths(pspecs)

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from repro_torch.core import arrivals as pa
+from test_torch_x64_shim import x64_shim
 
 N_DEV, N_GAPS = 48, 120
 
@@ -39,12 +40,8 @@ CHI2_999 = {9: 27.877}
 def jref():
     """The JAX package's arrivals module, imported under jax 0.9.0, where
     ``jax.experimental.enable_x64`` is gone but ``jax.enable_x64`` remains."""
-    import jax
-    import jax.experimental
-
-    if not hasattr(jax.experimental, "enable_x64"):
-        jax.experimental.enable_x64 = jax.enable_x64
-    from repro.core import arrivals
+    with x64_shim():
+        from repro.core import arrivals
 
     return arrivals
 
@@ -53,9 +50,8 @@ def _jax_draws(name: str, key, n_devices: int, n_gaps: int) -> tuple:
     """The draws the reference's ``_batch_gaps`` consumes for ``key``."""
     import jax
     import jax.numpy as jnp
-    from jax.experimental import enable_x64
 
-    with enable_x64():
+    with jax.enable_x64():
         if name == "deterministic":
             return (np.zeros((n_devices, n_gaps)),)
         if name == "jittered":
@@ -75,11 +71,10 @@ def _procs(jref, name):
 @pytest.mark.parametrize("name", sorted(PROCESSES))
 def test_gaps_from_the_same_draws_equal_the_reference(jref, name):
     import jax
-    from jax.experimental import enable_x64
 
     ours, ref = _procs(jref, name)
     key = jax.random.PRNGKey(11)
-    with enable_x64():
+    with jax.enable_x64():
         want = np.asarray(ref._batch_gaps(key, N_DEV, N_GAPS))
     draws = tuple(torch.from_numpy(d) for d in _jax_draws(name, key, N_DEV, N_GAPS))
     got = ours._gaps_from_draws(*draws)

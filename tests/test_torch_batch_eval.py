@@ -40,6 +40,7 @@ from repro_torch.core.phases import (
     paper_lstm_item,
 )
 from repro_torch.core.strategies import IdlePowerMethod, IdleWaitingStrategy, OnOffStrategy
+from test_torch_x64_shim import x64_shim
 
 CAL = em.CALIBRATED_POWERUP_OVERHEAD_MJ
 CPU = "cpu"
@@ -49,12 +50,8 @@ CPU = "cpu"
 def jref():
     """The JAX package's batch engine, imported under jax 0.9.0, where
     ``jax.experimental.enable_x64`` is gone but ``jax.enable_x64`` remains."""
-    import jax
-    import jax.experimental
-
-    if not hasattr(jax.experimental, "enable_x64"):
-        jax.experimental.enable_x64 = jax.enable_x64
-    from repro.core import batch_eval, config_phase, pareto as jpareto, phases, strategies
+    with x64_shim():
+        from repro.core import batch_eval, config_phase, pareto as jpareto, phases, strategies
 
     return dict(be=batch_eval, pareto=jpareto, cp=config_phase, phases=phases, st=strategies)
 

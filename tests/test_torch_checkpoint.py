@@ -1,6 +1,7 @@
 """Port's checkpoint format vs the JAX serializer: the msgpack codec writes
 the same bytes, and a checkpoint written by either side restores in the
-other bit-equal to its own restore."""
+other bit-equal to its own restore, on either compression codec (zstd where
+``zstandard`` is installed, zlib where it is not)."""
 import numpy as np
 import pytest
 import torch
@@ -20,10 +21,17 @@ def jser():
     return serializer
 
 
-@pytest.fixture
-def zlib_reference(jser, monkeypatch):
-    """The JAX serializer on its zlib fallback (the port reads zlib blobs)."""
-    monkeypatch.setattr(jser, "HAVE_ZSTD", False)
+@pytest.fixture(params=["zstd", "zlib"])
+def zlib_reference(request, jser, monkeypatch):
+    """The JAX serializer and the port's on one codec: both flags true
+    (``zstandard`` installed: zstd) or both patched false (absent: zlib)."""
+    import repro_torch.checkpoint.serializer as ser
+
+    have = request.param == "zstd"
+    if have and not (jser.HAVE_ZSTD and ser.HAVE_ZSTD):
+        pytest.skip("the zstd codec needs 'zstandard' installed")
+    monkeypatch.setattr(jser, "HAVE_ZSTD", have)
+    monkeypatch.setattr(ser, "HAVE_ZSTD", have)
     return jser
 
 
@@ -127,7 +135,8 @@ def test_jax_written_checkpoint_restores_bit_equal(zlib_reference, mode):
 
 
 @pytest.mark.parametrize("mode", MODES)
-def test_port_written_checkpoint_restores_bit_equal_in_jax(jser, mode):
+def test_port_written_checkpoint_restores_bit_equal_in_jax(zlib_reference, mode):
+    jser = zlib_reference
     tree = _port_tree(_tree_np(3))
     blob = serialize(tree, mode=mode)
     ours = deserialize(blob, device="cpu")
@@ -138,7 +147,8 @@ def test_port_written_checkpoint_restores_bit_equal_in_jax(jser, mode):
 
 
 def test_serialized_bytes_equal_jax_on_the_zlib_codec(zlib_reference):
-    """Same tree, same format, same compressor: the same blob."""
+    """Same tree, same format, same compressor (either codec): the same
+    blob."""
     tree = _tree_np(4)
     for mode in MODES:
         assert serialize(_port_tree(tree), mode=mode) == zlib_reference.serialize(tree, mode=mode)
@@ -171,12 +181,25 @@ def test_compression_threads_write_the_reference_blob(zlib_reference, monkeypatc
             np.testing.assert_array_equal(ours[k].float().numpy(), np.asarray(theirs[k], dtype=np.float32))
 
 
-def test_zstd_codec_blob_raises(jser):
+def test_zstd_codec_blob_raises(jser, monkeypatch):
+    """A zstd blob (the reference's, where ``zstandard`` is installed) read
+    by the port where the package is absent: ``ModuleNotFoundError``; the
+    port then writes and reads zlib."""
+    import repro_torch.checkpoint.serializer as ser
+
     if not jser.HAVE_ZSTD:
         pytest.skip("the reference writes zstd only with 'zstandard' installed")
     blob = jser.serialize(_tree_np(5), mode="zstd")
+    assert msgpack.unpackb(blob, raw=False)["codec"] == "zstd"
+    monkeypatch.setattr(ser, "HAVE_ZSTD", False)
     with pytest.raises(ModuleNotFoundError, match="zstd"):
         deserialize(blob, device="cpu")
+    tree = _port_tree(_tree_np(5))
+    ours = serialize(tree, mode="zstd")
+    assert msgpack.unpackb(ours, raw=False)["codec"] == "zlib"
+    back = deserialize(ours, device="cpu")
+    for path, t in _flat(tree).items():
+        np.testing.assert_array_equal(_bits_t(back[path]), _bits_t(t))
 
 
 @pytest.mark.parametrize("mode", MODES)

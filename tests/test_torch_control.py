@@ -59,6 +59,7 @@ from repro_torch.core.workload import ExperimentSpec, WorkloadSpec
 from repro_torch.fleet import DeviceSpec, FleetParams
 from repro_torch.fleet.step import run_routed
 from repro_torch.policy import LearnedTimeoutPolicy, TrainedPolicy, untrained_policy
+from test_torch_x64_shim import x64_shim
 
 CPU = "cpu"
 CAL = em.CALIBRATED_POWERUP_OVERHEAD_MJ
@@ -83,20 +84,16 @@ def jref():
     Submodules come by ``from`` imports (a JAX-package test file that failed
     to import on the same worker leaves them in ``sys.modules`` without
     their attribute on a re-imported parent package)."""
-    import jax
-    import jax.experimental
-
-    if not hasattr(jax.experimental, "enable_x64"):
-        jax.experimental.enable_x64 = jax.enable_x64
-    from repro.control import autoscaler as jauto
-    from repro.control import faults as jfaults
-    from repro.control import hierarchy as jhier
-    from repro.control import report as jreport
-    from repro.control import simulate as jsim
-    from repro.core import adaptive as jadaptive
-    from repro.fleet.step import run_routed as jrouted
-    from repro.policy import controller as jcontroller
-    from repro.policy import train as jtrain
+    with x64_shim():
+        from repro.control import autoscaler as jauto
+        from repro.control import faults as jfaults
+        from repro.control import hierarchy as jhier
+        from repro.control import report as jreport
+        from repro.control import simulate as jsim
+        from repro.core import adaptive as jadaptive
+        from repro.fleet.step import run_routed as jrouted
+        from repro.policy import controller as jcontroller
+        from repro.policy import train as jtrain
 
     return dict(auto=jauto, faults=jfaults, hier=jhier, report=jreport, sim=jsim,
                 adaptive=jadaptive, routed=jrouted, controller=jcontroller, train=jtrain)

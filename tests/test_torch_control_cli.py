@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from repro_torch.launch import control as cli
+from test_torch_x64_shim import x64_shim
 
 ROOT = Path(__file__).resolve().parents[1]
 TIMING = ("elapsed_s", "device_ticks_per_s")
@@ -25,12 +26,8 @@ TIMING = ("elapsed_s", "device_ticks_per_s")
 def jcli():
     """The JAX package's CLI, imported under jax 0.9.0, where
     ``jax.experimental.enable_x64`` is gone but ``jax.enable_x64`` remains."""
-    import jax
-    import jax.experimental
-
-    if not hasattr(jax.experimental, "enable_x64"):
-        jax.experimental.enable_x64 = jax.enable_x64
-    from repro.launch import control as jcli
+    with x64_shim():
+        from repro.launch import control as jcli
 
     return jcli
 

@@ -35,6 +35,7 @@ from repro_torch.core import config_phase, workload
 from repro_torch.core.energy_model import CALIBRATED_POWERUP_OVERHEAD_MJ
 from repro_torch.core.strategies import IdleWaitingStrategy, OnOffStrategy
 from repro_torch.obs.ledger import AXES, PHASE_TO_AXIS, EnergyLedger, axis_of_phase
+from test_torch_x64_shim import x64_shim
 
 ROOT = Path(__file__).resolve().parents[1]
 METHODS = list(IdlePowerMethod)
@@ -45,15 +46,11 @@ def jref():
     """The JAX package's core, imported under jax 0.9.0, where
     ``jax.experimental.enable_x64`` (imported by ``repro.core.arrivals``)
     is gone but ``jax.enable_x64`` remains."""
-    import jax
-    import jax.experimental
-
-    if not hasattr(jax.experimental, "enable_x64"):
-        jax.experimental.enable_x64 = jax.enable_x64
-    import repro.core as core
-    from repro.core import adaptive, config_phase as jcp, simulator, strategies
-    from repro.core import workload as jwl
-    from repro.obs import ledger
+    with x64_shim():
+        import repro.core as core
+        from repro.core import adaptive, config_phase as jcp, simulator, strategies
+        from repro.core import workload as jwl
+        from repro.obs import ledger
 
     return dict(core=core, adaptive=adaptive, cp=jcp, sim=simulator, strat=strategies,
                 wl=jwl, ledger=ledger)

@@ -36,6 +36,7 @@ from repro_torch.core import workload as wl
 from repro_torch.fleet import DeviceSpec
 from repro_torch.launch import costs as costs_cli
 from repro_torch.launch import fleet as fleet_cli
+from test_torch_x64_shim import x64_shim
 
 TIMING = ("elapsed_s", "devices_per_s", "device_steps_per_s", "speedup_devices_per_s",
           "seeds_per_s", "pts_per_s")
@@ -48,16 +49,12 @@ def jref():
     Submodules come by ``from`` imports: a JAX-package test file that failed
     to import on the same worker leaves them in ``sys.modules`` without
     their attribute on a re-imported parent package."""
-    import jax
-    import jax.experimental
-
-    if not hasattr(jax.experimental, "enable_x64"):
-        jax.experimental.enable_x64 = jax.enable_x64
-    from repro import configs, costs, fleet
-    from repro.core import tpu_energy, workload
-    from repro.launch import costs as launch_costs
-    from repro.launch import fleet as launch_fleet
-    from repro.serving import fleet_backend
+    with x64_shim():
+        from repro import configs, costs, fleet
+        from repro.core import tpu_energy, workload
+        from repro.launch import costs as launch_costs
+        from repro.launch import fleet as launch_fleet
+        from repro.serving import fleet_backend
 
     return dict(costs=costs, configs=configs, tpu=tpu_energy, wl=workload, fleet=fleet,
                 backend=fleet_backend, launch_costs=launch_costs, launch_fleet=launch_fleet)

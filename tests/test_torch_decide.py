@@ -17,6 +17,7 @@ import torch
 from repro_torch.core import arrivals, planner
 from repro_torch.core import energy_model as em
 from repro_torch.core.phases import paper_lstm_item
+from test_torch_x64_shim import x64_shim
 
 ROOT = Path(__file__).resolve().parents[1]
 CAL = em.CALIBRATED_POWERUP_OVERHEAD_MJ
@@ -27,16 +28,12 @@ def jref():
     """The JAX package's Decide modules, imported under jax 0.9.0, where
     ``jax.experimental.enable_x64`` (imported by ``repro.core.arrivals``) is
     gone but ``jax.enable_x64`` remains."""
-    import jax
-    import jax.experimental
-
-    if not hasattr(jax.experimental, "enable_x64"):
-        jax.experimental.enable_x64 = jax.enable_x64
-    import repro.core.duty_cycle
-    import repro.serving.scheduler
-    from repro.core import arrivals as jarrivals
-    from repro.core import energy_model as jem
-    from repro.core import phases, planner as jplanner
+    with x64_shim():
+        import repro.core.duty_cycle
+        import repro.serving.scheduler
+        from repro.core import arrivals as jarrivals
+        from repro.core import energy_model as jem
+        from repro.core import phases, planner as jplanner
 
     return dict(arrivals=jarrivals, planner=jplanner, em=jem, phases=phases,
                 duty=repro.core.duty_cycle, sched=repro.serving.scheduler)
@@ -376,3 +373,37 @@ def test_duty_cycle_ordering_holds_each_side_to_the_papers_rule(side):
         check_ordering(0.5, cross, iw, oo, auto)
     with pytest.raises(AssertionError):
         check_ordering(0.5, cross, oo, iw, R(0.0, 8 if side == "below" else 2))
+
+
+def test_duty_cycle_side_and_energies_come_from_the_same_phases():
+    """A load spike in one run's configuration phase moves the shared
+    median neither way, and both compared energies charge the same phase
+    times, so the two runs cannot fall on different sides of one
+    crossover; idle phases stay as measured."""
+    from types import SimpleNamespace
+
+    from repro_torch.core.duty_cycle import PhaseRecord, PowerModel
+    from repro_torch.core.phases import CONFIGURATION, IDLE, INFERENCE
+    from repro_torch.examples import duty_cycle_serving as dcs
+    from repro_torch.serving.scheduler import ScheduleResult
+
+    power = PowerModel(config_mw=300.0, infer_mw=200.0, idle_mw=100.0)
+
+    def run(records):
+        ctl = SimpleNamespace(power=power, records=[PhaseRecord(n, s, 0.0) for n, s in records])
+        res = ScheduleResult("x", 4, 0, sum(power.energy_mj(r) for r in ctl.records), 0.0, {}, None)
+        return res, ctl
+
+    # On-Off: four bring-ups of 2 s, one spiked to 9 s; Idle-Waiting: one
+    # bring-up, then 0.4 s idle gaps at a 0.5 s period
+    oo = run([(CONFIGURATION, 9.0 if i == 0 else 2.0) for i in range(4)] + [(INFERENCE, 0.1)] * 4)
+    iw = run([(CONFIGURATION, 2.0)] + [(INFERENCE, 0.1), (IDLE, 0.4)] * 4)
+    assert dcs.shared_phases(oo[1], iw[1]) == (2.0, 0.1)
+    cross, oo_s, iw_s = dcs.shared_results({"on_off": oo, "idle_waiting": iw})
+    assert cross == pytest.approx(em.crossover_period_ms(
+        dcs.adaptive.measured_workload_item("m", 300.0, 2.0, 200.0, 0.1, 100.0)))
+    assert oo_s.energy_mj == pytest.approx(4 * (300.0 * 2.0 + 200.0 * 0.1))
+    assert iw_s.energy_mj == pytest.approx(300.0 * 2.0 + 4 * (200.0 * 0.1 + 100.0 * 0.4))
+    assert oo[0].energy_mj == pytest.approx(oo_s.energy_mj + 300.0 * 7.0)   # the live ledger keeps the spike
+    auto = SimpleNamespace(n_configurations=1)
+    assert dcs.check_ordering(0.5, cross, oo_s, iw_s, auto) == "below"

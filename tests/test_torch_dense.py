@@ -27,6 +27,7 @@ import jax.numpy as jnp
 from repro_torch.configs import get_config
 from repro_torch.models import model_zoo as zoo
 from repro_torch.serving.engine import ServingEngine
+from test_torch_x64_shim import x64_shim
 
 LIMIT = 1e-4        # of the largest logit, as tests/test_torch_mamba2.py
 
@@ -35,12 +36,9 @@ LIMIT = 1e-4        # of the largest logit, as tests/test_torch_mamba2.py
 def jref():
     """The JAX package, imported under jax 0.9.0, where
     ``jax.experimental.enable_x64`` is gone but ``jax.enable_x64`` remains."""
-    import jax.experimental
-
-    if not hasattr(jax.experimental, "enable_x64"):
-        jax.experimental.enable_x64 = jax.enable_x64
-    from repro.configs import base
-    from repro.models import model_zoo
+    with x64_shim():
+        from repro.configs import base
+        from repro.models import model_zoo
 
     torch.backends.cuda.matmul.allow_tf32 = False
     return dict(base=base, zoo=model_zoo)

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 from repro_torch.distributed import fault_tolerance as ft
+from test_torch_x64_shim import x64_shim
 
 
 @pytest.fixture(scope="module")
@@ -23,14 +24,10 @@ def jft():
 def jref():
     """The JAX package's control plane, imported under jax 0.9.0, where
     ``jax.experimental.enable_x64`` is gone but ``jax.enable_x64`` remains."""
-    import jax
-    import jax.experimental
-
-    if not hasattr(jax.experimental, "enable_x64"):
-        jax.experimental.enable_x64 = jax.enable_x64
-    from repro.control import faults as jfaults
-    from repro.control import hierarchy as jhier
-    from repro.control import simulate as jsim
+    with x64_shim():
+        from repro.control import faults as jfaults
+        from repro.control import hierarchy as jhier
+        from repro.control import simulate as jsim
 
     return dict(faults=jfaults, hier=jhier, sim=jsim)
 

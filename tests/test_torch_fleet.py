@@ -36,6 +36,7 @@ from repro_torch.fleet import (
 )
 from repro_torch.fleet import dtypes
 from repro_torch.fleet.step import _check_step_count
+from test_torch_x64_shim import x64_shim
 
 CAL = em.CALIBRATED_POWERUP_OVERHEAD_MJ
 CPU = "cpu"
@@ -49,13 +50,9 @@ TRAJECTORIES = ("alive_over_time", "served_over_time", "queued_over_time", "late
 def jref():
     """The JAX package's fleet, imported under jax 0.9.0, where
     ``jax.experimental.enable_x64`` is gone but ``jax.enable_x64`` remains."""
-    import jax
-    import jax.experimental
-
-    if not hasattr(jax.experimental, "enable_x64"):
-        jax.experimental.enable_x64 = jax.enable_x64
-    import repro.fleet
-    from repro.core import phases, strategies
+    with x64_shim():
+        import repro.fleet
+        from repro.core import phases, strategies
 
     return dict(fleet=repro.fleet, phases=phases, st=strategies)
 

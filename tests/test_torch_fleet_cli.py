@@ -26,6 +26,7 @@ from test_torch_batch_eval import (
     _derived_item,
     assert_records_equal_to_reference,
 )
+from test_torch_x64_shim import x64_shim
 
 TIMING = ("elapsed_s", "devices_per_s", "device_steps_per_s", "speedup_devices_per_s")
 
@@ -34,12 +35,8 @@ TIMING = ("elapsed_s", "devices_per_s", "device_steps_per_s", "speedup_devices_p
 def jref():
     """The JAX package's CLIs, imported under jax 0.9.0, where
     ``jax.experimental.enable_x64`` is gone but ``jax.enable_x64`` remains."""
-    import jax
-    import jax.experimental
-
-    if not hasattr(jax.experimental, "enable_x64"):
-        jax.experimental.enable_x64 = jax.enable_x64
-    from repro.launch import fleet as jfleet, sweep as jsweep
+    with x64_shim():
+        from repro.launch import fleet as jfleet, sweep as jsweep
 
     return dict(sweep=jsweep, fleet=jfleet)
 

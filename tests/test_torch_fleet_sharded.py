@@ -48,6 +48,7 @@ from repro_torch.fleet.shard import (
 )
 from repro_torch.mc import periodic_ensemble, run_periodic_ensemble
 from repro_torch.obs.ledger import AXES, EnergyLedger
+from test_torch_x64_shim import x64_shim
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 PERIODIC_FIELDS = ("n_items", "energy_mj", "lifetime_ms", "alive", "alive_over_time")
@@ -173,14 +174,10 @@ def multi_rank(tmp_path_factory):
 def jref():
     """The JAX package's sharded fleet in this process (one CPU device: the
     1×1 mesh), under jax 0.9.0 with the ``enable_x64`` shim."""
-    import jax
-    import jax.experimental
-
-    if not hasattr(jax.experimental, "enable_x64"):
-        jax.experimental.enable_x64 = jax.enable_x64
-    import repro.fleet
-    import repro.fleet.shard
-    from repro.core import phases
+    with x64_shim():
+        import repro.fleet
+        import repro.fleet.shard
+        from repro.core import phases
 
     return dict(fleet=repro.fleet, shard=repro.fleet.shard, phases=phases)
 

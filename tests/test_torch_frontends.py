@@ -22,6 +22,7 @@ from repro_torch.configs import get_config
 from repro_torch.models import decoder, mlp
 from repro_torch.models import model_zoo as zoo
 from repro_torch.serving.engine import ServingEngine
+from test_torch_x64_shim import x64_shim
 
 ATOL = 1e-4          # tests/test_torch_serving.py's, for logits and block outputs
 LIMIT = 1e-4         # of the largest logit, at full width (tests/test_torch_dense.py)
@@ -32,12 +33,9 @@ DECODE_TOL = 1e-3    # tests/test_arch_smoke.py::TestDecodeConsistency's
 def jref():
     """The JAX package, imported under jax 0.9.0, where
     ``jax.experimental.enable_x64`` is gone but ``jax.enable_x64`` remains."""
-    import jax.experimental
-
-    if not hasattr(jax.experimental, "enable_x64"):
-        jax.experimental.enable_x64 = jax.enable_x64
-    from repro.configs import base
-    from repro.models import decoder as jdecoder, mlp as jmlp, model_zoo
+    with x64_shim():
+        from repro.configs import base
+        from repro.models import decoder as jdecoder, mlp as jmlp, model_zoo
 
     torch.backends.cuda.matmul.allow_tf32 = False
     return dict(base=base, zoo=model_zoo, decoder=jdecoder, mlp=jmlp)

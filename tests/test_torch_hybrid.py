@@ -19,6 +19,7 @@ from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.models import attention, decoder, mamba2, moe
 from repro_torch.models import model_zoo as zoo
 from repro_torch.serving.engine import ServingEngine, bring_up_from_checkpoint
+from test_torch_x64_shim import x64_shim
 
 ARCH = "jamba-1.5-large-398b"
 ATOL = 1e-4          # tests/test_torch_serving.py's, for logits and block outputs
@@ -29,14 +30,11 @@ DECODE_TOL = 1e-3    # tests/test_arch_smoke.py::TestDecodeConsistency's
 def jref():
     """The JAX package, imported under jax 0.9.0, where
     ``jax.experimental.enable_x64`` is gone but ``jax.enable_x64`` remains."""
-    import jax.experimental
-
-    if not hasattr(jax.experimental, "enable_x64"):
-        jax.experimental.enable_x64 = jax.enable_x64
-    import repro.checkpoint
-    import repro.serving.engine
-    from repro.configs import base
-    from repro.models import decoder as jdecoder, model_zoo
+    with x64_shim():
+        import repro.checkpoint
+        import repro.serving.engine
+        from repro.configs import base
+        from repro.models import decoder as jdecoder, model_zoo
 
     torch.backends.cuda.matmul.allow_tf32 = False
     return dict(base=base, zoo=model_zoo, decoder=jdecoder, ckpt=repro.checkpoint,
@@ -133,8 +131,12 @@ def test_generate_goes_through_each_op_once_per_layer(model, monkeypatch):
 
 def test_checkpoint_restores_bit_equal_both_ways(jref, tmp_path, monkeypatch):
     """A zstd+int8 checkpoint of the reduced jamba: the port's restore of the
-    JAX package's file, and the JAX package's of the port's, bit for bit."""
+    JAX package's file, and the JAX package's of the port's, bit for bit
+    (both on the zlib codec)."""
+    import repro_torch.checkpoint.serializer as ser
+
     monkeypatch.setattr(jref["ckpt_ser"], "HAVE_ZSTD", False)
+    monkeypatch.setattr(ser, "HAVE_ZSTD", False)
     jcfg, cfg = jref["base"].get_config(ARCH, reduced=True), get_config(ARCH, reduced=True)
 
     def bits(t):

@@ -21,6 +21,7 @@ from repro_torch.models import mamba2 as m2
 from repro_torch.models import model_zoo as zoo
 from repro_torch.serving.engine import ServingEngine, bring_up_from_checkpoint
 from repro_torch.serving.scheduler import run_schedule
+from test_torch_x64_shim import x64_shim
 
 ATOL = 1e-4          # tests/test_torch_serving.py's, for logits and block outputs
 
@@ -29,14 +30,11 @@ ATOL = 1e-4          # tests/test_torch_serving.py's, for logits and block outpu
 def jref():
     """The JAX package, imported under jax 0.9.0, where
     ``jax.experimental.enable_x64`` is gone but ``jax.enable_x64`` remains."""
-    import jax.experimental
-
-    if not hasattr(jax.experimental, "enable_x64"):
-        jax.experimental.enable_x64 = jax.enable_x64
-    import repro.checkpoint
-    import repro.serving.engine
-    from repro.configs import base
-    from repro.models import common, mamba2, model_zoo
+    with x64_shim():
+        import repro.checkpoint
+        import repro.serving.engine
+        from repro.configs import base
+        from repro.models import common, mamba2, model_zoo
 
     torch.backends.cuda.matmul.allow_tf32 = False
     return dict(base=base, zoo=model_zoo, m2=mamba2, common=common,

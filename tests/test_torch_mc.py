@@ -42,6 +42,7 @@ from repro_torch.mc import (
     z_value,
 )
 from repro_torch.mc.ensemble import _merge_welford, chunk_seed
+from test_torch_x64_shim import x64_shim
 
 CAL = em.CALIBRATED_POWERUP_OVERHEAD_MJ
 STRATEGIES = ("on_off", "idle_waiting", "adaptive")
@@ -54,17 +55,13 @@ def jref():
     Submodules come by ``from`` imports: a JAX-package test file that failed
     to import on the same worker leaves them in ``sys.modules`` without
     their attribute on a re-imported parent package."""
-    import jax
-    import jax.experimental
-
-    if not hasattr(jax.experimental, "enable_x64"):
-        jax.experimental.enable_x64 = jax.enable_x64
-    from repro import fleet, mc
-    from repro.core import arrivals, strategies
-    from repro.fleet import dtypes as jdtypes
-    from repro.launch import mc as launch_mc
-    from repro.mc import ensemble
-    from repro.serving import fleet_backend
+    with x64_shim():
+        from repro import fleet, mc
+        from repro.core import arrivals, strategies
+        from repro.fleet import dtypes as jdtypes
+        from repro.launch import mc as launch_mc
+        from repro.mc import ensemble
+        from repro.serving import fleet_backend
 
     return dict(mc=mc, ens=ensemble, fleet=fleet, st=strategies, dtypes=jdtypes,
                 launch_mc=launch_mc, backend=fleet_backend, arrivals=arrivals)

@@ -229,3 +229,65 @@ def test_train_step_on_a_mesh_of_ranks_equals_one_card(on_card, cuda):
     for k, g in grads.items():
         assert float((got["grads"][k].to(cuda) - g).abs().max()) <= 1e-4 * float(g.abs().max()), k
     assert got["launches"] == 2 * cfg.num_layers
+
+
+def test_a_cuda_tensor_under_the_roofline_counter_launches_flash(cuda):
+    """The counter sends only ``meta`` tensors to the kernels' meta ops: on
+    CUDA tensors the flash kernel launches as ever, its output the plain
+    version's within the fp32 tolerance."""
+    from repro_torch.kernels.flash_attention.ref import attention_reference
+    from repro_torch.launch import roofline
+
+    g = torch.Generator(cuda).manual_seed(0)
+    q, k, v = (torch.randn(2, 64, h, 128, generator=g, device=cuda) for h in (8, 4, 4))
+    before = fa.launches
+    out, cost = roofline.count(fa.attention, q, k, v)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    assert out.is_cuda and float((out - attention_reference(q, k, v)).abs().max()) <= 2e-5
+    assert cost.flops == 0          # the kernel is opaque to the counter on the card
+
+
+def test_sharded_prefill_and_decode_on_the_card_equal_one_card(cuda):
+    """The reduced qwen3 served on (data 2, model 2) by four ranks on the
+    card: each rank's logits against one card's run, the flash kernel on
+    its local heads (a launch a layer in the prefill, none in decode)."""
+    got = ranks.spawn(4, _serve_ranks, device="cuda", timeout_s=300)
+    for rank in got:
+        assert rank["err"] <= 1e-5 and rank["same_tokens"], rank
+        assert rank["launches"] == (2, 0)
+
+
+def _serve_ranks() -> list:
+    import torch.distributed as dist
+
+    dev = ranks.device()
+    cfg = get_config("qwen3-1.7b", reduced=True)
+    mesh = make_rank_mesh((2, 2))
+    whole = zoo.init_params(cfg, torch.Generator(dev).manual_seed(3), torch.float32)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 32), generator=torch.Generator(dev).manual_seed(4), device=dev,
+                           dtype=torch.int32)
+    rows = ranks.shard(tokens, shd.P("data"), mesh)
+    with shd.use_sharding(mesh), torch.no_grad():
+        blocks = zoo.shard_params(whole, cfg, mesh)
+        fa.launches = 0
+        logits, state = zoo.prefill_fn(blocks, {"tokens": rows}, cfg, 40, mesh=mesh)
+        pre = fa.launches
+        outs = [logits]
+        for _ in range(4):
+            logits, state = zoo.decode_fn(blocks, state, torch.argmax(logits, -1).to(torch.int32), cfg, mesh=mesh)
+            outs.append(logits)
+        launches = (pre, fa.launches - pre)
+        ref_logits, ref_state = zoo.prefill_fn(whole, {"tokens": tokens}, cfg, 40)
+        ref = [ref_logits]
+        for _ in range(4):
+            ref_logits, ref_state = zoo.decode_fn(whole, ref_state, torch.argmax(ref_logits, -1).to(torch.int32), cfg)
+            ref.append(ref_logits)
+    lo = mesh.index("data") * rows.shape[0]
+    mine = [r[lo:lo + rows.shape[0]] for r in ref]
+    rec = {"err": max(float((a - w).abs().max()) / float(w.abs().max()) for a, w in zip(outs, mine)),
+           "same_tokens": all(bool(torch.equal(a.argmax(-1), w.argmax(-1))) for a, w in zip(outs, mine)),
+           "launches": launches}
+    everyone = [None] * ranks.world_size()
+    dist.all_gather_object(everyone, rec)
+    return everyone

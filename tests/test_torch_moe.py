@@ -19,6 +19,7 @@ from repro_torch.configs import get_config
 from repro_torch.models import decoder, moe
 from repro_torch.models import model_zoo as zoo
 from repro_torch.serving.engine import bring_up_from_checkpoint
+from test_torch_x64_shim import x64_shim
 
 ATOL = 1e-4          # tests/test_torch_serving.py's, for logits and block outputs
 ROUTE_TOL = 1e-6     # tests/test_model_properties.py::TestMoERouting's
@@ -30,15 +31,12 @@ MOE = ("mixtral-8x7b", "qwen3-moe-235b-a22b")
 def jref():
     """The JAX package, imported under jax 0.9.0, where
     ``jax.experimental.enable_x64`` is gone but ``jax.enable_x64`` remains."""
-    import jax.experimental
-
-    if not hasattr(jax.experimental, "enable_x64"):
-        jax.experimental.enable_x64 = jax.enable_x64
-    import repro.checkpoint
-    import repro.serving.engine
-    from repro.configs import base
-    from repro.models import common, decoder as jdecoder, model_zoo
-    from repro.models import moe as jmoe
+    with x64_shim():
+        import repro.checkpoint
+        import repro.serving.engine
+        from repro.configs import base
+        from repro.models import common, decoder as jdecoder, model_zoo
+        from repro.models import moe as jmoe
 
     torch.backends.cuda.matmul.allow_tf32 = False
     return dict(base=base, zoo=model_zoo, moe=jmoe, common=common, decoder=jdecoder,

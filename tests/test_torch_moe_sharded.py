@@ -34,6 +34,7 @@ from repro_torch.distributed import sharding as shd
 from repro_torch.launch.mesh import make_rank_mesh
 from repro_torch.models import moe
 from repro_torch.optim import grad_compress as gc
+from test_torch_x64_shim import x64_shim
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 TOL = 2e-5                      # tests/test_multidevice.py's
@@ -211,13 +212,9 @@ def test_compress_psum_on_pod_data_mesh_equals_the_jax_one(multi_rank):
 
 
 def test_capacity_and_dispatch_indices_match_jax():
-    import jax
-    import jax.experimental
-
-    if not hasattr(jax.experimental, "enable_x64"):
-        jax.experimental.enable_x64 = jax.enable_x64
-    import jax.numpy as jnp
-    from repro.models import moe as jmoe
+    with x64_shim():
+        import jax.numpy as jnp
+        from repro.models import moe as jmoe
 
     for t, e, k, cf in ((32, 16, 2, 1.0), (128, 128, 8, 1.25), (5, 8, 2, 64.0), (64, 4, 2, 0.5)):
         assert moe._capacity(t, e, k, cf) == jmoe._capacity(t, e, k, cf)

@@ -15,6 +15,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.phases import IDLE
 from repro_torch.models import model_zoo as zoo
 from repro_torch.serving import multi_tenant as mt
+from test_torch_x64_shim import x64_shim
 
 DENSE = ("yi-6b", "internlm2-20b", "qwen3-32b")
 
@@ -24,14 +25,11 @@ def jref():
     """The JAX package, imported under jax 0.9.0, where
     ``jax.experimental.enable_x64`` (imported by ``repro.core.arrivals``) is
     gone but ``jax.enable_x64`` remains."""
-    import jax.experimental
-
-    if not hasattr(jax.experimental, "enable_x64"):
-        jax.experimental.enable_x64 = jax.enable_x64
-    import repro.serving.multi_tenant
-    from repro.configs import base
-    from repro.core import phases
-    from repro.models import model_zoo
+    with x64_shim():
+        import repro.serving.multi_tenant
+        from repro.configs import base
+        from repro.core import phases
+        from repro.models import model_zoo
 
     return dict(mt=repro.serving.multi_tenant, base=base, zoo=model_zoo, phases=phases)
 

@@ -31,6 +31,7 @@ from repro_torch.obs import (
     trace_summary,
     validate_chrome_trace,
 )
+from test_torch_x64_shim import x64_shim
 
 CAL = em.CALIBRATED_POWERUP_OVERHEAD_MJ
 STRATEGIES = ("on_off", "idle_waiting", "adaptive")
@@ -43,14 +44,10 @@ def jref():
     Submodules come by ``from`` imports: a JAX-package test file that failed
     to import on the same worker leaves them in ``sys.modules`` without
     their attribute on a re-imported parent package."""
-    import jax
-    import jax.experimental
-
-    if not hasattr(jax.experimental, "enable_x64"):
-        jax.experimental.enable_x64 = jax.enable_x64
-    from repro import fleet, obs
-    from repro.core import adaptive, phases, simulator
-    from repro.launch import obs as launch_obs
+    with x64_shim():
+        from repro import fleet, obs
+        from repro.core import adaptive, phases, simulator
+        from repro.launch import obs as launch_obs
 
     return dict(obs=obs, fleet=fleet, sim=simulator, adaptive=adaptive, phases=phases,
                 launch_obs=launch_obs)
@@ -81,7 +78,8 @@ def test_host_and_loop_histograms_equal_numpy_and_the_reference(jref, seed, mask
     host = Histogram("h", edges)
     host.observe_many(values, mask=mask)
     loop = scan_histogram(values, edges, mask=mask, device="cpu")
-    ref = jref["obs"].scan_histogram(values, edges, mask=mask)
+    with x64_shim():     # the reference imports enable_x64 inside the call
+        ref = jref["obs"].scan_histogram(values, edges, mask=mask)
     jhost = jref["obs"].Histogram("h", edges)
     jhost.observe_many(values, mask=mask)
     assert loop.dtype == np.int64
@@ -164,12 +162,14 @@ def test_routed_timeline_and_metrics_equal_the_reference(jref, tmp_path):
     res, jres = _routed_pair(jref)
     rec = routed_timeline(res)
     payload = rec.to_chrome()
-    assert payload == jref["obs"].routed_timeline(jres).to_chrome()
+    with x64_shim():     # the reference's timeline and metrics import enable_x64 inside the call
+        assert payload == jref["obs"].routed_timeline(jres).to_chrome()
+        jreg = jref["obs"].routed_metrics(jres).to_dict()
     assert validate_chrome_trace(payload) == []
     rec.write(str(tmp_path / "trace.json"))
     assert validate_chrome_trace(json.loads((tmp_path / "trace.json").read_text())) == []
     reg = routed_metrics(res).to_dict()
-    assert reg == jref["obs"].routed_metrics(jres).to_dict()
+    assert reg == jreg
     assert reg["request_latency_ms"]["total"] == int(res.served_mask.sum())
     with pytest.raises(ValueError, match="collect_events"):
         routed_timeline(run_routed(uniform_fleet(2, device="cpu"), np.full(5, 2, np.int32), 40.0))
@@ -262,7 +262,8 @@ def test_obs_cli_smoke_payload_equals_the_reference(jref, tmp_path):
     assert obs_cli.main(argv + ["--device", "cpu", "--out", str(tmp_path / "p.json"),
                                 "--trace-out", str(tmp_path / "t.json"),
                                 "--md-out", str(tmp_path / "p.md")]) == 0
-    assert jref["launch_obs"].main(argv + ["--out", str(tmp_path / "r.json")]) == 0
+    with x64_shim():     # the reference's CLI imports enable_x64 inside its metrics
+        assert jref["launch_obs"].main(argv + ["--out", str(tmp_path / "r.json")]) == 0
     p, r = (json.loads((tmp_path / f).read_text()) for f in ("p.json", "r.json"))
     assert set(p) == set(r)
     for key in ("config", "ledger", "metrics", "summary", "trace"):

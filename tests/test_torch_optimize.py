@@ -40,6 +40,7 @@ from repro_torch.optimize import (
     trace_config_frontier,
 )
 from repro_torch.optimize import descent
+from test_torch_x64_shim import x64_shim
 
 OVERHEAD = em.CALIBRATED_POWERUP_OVERHEAD_MJ
 FAST = DescentSettings(n_starts=6, steps=150)
@@ -55,19 +56,17 @@ def jref():
     to import on the same worker leaves them in ``sys.modules`` without
     their attribute on a re-imported parent package."""
     import jax
-    import jax.experimental
 
-    if not hasattr(jax.experimental, "enable_x64"):
-        jax.experimental.enable_x64 = jax.enable_x64
-    import jax.numpy as jnp
-    from repro.core import config_phase as jcp
-    from repro.fleet import state as jstate
-    from repro.optim.adamw import adamw as jadamw
-    from repro.optim import schedules as jsched
-    from repro.optimize import descent as jdescent
-    from repro.optimize import planner as jplanner
-    from repro.optimize import relax as jrelax
-    from repro.serving import fleet_backend as jbackend
+    with x64_shim():
+        import jax.numpy as jnp
+        from repro.core import config_phase as jcp
+        from repro.fleet import state as jstate
+        from repro.optim.adamw import adamw as jadamw
+        from repro.optim import schedules as jsched
+        from repro.optimize import descent as jdescent
+        from repro.optimize import planner as jplanner
+        from repro.optimize import relax as jrelax
+        from repro.serving import fleet_backend as jbackend
 
     return dict(jax=jax, jnp=jnp, x64=jax.enable_x64, adamw=jadamw, sched=jsched,
                 relax=jrelax, descent=jdescent, planner=jplanner, state=jstate,

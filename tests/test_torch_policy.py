@@ -54,6 +54,7 @@ from repro_torch.policy.train import (
     training_processes,
     unravel,
 )
+from test_torch_x64_shim import x64_shim
 
 M12 = IdlePowerMethod.METHOD1_2
 OVERHEAD = em.CALIBRATED_POWERUP_OVERHEAD_MJ
@@ -70,20 +71,18 @@ def jref():
     their attribute on a re-imported parent package; ``repro.policy``
     itself re-exports a function named ``rollout``."""
     import jax
-    import jax.experimental
 
-    if not hasattr(jax.experimental, "enable_x64"):
-        jax.experimental.enable_x64 = jax.enable_x64
-    import jax.numpy as jnp
-    from repro.core import phases as jphases
-    from repro.obs.ledger import ledger_from_rollout as jledger
-    from repro.policy import controller as jcontroller
-    from repro.policy import features as jF
-    from repro.policy import net as jN
-    from repro.policy import train as jtrain
-    from repro.policy.rollout import make_consts as jconsts
-    from repro.policy.rollout import mean_energy_per_gap as jmean
-    from repro.policy.rollout import rollout as jrollout
+    with x64_shim():
+        import jax.numpy as jnp
+        from repro.core import phases as jphases
+        from repro.obs.ledger import ledger_from_rollout as jledger
+        from repro.policy import controller as jcontroller
+        from repro.policy import features as jF
+        from repro.policy import net as jN
+        from repro.policy import train as jtrain
+        from repro.policy.rollout import make_consts as jconsts
+        from repro.policy.rollout import mean_energy_per_gap as jmean
+        from repro.policy.rollout import rollout as jrollout
 
     return dict(jax=jax, jnp=jnp, x64=jax.enable_x64, F=jF, N=jN, train=jtrain,
                 rollout=jrollout, mean=jmean, consts=jconsts, ledger=jledger,

@@ -22,6 +22,7 @@ from repro_torch.launch.serve import build_demo
 from repro_torch.models import model_zoo as zoo
 from repro_torch.serving.engine import ServingEngine, bring_up_from_checkpoint
 from repro_torch.serving.scheduler import compare_live_strategies, run_schedule
+from test_torch_x64_shim import x64_shim
 
 SMALL = dict(
     name="qwen3-small", family="dense", num_layers=2, d_model=128, num_heads=4,
@@ -35,17 +36,14 @@ def jref():
     """The JAX package, imported under jax 0.9.0, where
     ``jax.experimental.enable_x64`` (imported by ``repro.core.arrivals``)
     is gone but ``jax.enable_x64`` remains."""
-    import jax.experimental
-
-    if not hasattr(jax.experimental, "enable_x64"):
-        jax.experimental.enable_x64 = jax.enable_x64
-    import repro.checkpoint
-    import repro.core.duty_cycle
-    import repro.launch.serve  # noqa: F401
-    import repro.serving.engine
-    import repro.serving.scheduler
-    from repro.configs import base, perf
-    from repro.models import model_zoo
+    with x64_shim():
+        import repro.checkpoint
+        import repro.core.duty_cycle
+        import repro.launch.serve  # noqa: F401
+        import repro.serving.engine
+        import repro.serving.scheduler
+        from repro.configs import base, perf
+        from repro.models import model_zoo
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

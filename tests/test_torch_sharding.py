@@ -18,6 +18,7 @@ from repro_torch.distributed import sharding as shd
 from repro_torch.launch.mesh import chips, make_host_mesh, make_production_mesh
 from repro_torch.models import model_zoo as zoo
 from repro_torch.optim import adamw, grad_compress as gc
+from test_torch_x64_shim import x64_shim
 
 
 @pytest.fixture(scope="session")
@@ -25,17 +26,14 @@ def jref():
     """The JAX package, imported under jax 0.9.0, where
     ``jax.experimental.enable_x64`` (imported by ``repro.core.arrivals``)
     is gone but ``jax.enable_x64`` remains."""
-    import jax.experimental
-
-    if not hasattr(jax.experimental, "enable_x64"):
-        jax.experimental.enable_x64 = jax.enable_x64
-    import repro.compat
-    import repro.configs
-    import repro.configs.perf
-    import repro.data.pipeline
-    import repro.distributed.sharding
-    import repro.optim
-    from repro.models import model_zoo
+    with x64_shim():
+        import repro.compat
+        import repro.configs
+        import repro.configs.perf
+        import repro.data.pipeline
+        import repro.distributed.sharding
+        import repro.optim
+        from repro.models import model_zoo
 
     return dict(
         compat=repro.compat, configs=repro.configs, perf=repro.configs.perf,

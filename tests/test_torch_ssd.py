@@ -19,6 +19,7 @@ from repro_torch.kernels.ssd.ref import (
     ssd_decode_step,
     ssd_recurrent_reference,
 )
+from test_torch_x64_shim import x64_shim
 
 SHAPES = [   # tests/kernels/test_ssd.py's: b, s, h, p, g, n, chunk
     (2, 256, 4, 16, 2, 32, 64),
@@ -33,11 +34,8 @@ Y_TOL, STATE_TOL, DECODE_TOL = 5e-4, 5e-5, 2e-5
 def jref():
     """The JAX package's SSD modules (imported under jax 0.9.0, where
     ``jax.experimental.enable_x64`` is gone but ``jax.enable_x64`` remains)."""
-    import jax.experimental
-
-    if not hasattr(jax.experimental, "enable_x64"):
-        jax.experimental.enable_x64 = jax.enable_x64
-    from repro.kernels.ssd import kernel, ref
+    with x64_shim():
+        from repro.kernels.ssd import kernel, ref
 
     return dict(ref=ref, kernel=kernel)
 
@@ -197,12 +195,17 @@ def test_wrapper_takes_the_plain_version_on_the_cpu():
 
 
 def test_wrapper_raises_off_the_cpu_without_a_card():
-    """A tensor that is on neither the CPU nor a CUDA card goes to the
-    kernel's checks, which refuse it; the CPU route needs a CPU tensor."""
+    """A ``meta`` tensor takes the kernels' meta stand-in (shapes for the
+    roofline counter, no launch); the kernels' own checks refuse any tensor
+    off the card, meta or CPU; the CPU route needs a CPU tensor."""
     args = [torch.empty(sh, device="meta") for sh in
             ((1, 64, 2, 8), (1, 64, 2), (2,), (1, 64, 1, 16), (1, 64, 1, 16), (2,))]
+    before = ssd_ops.launches
+    y, state = ssd_ops.ssd(*args, chunk=64)
+    assert y.is_meta and y.shape == args[0].shape and tuple(state.shape) == (1, 2, 8, 16)
+    assert ssd_ops.launches == before
     with pytest.raises(ValueError, match="CUDA device"):
-        ssd_ops.ssd(*args, chunk=64)
+        ssd_ops.ssd_cuda(*args, chunk=64)
     cpu_args = [torch.zeros(a.shape) for a in args]
     with pytest.raises(ValueError, match="CUDA device"):
         ssd_ops.ssd_cuda(*cpu_args, chunk=64)

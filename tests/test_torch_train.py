@@ -29,6 +29,7 @@ from repro_torch.models import decoder
 from repro_torch.models import model_zoo as zoo
 from repro_torch.training.train_loop import TrainState, _microbatch_grads, make_train_step
 from repro_torch.tree import paths, tree_map
+from test_torch_x64_shim import x64_shim
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -48,17 +49,14 @@ def jref():
     """The JAX package, imported under jax 0.9.0, where
     ``jax.experimental.enable_x64`` (imported by ``repro.core.arrivals``)
     is gone but ``jax.enable_x64`` remains."""
-    import jax.experimental
-
-    if not hasattr(jax.experimental, "enable_x64"):
-        jax.experimental.enable_x64 = jax.enable_x64
-    import repro.configs
-    import repro.configs.perf
-    import repro.data.pipeline
-    import repro.optim
-    import repro.training.train_loop
-    from repro.models import decoder as jdecoder
-    from repro.models import model_zoo
+    with x64_shim():
+        import repro.configs
+        import repro.configs.perf
+        import repro.data.pipeline
+        import repro.optim
+        import repro.training.train_loop
+        from repro.models import decoder as jdecoder
+        from repro.models import model_zoo
 
     return dict(
         configs=repro.configs, perf=repro.configs.perf, data=repro.data.pipeline,

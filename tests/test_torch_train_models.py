@@ -17,6 +17,7 @@ from repro_torch.configs.perf import PerfConfig
 from repro_torch.data.pipeline import SyntheticLMStream, batch_for_arch
 from repro_torch.models import model_zoo as zoo
 from repro_torch.tree import paths, tree_map
+from test_torch_x64_shim import x64_shim
 
 LOSS_REL, GRAD_REL = 1e-5, 1e-4
 
@@ -36,13 +37,10 @@ def jref():
     """The JAX package, imported under jax 0.9.0, where
     ``jax.experimental.enable_x64`` (imported by ``repro.core.arrivals``)
     is gone but ``jax.enable_x64`` remains."""
-    import jax.experimental
-
-    if not hasattr(jax.experimental, "enable_x64"):
-        jax.experimental.enable_x64 = jax.enable_x64
-    import repro.configs
-    import repro.configs.perf
-    from repro.models import model_zoo
+    with x64_shim():
+        import repro.configs
+        import repro.configs.perf
+        from repro.models import model_zoo
 
     torch.backends.cuda.matmul.allow_tf32 = False
     return dict(configs=repro.configs, perf=repro.configs.perf, zoo=model_zoo)
