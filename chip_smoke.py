@@ -244,12 +244,19 @@ Phases, in order; any failure exits non-zero:
    single-card save of the gathered state bit for bit; (h) the sharded
    prefill and decode of the dense decoders (``model_zoo.prefill_fn`` /
    ``decode_fn`` with ``mesh=``): qwen3-1.7b at its published widths cut
-   to 2 layers, fp32, B 4, prompt 128, then 8 greedy decode steps on (data
+   to 2 layers, fp32, B 4, prompt 128, then 4 greedy decode steps on (data
    2, model 2), the flash kernel on each rank's local heads (launches
    exact: 2 a prefill a rank, none in decode), each rank's logits within
    1e-4 of the largest of one card's run on the same weights and tokens
    and its greedy tokens equal, the bytes each rank stages by tag equal to
-   the roofline counter's dry count of the same cell on ``meta``;
+   the roofline counter's dry count of the same cell on ``meta``; (i) the
+   other families on the same kind of mesh (``_mesh_families``):
+   full-width mamba2-370m (48 layers, the SSD kernel on each rank's 16
+   heads, 48 launches a prefill a rank), one full-width mixtral-8x7b layer
+   (the f-sharded MoE body), qwen3-1.7b with its KV cache split over
+   ``model``, the reduced jamba with ``long_context`` at B 1, llava,
+   hubert and qwen3-moe on (data 1, model 4), each held the same way,
+   mamba2's rank 0 also to a float64 run of the plain path;
 26. roofline — the cells the card ran, counted by ``launch/roofline.py``
    on ``meta`` at a 1×1 mesh: ``launch.train``'s qwen3-1.7b and
    mamba2-370m steps, the served prefill and decode step of qwen3-1.7b,
@@ -257,8 +264,9 @@ Phases, in order; any failure exits non-zero:
    bound on the card's own ceilings against the time measured above (fail
    above 1); then ``python -m repro_torch.launch.dryrun --all --mesh both``
    over the 80 cells of both production meshes on ``meta`` (run in the
-   mesh phase, by this process while the ranks work): the 24 dense cells
-   ``ok``, every error naming its ROADMAP item;
+   mesh phase, by a process beside the ranks): every prefill and decode
+   cell and the dense train cells ``ok`` (52), the other families' 12
+   train cells errors naming their ROADMAP item;
 27. the phases' seconds, the ``kernels`` JSON line (the flash and SSD
    entries with their ``train_launches`` and gradient checks, flash's
    ``mesh_train_launches`` and ``mesh_serve_launches``), the card
@@ -539,6 +547,9 @@ def flash_phase(card: str) -> dict:
         (MESH_SERVE_TOKENS[0] // MESH_TRAIN_SHAPE[0], MESH_SERVE_TOKENS[1], MESH_SERVE_TOKENS[1],
          16 // MESH_TRAIN_SHAPE[1], 8 // MESH_TRAIN_SHAPE[1], 128, True, 0, 0,
          "mesh serving prefill: a rank's rows and heads of qwen3-1.7b"),
+        (MESH_FAMILY_CASES["mixtral-8x7b, 1 layer"][5] // 2, MESH_FAMILY_CASES["mixtral-8x7b, 1 layer"][6],
+         MESH_FAMILY_CASES["mixtral-8x7b, 1 layer"][6], 32 // 2, 8 // 2, 128, True, 4096, 0,
+         "mesh serving prefill: a rank's rows and heads of mixtral-8x7b"),
     ]
     new_families = {"qwen3-moe", "mixtral", "window", "hubert", "llava", "jamba"}
     entry, timed = None, {}
@@ -585,8 +596,9 @@ def flash_phase(card: str) -> dict:
                     f"{n_ops / k_ms / 1e9:.1f} TFLOP/s, {b_ms / k_ms:.2%} of its bound, "
                     f"{k_ms / l_ms:.3f}x sdpa's time a call"
                 )
-                if label.startswith("mesh") and not bf16:     # the mesh step trains in fp32
-                    timed[f"{label}, fp32"] = {"shape": f"B={b}, S={sq}, H={h}, KVH={kvh}, D={d}, causal, fp32",
+                if label.startswith("mesh") and not bf16:     # the mesh steps run in fp32
+                    win = f", window {window}" if window else ""
+                    timed[f"{label}, fp32"] = {"shape": f"B={b}, S={sq}, H={h}, KVH={kvh}, D={d}, causal{win}, fp32",
                                     "tflops": n_ops / k_ms / 1e9, "max_abs_err": err, "ms": k_ms,
                                     "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms}
                 if bf16:   # fp32 sdpa runs cuBLAS, which keeps a workspace per capture stream
@@ -623,6 +635,7 @@ def flash_phase(card: str) -> dict:
     entry["training_prefill"] = timed["training prefill of launch.train's qwen3-1.7b"]
     entry["mesh_training_prefill"] = timed["mesh training prefill: a rank's rows and heads of qwen3-1.7b, fp32"]
     entry["mesh_serving_prefill"] = timed["mesh serving prefill: a rank's rows and heads of qwen3-1.7b, fp32"]
+    entry["mesh_moe_serving_prefill"] = timed["mesh serving prefill: a rank's rows and heads of mixtral-8x7b, fp32"]
     entry["dense_prefills"] = {label.split()[0]: row for label, row in timed.items()
                                if label.split()[0] in DENSE}
     entry["new_family_prefills"] = {label: row for label, row in timed.items()
@@ -1333,23 +1346,25 @@ def _ssd_work(b, s, h, p, g, n, q, elem, with_init) -> tuple[float, float]:
     return n_bytes, ops
 
 
-def _ssd_timed(label, b, s, h, p, g, n, q, card) -> dict:
+def _ssd_timed(label, b, s, h, p, g, n, q, card, dtype: str = "bfloat16") -> dict:
     """Kernel, its CUDA-graph device time and the plain chunked version at
-    one shape in bf16, beside the bound; the kernel held to the recurrent
-    oracle on the same inputs."""
+    one shape in bf16 (or fp32, as a mesh rank serves), beside the bound;
+    the kernel held to the recurrent oracle on the same inputs (bf16:
+    within one ulp; fp32: the reference test's tolerances)."""
     import torch
 
     from repro_torch.kernels.ssd import ops as so
     from repro_torch.kernels.ssd.ref import ssd_chunked, ssd_recurrent_reference
 
     args, _ = _ssd_inputs(b, s, h, p, g, n, seed=21, a_minus_one=True)
-    bargs = _bf16(args)
+    bf16 = dtype == "bfloat16"
+    bargs = _bf16(args) if bf16 else args
     y, st = so.ssd_cuda(*bargs, chunk=q)
     fy, fst = ssd_recurrent_reference(*(t.float() for t in bargs))
     torch.cuda.synchronize()
     ey, es = float((y.float() - fy).abs().max()), float((st - fst).abs().max())
-    check(_within_bf16_ulp(y, fy) and es <= SSD_TOL["state"],
-          f"ssd {label} bf16: y err {ey:.3g}, state err {es:.3g}")
+    close = _within_bf16_ulp(y, fy) if bf16 else ey <= SSD_TOL["y"]
+    check(close and es <= SSD_TOL["state"], f"ssd {label} {dtype}: y err {ey:.3g}, state err {es:.3g}")
     k_ms = time_ms(lambda: so.ssd_cuda(*bargs, chunk=q))
     k_dev = graph_ms(lambda: so.ssd_cuda(*bargs, chunk=q))
     # each of the four kernels alone, on the scratch of one whole call
@@ -1358,14 +1373,15 @@ def _ssd_timed(label, b, s, h, p, g, n, q, card) -> dict:
     stages = {name: graph_ms(lambda: so.launch_stages(call, 1 << k))
               for k, name in enumerate(SSD_STAGES)}
     p_ms = time_ms(lambda: ssd_chunked(*bargs, chunk=q))
-    n_bytes, n_ops = _ssd_work(b, s, h, p, g, n, q, 2, False)
-    b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
+    n_bytes, n_ops = _ssd_work(b, s, h, p, g, n, q, 2 if bf16 else 4, False)
+    b_ms, b_by = bound_ms(n_bytes, n_ops, dtype)
     floor = n_ops / PEAK_OPS["float32"] * 1e3
-    print(f"  ssd {label} B {b}, S {s}, H {h}, P {p}, G {g}, N {n}, chunk {q}, bf16: max_abs_err "
-          f"y {ey:.3g} (within one bf16 ulp), state {es:.3g}; kernel {k_ms:.4f} ms a call "
+    print(f"  ssd {label} B {b}, S {s}, H {h}, P {p}, G {g}, N {n}, chunk {q}, {dtype}: max_abs_err "
+          f"y {ey:.3g} ({'within one bf16 ulp' if bf16 else 'limit ' + str(SSD_TOL['y'])}), state {es:.3g}; "
+          f"kernel {k_ms:.4f} ms a call "
           f"({k_dev:.4f} ms of device time, CUDA graph), plain {p_ms:.4f} ms, library none "
-          f"exists, bound {b_ms:.5f} ms by {b_by} ({n_ops / 1e9:.4f} GFLOP at bf16's 989 TFLOP/s, "
-          f"{n_bytes / 1e6:.3f} MB at 3.35 TB/s); fp32 CUDA-core floor {floor:.5f} ms "
+          f"exists, bound {b_ms:.5f} ms by {b_by} ({n_ops / 1e9:.4f} GFLOP at {PEAK_OPS[dtype] / 1e12:g} "
+          f"TFLOP/s, {n_bytes / 1e6:.3f} MB at 3.35 TB/s); fp32 CUDA-core floor {floor:.5f} ms "
           f"(at 67 TFLOP/s) [{card}]")
     print(f"  ssd {label} device time by kernel (each alone, CUDA graph): "
           + ", ".join(f"{name} {t:.4f} ms" for name, t in stages.items())
@@ -1431,6 +1447,9 @@ def ssd_phase(card: str) -> dict:
     jamba = _ssd_timed("jamba prefill", 2, 128, 256, 64, 1, 128, 128, card)
     train = _ssd_timed("training prefill of launch.train's mamba2-370m", TRAIN_CLI_BATCH, TRAIN_CLI_SEQ,
                        32, 64, 1, 128, 128, card)
+    # the mesh phase's (i): a rank's 2 rows and 16 of 32 heads of mamba2-370m, fp32
+    mesh = _ssd_timed("mesh serving prefill: a rank's rows and heads of mamba2-370m", 2, 256, 16, 64, 1, 128, 128,
+                      card, "float32")
     return {
         "name": "ssd_pallas",
         "route": "cuda",
@@ -1449,6 +1468,7 @@ def ssd_phase(card: str) -> dict:
         "at_long_prefill": long,
         "at_jamba_prefill": jamba,
         "at_training_prefill": train,
+        "at_mesh_serving_prefill": mesh,
         "per": "launch (prefill: B=2, S=200 padded to 256, H=32, P=64, G=1, N=128, chunk 128, bf16)",
     }
 
@@ -4255,7 +4275,7 @@ MESH_ELASTIC_LIMIT = 1e-4                   # the losses across the re-mesh (the
 MESH_ELASTIC_DIR = ROOT / "build" / "chip_smoke_elastic"
 MESH_SERVE_TOKENS = (4, 128)                # B, prompt of the sharded prefill (qwen3-1.7b at MESH_TRAIN_LAYERS
                                             # layers, fp32, on MESH_TRAIN_SHAPE)
-MESH_SERVE_NEW = 8                          # greedy decode steps after it
+MESH_SERVE_NEW = 4                          # greedy decode steps after it (8 until phase (i) joined the spawn)
 MESH_SERVE_LIMIT = 1e-4                     # each rank's logits against one card's, of the largest logit
 MESH_SERVE_SEED = 23
 
@@ -4695,9 +4715,264 @@ def _mesh_serve_case(reduced: bool) -> dict | None:
     return {"ranks": everyone}
 
 
+MESH_FAMILY_LIMIT = 1e-4                    # each rank's logits against one card's, of the largest logit
+MESH_FAMILY_F64 = "mamba2-370m"             # the case whose rank 0 also runs one card in float64: through 48
+                                            # random fp32 layers one card lies ~5e-5 from it, and so may the mesh
+MESH_FAMILY_SEED = 29
+DROPLESS = "dropless"                       # a case's capacity factor E / k: an expert's slots a rank hold
+                                            # every token the rank routes, so no slot drops
+#: (i) case → (arch, reduced config only, (data, model), PerfConfig fields, config changes, B, prompt,
+#: greedy decode steps, long_context); at full width unless named reduced (all reduced in a CPU
+#: rehearsal); the qwen3 case takes (h)'s weights.  Every FSDP gather goes through the host
+#: (0.5-0.7 GB/s a rank), so the full-width cases run 2 / 1 / 2 decode steps, not 4 / 2 / 4,
+#: to keep the script inside its 1,200 s on slower hosts (with 4 / 2 / 4 and 8 steps in (h) it
+#: took 1023.2 s of phases on an NVIDIA H100 80GB HBM3 host whose CPU ran 1.2x slower than others)
+MESH_FAMILY_CASES = {
+    "mamba2-370m": (MAMBA, False, (2, 2), dict(gather_weights_once=True), {}, 4, MAMBA_PROMPT, 2, False),
+    "mixtral-8x7b, 1 layer": ("mixtral-8x7b", False, (2, 2), dict(moe_capacity_factor=DROPLESS),
+                              dict(num_layers=1), 4, 128, 1, False),
+    "qwen3-1.7b, cache split over model": (ARCH, False, (2, 2), dict(shard_cache_seq_over_model=True),
+                                           dict(num_layers=MESH_TRAIN_LAYERS), 4, 128, 2, False),
+    "jamba, long context (reduced)": (JAMBA, True, (2, 2), dict(moe_capacity_factor=DROPLESS), {}, 1,
+                                      64, 2, True),
+    "llava (reduced)": (LLAVA, True, (2, 2), {}, {}, 4, 32, 2, False),
+    "hubert (reduced)": (HUBERT, True, (2, 2), {}, {}, 4, 32, 0, False),
+    "qwen3-moe, 16 experts (reduced)": ("qwen3-moe-235b-a22b", True, (1, 4),
+                                        dict(moe_capacity_factor=DROPLESS),
+                                        dict(num_experts=16, experts_per_token=2), 4, 32, 2, False),
+}
+
+
+def _family_cfg(name: str, reduced: bool):
+    from repro_torch.configs import get_config
+
+    arch, small, _, _, changes, _, _, _, _ = MESH_FAMILY_CASES[name]
+    return dataclasses.replace(get_config(arch, reduced=reduced or small), **changes)
+
+
+def _family_perf(name: str, cfg):
+    """The case's ``PerfConfig``, ``DROPLESS`` resolved for ``cfg``."""
+    from repro_torch.configs.perf import PerfConfig
+
+    kw = dict(MESH_FAMILY_CASES[name][3])
+    if kw.get("moe_capacity_factor") == DROPLESS:
+        kw["moe_capacity_factor"] = cfg.num_experts / cfg.experts_per_token
+    return PerfConfig(**kw)
+
+
+def _family_batch(cfg, b: int, prompt: int, dev) -> dict:
+    """A prompt batch of ``b`` rows on ``dev`` from the case's seed, in the
+    reference's layout."""
+    import torch
+
+    gen = torch.Generator(dev).manual_seed(MESH_FAMILY_SEED)
+    if cfg.frontend == "audio":
+        return {"features": torch.randn((b, prompt, cfg.frontend_dim), generator=gen, device=dev)}
+    n = prompt - (cfg.frontend_tokens if cfg.frontend == "vision" else 0)
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (b, n), generator=gen, device=dev, dtype=torch.int32)}
+    if cfg.frontend == "vision":
+        out["patch_embeds"] = torch.randn((b, cfg.frontend_tokens, cfg.frontend_dim), generator=gen, device=dev)
+    return out
+
+
+def _family_steps(params, batch, cfg, perf, mesh, steps: int, long_context: bool, replicated: bool, marks=None):
+    """The prefill (hubert: the encoder) and ``steps`` greedy decode steps
+    → (each step's logits, the last decode state); ``marks`` (a list), when
+    given, takes each kernel's launches and ``ranks.stats`` once the
+    prefill is done, and the seconds."""
+    import torch
+
+    from repro_torch.distributed import ranks
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.models import model_zoo as zoo
+
+    on = dict(mesh=mesh, replicated_batch=replicated)
+    max_len = next(iter(batch.values())).shape[1] + (cfg.frontend_tokens if cfg.frontend == "vision" else 0) + steps
+    t0 = time.perf_counter()
+    if not cfg.decode_supported:
+        outs, state = [zoo.encode_fn(params, batch, cfg, perf, **on)], None
+    else:
+        logits, state = zoo.prefill_fn(params, batch, cfg, max_len, perf, long_context, **on)
+        outs = [logits]
+    if marks is not None:
+        _sync_rank()
+        marks.append((fa.launches, ssd_ops.launches, ranks.stats, time.perf_counter() - t0))
+        ranks.stats = {} if ranks.stats is not None else None
+        t0 = time.perf_counter()
+    for _ in range(steps):
+        logits, state = zoo.decode_fn(params, state, torch.argmax(logits, -1).to(torch.int32), cfg, perf,
+                                      long_context, **on)
+        outs.append(logits)
+    if marks is not None:
+        _sync_rank()
+        marks.append((fa.launches, ssd_ops.launches, ranks.stats, time.perf_counter() - t0))
+    return outs, state
+
+
+def _mesh_family_case(name: str, reduced: bool) -> dict:
+    """One case of (i) on every rank: the sharded serving step, timed, its
+    flash and SSD launches and staged bytes by tag apart for the prefill
+    and the decode steps; the same step on ``meta`` at this rank's
+    coordinate (its staged bytes must equal those); this rank's rows
+    against one card's run of the same weights and inputs."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import ranks
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.launch import dryrun_lib
+    from repro_torch.launch.mesh import make_rank_mesh
+    from repro_torch.models import model_zoo as zoo
+
+    _, _, shape, _, _, b, prompt, steps, long_context = MESH_FAMILY_CASES[name]
+    dev = ranks.device()
+    cfg = _family_cfg(name, reduced)
+    perf = _family_perf(name, cfg)
+    mesh = make_rank_mesh(shape)
+    replicated = b % shape[0] != 0
+    seed = MESH_TRAIN_SEED if cfg.name.startswith(ARCH) else MESH_FAMILY_SEED
+    whole = zoo.init_params(cfg, torch.Generator(dev).manual_seed(seed), torch.float32)
+    batch = _family_batch(cfg, b, prompt, dev)
+    rows = batch if replicated else {k: ranks.shard(v, shd.P("data"), mesh) for k, v in batch.items()}
+    with shd.use_sharding(mesh):
+        blocks = zoo.shard_params(whole, cfg, mesh)
+    ranks.barrier(mesh)
+    marks: list = []
+    with torch.no_grad():
+        fa.launches = ssd_ops.launches = 0
+        ranks.stats = {}
+        outs, state = _family_steps(blocks, rows, cfg, perf, mesh, steps, long_context, replicated, marks)
+        ranks.stats = None
+        (fa_pre, ssd_pre, pre_stats, pre_s), (fa_all, ssd_all, dec_stats, dec_s) = marks
+        kv = {pos: tuple(c.k.shape) for pos, c in state.caches[0].items() if hasattr(c, "k")} if state else {}
+        del state
+        dry = dryrun_lib.dry_mesh(shd.Mesh(mesh.axis_sizes, mesh.axis_names), mesh.coordinate)
+        with shd.use_sharding(dry):
+            meta_blocks = zoo.shard_params(zoo.param_shapes(cfg, torch.float32), cfg, dry)
+            meta_rows = {k: torch.empty(tuple(v.shape), dtype=v.dtype, device="meta") for k, v in rows.items()}
+            dry_marks: list = []
+            ranks.stats = {}
+            _family_steps(meta_blocks, meta_rows, cfg, perf, dry, steps, long_context, replicated, dry_marks)
+            ranks.stats = None
+        # one card: the whole batch on the whole weights
+        ref, _ = _family_steps(whole, batch, cfg, perf, None, steps, long_context, False)
+        lo = 0 if replicated else mesh.index("data") * next(iter(rows.values())).shape[0]
+        n = next(iter(rows.values())).shape[0]
+        mine = [r[lo:lo + n] for r in ref]
+        err = max(float((a - w).abs().max()) / float(w.abs().max()) for a, w in zip(outs, mine))
+        same_tokens = all(bool(torch.equal(a.argmax(-1), w.argmax(-1))) for a, w in zip(outs, mine))
+        spread = min(float(w.std()) for w in mine)
+        finite = all(bool(torch.isfinite(a).all()) for a in outs)
+        f64 = _float64_distance(whole, batch, cfg, ref, outs, lo) if name == MESH_FAMILY_F64 and ranks.rank() == 0 \
+            else None
+    del whole, blocks, ref, outs
+    _empty_rank_cache()
+    rec = {"launches": {"flash": (fa_pre, fa_all - fa_pre), "ssd": (ssd_pre, ssd_all - ssd_pre)},
+           "prefill_s": pre_s, "decode_s": dec_s,
+           "live": {"prefill": _tagged(pre_stats), "decode": _tagged(dec_stats)},
+           "dry": {"prefill": _tagged(dry_marks[0][2]), "decode": _tagged(dry_marks[1][2])},
+           "seconds": {"prefill": _stats_sum(pre_stats, "s"), "decode": _stats_sum(dec_stats, "s")},
+           "kv": kv, "err": err, "same_tokens": same_tokens, "spread": spread, "finite": finite, "f64": f64}
+    everyone = [None] * ranks.world_size()
+    dist.all_gather_object(everyone, rec)
+    return {"ranks": everyone}
+
+
+def _float64_distance(whole, batch, cfg, ref, outs, lo: int) -> tuple[float, float]:
+    """One card in float64 on the same inputs (the plain path: the kernels
+    take fp32 and bf16), each decode step fed the fp32 run's greedy token →
+    (one card's fp32 logits, this rank's mesh logits: each one's largest
+    distance from it over the largest logit)."""
+    import torch
+
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.tree import paths, unflatten_like
+
+    wide = unflatten_like(whole, [t.double() for t in paths(whole).values()])
+    max_len = next(iter(batch.values())).shape[1] + len(ref) - 1
+    with plain_path():
+        logits, state = zoo.prefill_fn(wide, batch, cfg, max_len)
+        f64 = [logits]
+        for step in ref[:-1]:
+            logits, state = zoo.decode_fn(wide, state, torch.argmax(step, -1).to(torch.int32), cfg)
+            f64.append(logits)
+    del wide, state
+    n = outs[0].shape[0]
+    rel = lambda a, w: float((a.double() - w).abs().max() / w.abs().max())  # noqa: E731
+    return (max(rel(a, w) for a, w in zip(ref, f64)),
+            max(rel(a, w[lo:lo + n]) for a, w in zip(outs, f64)))
+
+
+def _mesh_families(reduced: bool) -> dict:
+    """(i) every case of ``MESH_FAMILY_CASES`` in turn, with its seconds."""
+    out = {}
+    for name in MESH_FAMILY_CASES:
+        t0 = time.perf_counter()
+        out[name] = _mesh_family_case(name, reduced)
+        out[name]["s"] = time.perf_counter() - t0
+    return out
+
+
+def _family_layers(cfg) -> tuple[int, int]:
+    """(attention layers, Mamba-2 layers) of ``cfg``."""
+    attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.num_layers))
+    return attn, cfg.num_layers - attn
+
+
+def _mesh_families_report(card: str, got: dict, runtime: dict) -> tuple[int, int]:
+    """(i) each case against one card and against the dry mode's count,
+    its launches exact → (its flash launches, its SSD launches, all
+    ranks)."""
+    n_fa = n_ssd = 0
+    print(f"  (i) serving on (data, model) meshes of the other families and the cache split over its sequence, "
+          f"fp32, {runtime['ranks']} ranks on one card [{card}; one card: the runtime, not scale-out]")
+    for name, case in got.items():
+        arch, _, shape, perf_kw, _, b, prompt, steps, long_context = MESH_FAMILY_CASES[name]
+        cfg = _family_cfg(name, MOE_MESH_REDUCED)
+        n_attn, n_ssm = _family_layers(cfg)
+        on_card = DEV == "cuda"
+        want = {"flash": (n_attn if on_card else 0, 0), "ssd": (n_ssm if on_card else 0, 0)}
+        changed = {k: v for k, v in dataclasses.asdict(_family_perf(name, cfg)).items()
+                   if k in perf_kw} or "baseline"
+        print(f"    {name}: {cfg.name}, {cfg.num_layers} layers, (data {shape[0]}, model {shape[1]}), B {b}, prompt "
+              f"{prompt}, {steps} decode steps, {changed}{', long context' if long_context else ''}; "
+              f"{case['s']:.1f} s")
+        for r, rank in enumerate(case["ranks"]):
+            live, dry = rank["live"], rank["dry"]
+            staged = {k: sum(v[1] for v in live[k].values()) for k in live}
+            print(f"      rank {r}: prefill {rank['prefill_s']:.3f} s, decode {rank['decode_s']:.3f} s; staged "
+                  f"{staged['prefill'] / 1e9:.4g} / {staged['decode'] / 1e9:.4g} GB through the host in "
+                  f"{rank['seconds']['prefill']:.3f} / {rank['seconds']['decode']:.3f} s ({live['prefill']}, "
+                  f"{live['decode']}); logits against one card's rows {rank['err']:.3g} of the largest (limit "
+                  f"{MESH_FAMILY_LIMIT}), tokens equal {rank['same_tokens']}; launches prefill / decode "
+                  f"{rank['launches']} (expected {want}); KV blocks {rank['kv'] or 'none'}; the dry mode's count "
+                  f"equal: {dry == live}")
+            check(rank["finite"] and rank["spread"] > 0 and rank["err"] <= MESH_FAMILY_LIMIT and rank["same_tokens"],
+                  f"(i) {name}, rank {r}: the sharded step departs from one card's ({rank['err']:.3g})")
+            check({k: tuple(v) for k, v in rank["launches"].items()} == want,
+                  f"(i) {name}, rank {r}: launches {rank['launches']}, not {want}")
+            check(dry == live, f"(i) {name}, rank {r}: the dry mode counts {dry}, the run staged {live}")
+            if rank["f64"] is not None:
+                one, mine = rank["f64"]
+                print(f"      rank {r} against one card in float64: one card's fp32 logits {one:.3g}, this rank's "
+                      f"{mine:.3g} of the largest (limit twice one card's)")
+                check(mine <= 2 * one, f"(i) {name}, rank {r}: {mine:.3g} from float64, one card {one:.3g}")
+            if perf_kw.get("shard_cache_seq_over_model"):
+                block = (b // shape[0], (prompt + steps) // shape[1], cfg.num_kv_heads, cfg.head_dim)
+                check(all(v == block for v in rank["kv"].values()),
+                      f"(i) {name}, rank {r}: KV blocks {rank['kv']}, not {block}")
+            n_fa += sum(rank["launches"]["flash"])
+            n_ssd += sum(rank["launches"]["ssd"])
+    return n_fa, n_ssd
+
+
 def _mesh_train_ranks(reduced: bool, compress_inputs: tuple) -> dict:
     """The train step's share of the phase's spawn: (e), (f), (g), with
-    the flash launches a rank of each; then the sharded serving step (h)."""
+    the flash launches a rank of each; then the sharded serving step (h)
+    and the other families' (i)."""
     from repro_torch.kernels.flash_attention import ops as fa
 
     out = {"train": _mesh_train_case(reduced)}
@@ -4706,6 +4981,7 @@ def _mesh_train_ranks(reduced: bool, compress_inputs: tuple) -> dict:
     out["elastic"] = _mesh_elastic()
     out["other_launches"] = fa.launches
     out["serve"] = _mesh_serve_case(reduced)
+    out["families"] = _mesh_families(reduced)
     return out
 
 
@@ -5025,7 +5301,7 @@ def _mesh_serve_report(card: str, got: dict, runtime: dict) -> tuple[int, dict]:
     return sum(sum(rank["launches"]) for rank in per), {"ranks": per, "cfg": cfg}
 
 
-def mesh_phase(card: str, meanwhile: tuple = ()) -> tuple[int, int, dict, Any]:
+def mesh_phase(card: str, meanwhile: tuple = ()) -> tuple[int, int, int, dict, Any]:
     """The multi-rank runtime on one card: the sharded acceptance scan
     through ``launch.fleet``; then one spawn of four ranks for the sharded
     ensemble, the MoE's two sharded bodies at full width,
@@ -5034,9 +5310,10 @@ def mesh_phase(card: str, meanwhile: tuple = ()) -> tuple[int, int, dict, Any]:
     computes the MoE layers' single-card references and runs
     ``compress_psum`` and the cross-pod step on CPU ranks; each sharded
     result held to its single-device version; then the sharded prefill
-    and decode.  Beside them a process of its own calls ``meanwhile``
-    (``(fn, *args)``: the roofline phase's counts on ``meta``, no card) →
-    (the train step's flash launches, the serving step's, what the roofline
+    and decode (h) and the other families' serving (i).  Beside them a
+    process of its own calls ``meanwhile`` (``(fn, *args)``: the roofline
+    phase's counts on ``meta``, no card) → (the train step's flash
+    launches, the serving steps', their SSD launches, what the roofline
     phase needs of the sharded prefill, what ``meanwhile`` returned)."""
     import threading
     from concurrent.futures import ProcessPoolExecutor
@@ -5086,7 +5363,8 @@ def mesh_phase(card: str, meanwhile: tuple = ()) -> tuple[int, int, dict, Any]:
     _mesh_elastic_report(card, got["elastic"])
     print(f"  flash launches of the compressed and elastic runs, rank 0: {got['other_launches']}")
     serve_launches, serve = _mesh_serve_report(card, got, rt)
-    return launches, serve_launches, serve, extra
+    family_fa, family_ssd = _mesh_families_report(card, got["families"], rt)
+    return launches, serve_launches + family_fa, family_ssd, serve, extra
 
 
 DENSE_DECODERS = ("qwen3-1.7b", "yi-6b", "internlm2-20b", "qwen3-32b")
@@ -5169,10 +5447,10 @@ def roofline_phase(card: str, counted: dict, mesh_serve: dict) -> dict:
     means), and the mesh phase's sharded prefill (each rank's counts times
     the ranks sharing the card, its collectives at the gloo rate that rank
     measured): bound / time at most 1 on the card's own ceilings; (c)
-    ``python -m repro_torch.launch.dryrun --all --mesh both``: every dense
-    decoder's train, prefill and decode cell ``ok`` on both meshes, every
-    other cell skipped or failing as data that names its ROADMAP item →
-    the ratios."""
+    ``python -m repro_torch.launch.dryrun --all --mesh both``: every
+    prefill and decode cell and the dense decoders' train cells ``ok`` on
+    both meshes, the other families' train cells failing as data that
+    names its ROADMAP item, the rest skipped → the ratios."""
     from repro_torch.launch import roofline as rf
 
     ratios = {}
@@ -5199,11 +5477,13 @@ def roofline_phase(card: str, counted: dict, mesh_serve: dict) -> dict:
     status = {k: v["status"] for k, v in got.items()}
     count = {st: sum(v == st for v in status.values()) for st in ("ok", "skipped", "error")}
     dense = [k for k in got if k.split("|")[0] in DENSE_DECODERS and k.split("|")[1] != "long_500k"]
+    served = [k for k in got if k.split("|")[1] != "train_4k" and status[k] != "skipped"]
+    trains = [k for k in got if k.split("|")[1] == "train_4k" and k.split("|")[0] not in DENSE_DECODERS]
     errors = [v["reason"] for v in got.values() if v["status"] == "error"]
     print(f"  launch.dryrun --all --mesh both: {len(got)} cells, {count['ok']} ok, {count['skipped']} skipped, "
           f"{count['error']} error (each naming its ROADMAP item), {secs:.1f} s on meta during the mesh phase "
           f"(exit {rc})")
-    for k in dense:
+    for k in dense + [k for k in served if k not in dense]:
         v = got[k]
         if v["status"] == "ok":
             r = v["roofline"]
@@ -5213,6 +5493,10 @@ def roofline_phase(card: str, counted: dict, mesh_serve: dict) -> dict:
     check(len(got) == 80 and sum(count.values()) == 80, f"the dry run covered {len(got)} cells, not 80")
     check(len(dense) == 24 and all(status[k] == "ok" for k in dense),
           f"dense cells not ok: {[k for k in dense if status[k] != 'ok']}")
+    check(len(served) == 44 and all(status[k] == "ok" for k in served),
+          f"prefill and decode cells not ok: {[k for k in served if status[k] != 'ok']}")
+    check(count == {"ok": 52, "skipped": 16, "error": 12} and all(status[k] == "error" for k in trains),
+          f"the dry run's statuses {count}: the errors must be the other families' train cells")
     check(all("ROADMAP" in reason for reason in errors), "a dry-run error names no ROADMAP item")
     check(rc == (1 if errors else 0), f"launch.dryrun exited {rc}")
     return ratios
@@ -5365,12 +5649,15 @@ def main() -> None:
 
     with timed_phase("mesh", seconds):
         train_step_s = {arch: sum(train_report[arch]["step_split_s"].values()) for arch in (ARCH, MAMBA)}
-        n_fa, n_serve, mesh_serve, counted = mesh_phase(card, (roofline_counts, train_step_s, served))
+        n_fa, n_serve, n_ssd, mesh_serve, counted = mesh_phase(card, (roofline_counts, train_step_s, served))
         fa_entry["launches"] += n_fa + n_serve
         fa_entry["mesh_train_launches"] = n_fa
         fa_entry["mesh_serve_launches"] = n_serve
+        ssd_entry["launches"] += n_ssd
+        ssd_entry["mesh_serve_launches"] = n_ssd
         check(n_fa > 0, "the flash kernel was never launched on the mesh train step's path")
         check(n_serve > 0, "the flash kernel was never launched on the sharded prefill's path")
+        check(n_ssd > 0, "the SSD kernel was never launched on the sharded Mamba-2 prefill's path")
 
     with timed_phase("roofline", seconds):
         roofline_phase(card, counted, mesh_serve)

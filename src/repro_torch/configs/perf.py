@@ -8,16 +8,21 @@ of ranks (``training/train_loop.py``) reads ``gather_weights_once``
 (gather the FSDP blocks once a step, not at each use) and
 ``grad_compress_pod`` (the compressed cross-pod branch, with
 ``launch.dryrun_lib.perf_rules``); on one device both do nothing.  The
-sharded prefill and decode (``model_zoo.prefill_fn`` / ``decode_fn`` with
-``mesh=``) read ``gather_weights_once`` (every block gathered once a call)
-and refuse ``shard_cache_seq_over_model`` and
-``shard_long_cache_over_model`` (a cache split over its sequence waits for
-a later slice, ROADMAP; ``perf_rules`` maps both into the rule table and
-``dryrun_lib.batch_pspecs`` raises for them).  Still read by nothing:
-``seq_parallel_residual`` (the sequence-parallel residual, ROADMAP) and
-``moe_capacity_factor`` (the reference's ``moe_block`` ignores it without
-a mesh; ``models.moe.moe_block`` on a mesh of ranks takes its capacity
-factor as an argument).
+serving step on a mesh of ranks (``model_zoo.prefill_fn`` / ``decode_fn``
+/ ``encode_fn`` with ``mesh=``, every family) reads
+``gather_weights_once`` (every block gathered once a call),
+``moe_capacity_factor`` (the MoE's sharded bodies in the prefill and
+decode, as the reference's serving passes it to ``moe_block``; the
+config's factor when unset; one device runs the dropless dispatch and
+reads none) and the two cache flags, which ``model_zoo.serving_layout``
+applies to its rule table as ``perf_rules`` does:
+``shard_cache_seq_over_model`` puts a KV cache's sequence (``cache_seq``)
+on ``model`` in prefill and decode cells, ``shard_long_cache_over_model``
+puts the long-context cache's (``long_cache_seq``, ``data`` by default)
+there.  A split cache's decode combines each rank's partial attention
+over its block (``models/attention.py``); no kernel changes for it.
+Still read by nothing: ``seq_parallel_residual`` (the sequence-parallel
+residual, ROADMAP).
 
 The reference's kernel-choice fields (``attention_impl``, ``ssd_impl``,
 ``attn_scores_dtype``, ``attn_triangular``) are left out: on the card the

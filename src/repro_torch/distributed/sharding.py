@@ -31,10 +31,14 @@ from the reference's layout, with the same numbers: where the KV heads
 divide over ``model``, each rank keeps only the KV heads its query heads
 read (``("batch", "act_seq", "act_heads", None)``) where the reference
 replicates them (``"act_kv"``).  The serving step runs on the same
-:class:`Layout` (``model_zoo.serving_layout``); a decode state's KV cache
-is a local block, its batch over (pod, data) (``cache_batch``), its
-sequence whole, and its heads the KV heads this rank's query heads read
-(``models/attention.py::cache_heads``), where the reference keeps all.
+:class:`Layout` (``model_zoo.serving_layout``), whose batch may be
+replicated (``replicated_batch``: a batch that does not divide over (pod,
+data), as long_500k's one row); a decode state's KV cache is a local
+block, its batch over (pod, data) (``cache_batch``), its sequence whole or
+split as the rule ``cache_seq`` / ``long_cache_seq`` says
+(:meth:`Layout.seq_axes`), and its heads the KV heads this rank's query
+heads read (``models/attention.py::cache_heads``), where the reference
+keeps all, or every KV head where ``model`` splits the sequence.
 
 Usage:
     with use_sharding(mesh, rules):
@@ -334,6 +338,7 @@ class Layout:
     rules: Rules
     pspecs: dict                 # {tree path: PartitionSpec of the stored block}
     gathered: bool = False
+    replicated_batch: bool = False   # every rank holds the whole batch (a serving step's)
 
     def __post_init__(self):
         for path, spec in self.pspecs.items():
@@ -363,7 +368,9 @@ class Layout:
 
     @property
     def batch_size(self) -> int:
-        return math.prod(self.mesh.shape[a] for a in self.batch_axes)
+        """How many blocks the rows are split into: 1 for a replicated
+        batch."""
+        return 1 if self.replicated_batch else math.prod(self.mesh.shape[a] for a in self.batch_axes)
 
     def _fsdp_dims(self, spec) -> list:
         out = []
@@ -435,6 +442,15 @@ class Layout:
     def check(self, x: torch.Tensor, axes: Sequence[Logical], shape: Sequence[int]) -> torch.Tensor:
         """:func:`constrain` on this layout's mesh and rules."""
         return constrain(x, axes, shape, self.mesh, self.rules)
+
+    def seq_axes(self, logical: str, shape: Sequence[int]) -> tuple:
+        """The live mesh axes the sequence of a cache block of the global
+        ``shape`` (batch, sequence, ...) is split over under ``logical``
+        (``cache_seq`` or ``long_cache_seq``): the rule's axes that are
+        left after the batch took its own and that divide the sequence."""
+        spec = logical_to_pspec(("cache_batch", logical), self.rules, self.mesh, tuple(shape[:2]))
+        entry = spec[1] if len(spec) > 1 else None
+        return tuple(a for a in _entry_axes(entry) if self.mesh.shape[a] > 1)
 
     def sharded_axes(self, path: str) -> tuple:
         """The live mesh axes a stored leaf is split over."""

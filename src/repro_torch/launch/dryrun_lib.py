@@ -5,7 +5,8 @@ The reference lowers and compiles each cell on 512 abstract devices and
 reads XLA's memory and cost analyses and the HLO.  Here one rank's step
 runs on the ``meta`` device (:func:`lower_cell`): the parameters are the
 blocks the rank at coordinate 0 of the production mesh would hold, the
-batch and the decode state its rows, the collectives the dry mode of
+batch and the decode state its rows (the whole batch where it does not
+divide over (pod, data), as long_500k's one row), the collectives the dry mode of
 ``distributed/ranks.py``, and ``launch/roofline.py`` counts its FLOPs, HBM
 bytes and collective bytes.  A cell the port cannot place yet fails as
 data (status ``error``, its message naming the ROADMAP item), as the
@@ -35,7 +36,6 @@ from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.sharding import P
 from repro_torch.launch import roofline as rf
 from repro_torch.launch.mesh import chips, make_production_mesh
-from repro_torch.models import attention as attn
 from repro_torch.models import decoder
 from repro_torch.models import model_zoo as zoo
 from repro_torch.models.attention import KVCache
@@ -68,8 +68,11 @@ def batch_pspecs(cfg: ArchConfig, shape: ShapeSpec, mesh, perf: PerfConfig) -> d
     (pod, data) where it divides; a decode cell's ``state`` as the
     reference's stacked decode state (``DecodeState(caches={position:
     cache spec})``, a layers entry first; each period's cache of the port
-    takes its spec without that entry).  The two cache flags raise: a cache
-    split over its sequence waits for a later slice (ROADMAP)."""
+    takes its spec without that entry), under both cache flags as the
+    reference gives them.  Where the port's decode state departs from
+    these (a serving rank keeps the KV heads its query heads read, and the
+    SSM cache's heads and channels; ``models/attention.py``,
+    ``models/mamba2.py``), the specs are still the reference's."""
     bspec = _batch_dim_spec(shape.global_batch, mesh)
 
     def leaf_spec(path: str, t) -> P:
@@ -86,11 +89,6 @@ def batch_pspecs(cfg: ArchConfig, shape: ShapeSpec, mesh, perf: PerfConfig) -> d
 
 
 def _decode_state_pspecs(cfg: ArchConfig, shape: ShapeSpec, mesh, perf: PerfConfig, state) -> Any:
-    if perf.shard_cache_seq_over_model or perf.shard_long_cache_over_model:
-        raise NotImplementedError(
-            "a decode cell's cache split over its sequence (shard_cache_seq_over_model, "
-            "shard_long_cache_over_model) needs the flash kernel's log-sum-exp combined across "
-            "ranks, which waits for a later slice (ROADMAP Queue A)")
     bspec = _batch_dim_spec(shape.global_batch, mesh)
     long = shape.name.startswith("long")
     model_ok = "model" in mesh.axis_names
@@ -105,7 +103,8 @@ def _decode_state_pspecs(cfg: ArchConfig, shape: ShapeSpec, mesh, perf: PerfConf
                     seq = None      # ring buffer: small, replicate
                 kv = P(None, None, seq, None, None)
             else:
-                kv = P(None, bspec, None, None, None)
+                seq = "model" if perf.shard_cache_seq_over_model and model_ok and seq_len_c % tp == 0 else None
+                kv = P(None, bspec, seq, None, None)
             return KVCache(k=kv, v=kv, positions=P(), index=P())
         if isinstance(c, SSMCache):
             h = c.state.shape[1]
@@ -234,17 +233,16 @@ def _lower(cfg: ArchConfig, shape: ShapeSpec, mesh, perf: PerfConfig):
     spread = mesh.size > 1
     long = shape.name.startswith("long")
 
-    def placed():
-        if spread and _batch_dim_spec(shape.global_batch, mesh) is None and _dp_size(mesh) > 1:
-            raise NotImplementedError(
-                f"a batch of {shape.global_batch} rows does not split over (pod, data); a batch "
-                "replicated on a mesh waits for a later slice (ROADMAP Queue A)")
+    replicated = spread and _batch_dim_spec(shape.global_batch, mesh) is None and _dp_size(mesh) > 1
 
     if shape.kind == "train":
         from repro_torch.training.train_loop import make_train_step
 
         fns = make_train_step(cfg, perf, mesh=mesh)
-        placed()
+        if replicated:
+            raise NotImplementedError(
+                f"a train batch of {shape.global_batch} rows does not split over (pod, data); a train "
+                "step takes a split batch")
         state = fns.init_state(params)
         batch = {k: ranks.shard(v, bspecs[k], mesh) if spread else v
                  for k, v in zoo.batch_spec(cfg, shape).items()}
@@ -253,30 +251,26 @@ def _lower(cfg: ArchConfig, shape: ShapeSpec, mesh, perf: PerfConfig):
                 *batch.values()]
         return cost, _memory(args, cost), shape.global_batch * shape.seq_len, True, dtype
 
-    # raises for what a mesh cannot serve yet
-    layout = zoo.serving_layout(cfg, perf, mesh, long) if spread else None
-    placed()
+    layout = zoo.serving_layout(cfg, perf, mesh, replicated) if spread else None
     blocks = zoo.shard_params(params, cfg, mesh) if spread else params
+    on = dict(mesh=mesh if spread else None, replicated_batch=replicated)
     if shape.kind == "prefill":
         batch = {k: ranks.shard(v, bspecs[k], mesh) if spread else v
                  for k, v in zoo.batch_spec(cfg, shape).items()}
         with torch.no_grad():
             if not cfg.decode_supported:
-                _, cost = rf.count(zoo.encode_fn, blocks, batch, cfg)
+                _, cost = rf.count(zoo.encode_fn, blocks, batch, cfg, perf, **on)
             else:
-                _, cost = rf.count(zoo.prefill_fn, blocks, batch, cfg, shape.seq_len, perf=perf,
-                                   mesh=mesh if spread else None)
+                _, cost = rf.count(zoo.prefill_fn, blocks, batch, cfg, shape.seq_len, perf=perf, **on)
         args = [*paths(blocks).values(), *batch.values()]
         return cost, _memory(args, cost), shape.global_batch * shape.seq_len, False, dtype
 
     if shape.kind == "decode":
         rows = shape.global_batch // _rows(mesh, bspecs["token"])
-        kv_heads = attn.cache_heads(cfg, layout) if spread else None
-        state = decoder.init_decode_state(cfg, rows, shape.seq_len, dtype, torch.device("meta"), kv_heads)
+        state = decoder.init_decode_state(cfg, rows, shape.seq_len, dtype, torch.device("meta"), layout, long)
         token = torch.empty((rows,), dtype=torch.int32, device="meta")
         with torch.no_grad():
-            _, cost = rf.count(zoo.decode_fn, blocks, state, token, cfg, perf=perf, long_context=long,
-                               mesh=mesh if spread else None)
+            _, cost = rf.count(zoo.decode_fn, blocks, state, token, cfg, perf=perf, long_context=long, **on)
         args = [*paths(blocks).values(), *rf._tensors(state), token]
         return cost, _memory(args, cost), shape.global_batch, False, dtype
 

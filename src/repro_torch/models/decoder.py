@@ -37,13 +37,16 @@ losses and gradients add up to the global mean's.  The reference's
 ``Layout.check``.
 
 The serving step takes the same kind of ``Layout`` (built by
-``model_zoo.prefill_fn`` / ``decode_fn`` from a mesh): :func:`prefill` and
-:func:`decode_step` run on this rank's rows, each period's weights fetched
-over their FSDP axes before use (or gathered once a call with
-``gather_weights_once``), attention and the MLP on local heads and
-columns, the cache a local block (``models/attention.py``), the embedding
-vocab-parallel; :func:`logits_at` assembles each row's whole (V,) logits
-over ``model``.
+``model_zoo.prefill_fn`` / ``decode_fn`` / ``encode_fn`` from a mesh), for
+every family: :func:`prefill`, :func:`decode_step` and :func:`encode` run
+on this rank's rows (or the whole batch where it is replicated), each
+period's weights fetched over their FSDP axes before use (or gathered
+once a call with ``gather_weights_once``), attention and the MLP on local
+heads and columns, Mamba-2 on local heads (``models/mamba2.py``), the MoE
+through its sharded bodies at ``perf.moe_capacity_factor``
+(``models/moe.py``), the cache a local block (``models/attention.py``),
+the token embedding vocab-parallel beside the frontends' projections;
+:func:`logits_at` assembles each row's whole (V,) logits over ``model``.
 """
 from __future__ import annotations
 
@@ -129,7 +132,7 @@ def blocks(params: dict, cfg: ArchConfig):
 # ---------------------------------------------------------------------------
 # Input embedding (modality adapters) and head
 # ---------------------------------------------------------------------------
-def embed_inputs(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+def embed_inputs(params: dict, batch: dict, cfg: ArchConfig, layout=None) -> torch.Tensor:
     """batch → (B, S, d) residual stream input.
 
     vlm  : {'tokens': (B, S−N), 'patch_embeds': (B, N, frontend_dim)}
@@ -138,10 +141,14 @@ def embed_inputs(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
 
     Frontend inputs are rounded to bf16 first, as in the reference, then
     multiply the projection in its own dtype (the reference's bf16 × fp32
-    promotes to fp32)."""
+    promotes to fp32).  With a ``layout`` (``frontend_proj`` gathered over
+    its FSDP axes) the token embedding is vocab-parallel."""
     if cfg.frontend == "audio":
         return _project_frontend(params, batch["features"])
-    tok = params["embed"][batch["tokens"].long()]
+    if layout is None:
+        tok = params["embed"][batch["tokens"].long()]
+    else:
+        tok = _embed_sharded(params["embed"], batch["tokens"], cfg, layout)
     if cfg.frontend == "vision":
         return torch.cat([_project_frontend(params, batch["patch_embeds"]), tok], dim=1)
     return tok
@@ -171,66 +178,65 @@ def logits_at(params: dict, hidden: torch.Tensor, cfg: ArchConfig, layout=None) 
 # ---------------------------------------------------------------------------
 # The per-position steps
 # ---------------------------------------------------------------------------
-def _ffn_residual(bp: dict, x: torch.Tensor, cfg: ArchConfig, pos: int):
-    """x + FFN(norm(x)) → (x, MoE aux loss or None)."""
+def _ffn_residual(bp: dict, x: torch.Tensor, cfg: ArchConfig, pos: int, perf: PerfConfig = BASELINE,
+                  layout=None):
+    """x + FFN(norm(x)) → (x, MoE aux loss or None); with a ``layout``, the
+    MoE's sharded bodies at ``perf.moe_capacity_factor`` (the reference's
+    serving passes it; one device reads none) and the dense MLP's
+    tensor-parallel body."""
     if not cfg.d_ff:
         return x, None
     h = rms_norm(x, bp["ln2"], cfg.norm_eps)
     if cfg.layer_is_moe(pos):
-        f, aux = moe_mod.moe_block(bp["moe"], h, cfg)
+        f, aux = moe_mod.moe_block(bp["moe"], h, cfg, perf.moe_capacity_factor, layout=layout)
         return x + f, aux
-    return x + mlp_mod.mlp_block(bp["mlp"], h, cfg), None
+    return x + mlp_mod.mlp_block(bp["mlp"], h, cfg, layout), None
+
+
+def _checked(x: torch.Tensor, layout) -> torch.Tensor:
+    if layout is None:
+        return x
+    b, s, d = x.shape
+    return layout.check(x, ("batch", "act_seq", None), (b * layout.batch_size, s, d))
 
 
 def forward_block(bp: dict, x: torch.Tensor, cfg: ArchConfig, pos: int,
                   perf: PerfConfig = BASELINE, layout=None):
     """The block at position ``pos`` over a full sequence, with no cache
-    → (x, MoE aux loss or None); with a ``layout``, on local blocks (a
-    dense block: attention and the MLP)."""
+    → (x, MoE aux loss or None); with a ``layout``, on local blocks."""
     h = rms_norm(x, bp["ln1"], cfg.norm_eps)
-    if layout is not None:
-        x = x + attn.attention_block(bp["attn"], h, cfg, layout=layout)
-        x = x + mlp_mod.mlp_block(bp["mlp"], rms_norm(x, bp["ln2"], cfg.norm_eps), cfg, layout)
-        b, s, d = x.shape
-        return layout.check(x, ("batch", "act_seq", None), (b * layout.batch_size, s, d)), None
     if cfg.layer_kind(pos) == "attn":
-        mix = attn.attention_block(bp["attn"], h, cfg)
+        mix = attn.attention_block(bp["attn"], h, cfg, layout=layout)
     else:
-        mix = m2.mamba2_block(bp["ssm"], h, cfg, chunk=perf.ssd_chunk)
-    return _ffn_residual(bp, x + mix, cfg, pos)
+        mix = m2.mamba2_block(bp["ssm"], h, cfg, chunk=perf.ssd_chunk, layout=layout)
+    x, aux = _ffn_residual(bp, x + mix, cfg, pos, perf, layout)
+    return _checked(x, layout), aux
 
 
 def prefill_block(bp: dict, x: torch.Tensor, cfg: ArchConfig, pos: int, max_len: int,
-                  perf: PerfConfig = BASELINE, layout=None):
+                  perf: PerfConfig = BASELINE, layout=None, long_context: bool = False):
     """The block at position ``pos`` over a full sequence → (x, its decode
-    cache: a ``KVCache`` or an ``SSMCache``); with a serving ``layout``, a
-    dense block on local blocks (module docstring)."""
+    cache: a ``KVCache`` or an ``SSMCache``); with a serving ``layout``, on
+    local blocks (module docstring)."""
     h = rms_norm(x, bp["ln1"], cfg.norm_eps)
-    if layout is not None:
-        mix, cache = attn.prefill_cache(bp["attn"], h, cfg, max_len, layout)
-        x = x + mix
-        return x + mlp_mod.mlp_block(bp["mlp"], rms_norm(x, bp["ln2"], cfg.norm_eps), cfg, layout), cache
     if cfg.layer_kind(pos) == "attn":
-        mix, cache = attn.prefill_cache(bp["attn"], h, cfg, max_len)
+        mix, cache = attn.prefill_cache(bp["attn"], h, cfg, max_len, layout, long_context)
     else:
-        mix, cache = m2.mamba2_block(bp["ssm"], h, cfg, chunk=perf.ssd_chunk, return_state=True)
-    x, _ = _ffn_residual(bp, x + mix, cfg, pos)
+        mix, cache = m2.mamba2_block(bp["ssm"], h, cfg, chunk=perf.ssd_chunk, return_state=True, layout=layout)
+    x, _ = _ffn_residual(bp, x + mix, cfg, pos, perf, layout)
     return x, cache
 
 
-def decode_block(bp: dict, x: torch.Tensor, cache, cfg: ArchConfig, pos: int, layout=None):
+def decode_block(bp: dict, x: torch.Tensor, cache, cfg: ArchConfig, pos: int, layout=None,
+                 perf: PerfConfig = BASELINE, long_context: bool = False):
     """The block at position ``pos`` for one token (B, 1, d) → (x, cache);
-    with a serving ``layout``, a dense block on local blocks."""
+    with a serving ``layout``, on local blocks."""
     h = rms_norm(x, bp["ln1"], cfg.norm_eps)
-    if layout is not None:
-        mix, cache = attn.attention_decode(bp["attn"], h, cache, cfg, layout)
-        x = x + mix
-        return x + mlp_mod.mlp_block(bp["mlp"], rms_norm(x, bp["ln2"], cfg.norm_eps), cfg, layout), cache
     if cfg.layer_kind(pos) == "attn":
-        mix, cache = attn.attention_decode(bp["attn"], h, cache, cfg)
+        mix, cache = attn.attention_decode(bp["attn"], h, cache, cfg, layout, long_context)
     else:
-        mix, cache = m2.mamba2_decode(bp["ssm"], h, cache, cfg)
-    x, _ = _ffn_residual(bp, x + mix, cfg, pos)
+        mix, cache = m2.mamba2_decode(bp["ssm"], h, cache, cfg, layout)
+    x, _ = _ffn_residual(bp, x + mix, cfg, pos, perf, layout)
     return x, cache
 
 
@@ -377,20 +383,22 @@ class DecodeState(NamedTuple):
 
 def init_decode_state(
     cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16, device="cuda",
-    kv_heads: int | None = None,
+    layout=None, long_context: bool = False,
 ) -> DecodeState:
     """Empty caches for every period on ``device`` (the card by default;
     raises without one unless ``device="cpu"``), each its own tensors since
-    decode writes them in place; ``kv_heads`` as ``attention.init_cache``
-    takes it (a serving rank's, ``attention.cache_heads``)."""
+    decode writes them in place; with a serving ``layout``, the blocks a
+    rank of ``batch`` rows keeps after a decode step
+    (``attention.cache_block``, ``mamba2.init_ssm_cache``)."""
+    kv_heads, seq_blocks = attn.cache_block(cfg, layout, batch, max_len, long_context)
     caches = []
     for _ in range(num_periods(cfg)):
         period = {}
         for i in range(period_len(cfg)):
             if cfg.layer_kind(i) == "attn":
-                period[f"pos{i}"] = attn.init_cache(cfg, batch, max_len, dtype, device, kv_heads)
+                period[f"pos{i}"] = attn.init_cache(cfg, batch, max_len, dtype, device, kv_heads, seq_blocks)
             else:
-                period[f"pos{i}"] = m2.init_ssm_cache(cfg, batch, dtype, device)
+                period[f"pos{i}"] = m2.init_ssm_cache(cfg, batch, dtype, device, layout)
         caches.append(period)
     return DecodeState(caches=caches)
 
@@ -425,23 +433,19 @@ def prefill(
     layout=None,
 ) -> tuple[torch.Tensor, DecodeState]:
     """Full-context forward that materializes decode caches.
-    Returns (last-position logits (B, V), state).  ``long_context`` names
-    the reference's long-cache placement, which a mesh takes in a later
-    slice (``model_zoo.serving_layout`` raises); with a serving ``layout``
-    this rank's rows on local blocks (module docstring)."""
-    if layout is None:
-        x = embed_inputs(params, batch, cfg)
-    else:
+    Returns (last-position logits (B, V), state).  ``long_context`` is the
+    reference's long-cache placement (``long_cache_seq``), which only a
+    serving ``layout`` reads; with one, this rank's rows on local blocks
+    (module docstring)."""
+    if layout is not None:
         params = _serving_params(params, layout)
-        x = _embed_sharded(params["embed"], batch["tokens"], cfg, layout)
+    x = _checked(embed_inputs(params, batch, cfg, layout), layout)
     caches: list = []
     for pos, bp in _serving_blocks(params, cfg, layout):
         if pos == 0:
             caches.append({})
-        x, caches[-1][f"pos{pos}"] = prefill_block(bp, x, cfg, pos, max_len, perf, layout)
-        if layout is not None:
-            b, s, d = x.shape
-            x = layout.check(x, ("batch", "act_seq", None), (b * layout.batch_size, s, d))
+        x, caches[-1][f"pos{pos}"] = prefill_block(bp, x, cfg, pos, max_len, perf, layout, long_context)
+        x = _checked(x, layout)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = logits_at(params, x[:, -1:, :], cfg, layout)[:, 0]
     return logits, DecodeState(caches=caches)
@@ -469,7 +473,18 @@ def decode_step(
         if pos == 0:
             caches.append({})
         old = state.caches[layer // period_len(cfg)][f"pos{pos}"]
-        x, caches[-1][f"pos{pos}"] = decode_block(bp, x, old, cfg, pos, layout)
+        x, caches[-1][f"pos{pos}"] = decode_block(bp, x, old, cfg, pos, layout, perf, long_context)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = logits_at(params, x, cfg, layout)[:, 0]
     return logits, DecodeState(caches=caches)
+
+
+def encode(params: dict, batch: dict, cfg: ArchConfig, perf: PerfConfig = BASELINE, layout=None) -> torch.Tensor:
+    """The encoder-only forward → per-position logits (B, S, V) fp32; with a
+    serving ``layout``, this rank's rows on local blocks, each row's logits
+    whole."""
+    if layout is not None:
+        params = _serving_params(params, layout)
+    x = _checked(embed_inputs(params, batch, cfg, layout), layout)
+    hidden, _ = forward_hidden(params, x, cfg, perf, layout)
+    return logits_at(params, hidden, cfg, layout)

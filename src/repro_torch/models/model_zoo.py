@@ -7,14 +7,17 @@ over with :func:`params_from_numpy` and a checkpoint leaf both map 1:1.
 :func:`batch_spec` gives one dry-run cell's inputs as ``meta`` tensors
 (the reference's ``ShapeDtypeStruct`` stand-ins).
 
-**Serving on a mesh of ranks** (``mesh=`` of :func:`prefill_fn` and
-:func:`decode_fn`; the dense decoders): the parameters are this rank's
-blocks under :func:`param_pspecs` (:func:`shard_params`), the batch and the
-decode state this rank's rows (``launch.dryrun_lib.batch_pspecs``), under
-the rule table ``use_sharding`` installs (the defaults otherwise); the
-step runs on a :func:`serving_layout` (``models/decoder.py``).  The other
-families and the cache's two sequence-split flags raise, naming the later
-slice (ROADMAP).
+**Serving on a mesh of ranks** (``mesh=`` of :func:`prefill_fn`,
+:func:`decode_fn` and :func:`encode_fn`; every family): the parameters
+are this rank's blocks under :func:`param_pspecs` (:func:`shard_params`),
+the batch this rank's rows (``launch.dryrun_lib.batch_pspecs``), or the
+whole batch on every rank with ``replicated_batch`` (a batch that does
+not divide over (pod, data), as long_500k's one row), under the rule table
+``use_sharding`` installs (the defaults otherwise) with the two cache
+flags applied; the step runs on a :func:`serving_layout`
+(``models/decoder.py``) and its decode state is the rank's blocks
+(``decoder.init_decode_state``).  Training on a mesh still takes the
+dense decoders only (:func:`dense_decoder`).
 """
 from __future__ import annotations
 
@@ -133,26 +136,25 @@ def batch_spec(cfg: ArchConfig, shape: ShapeSpec) -> dict:
 
 def dense_decoder(cfg: ArchConfig) -> bool:
     """Whether ``cfg`` is of the dense decoder family, the one a mesh of
-    ranks trains and serves."""
+    ranks trains (mesh serving takes every family)."""
     return cfg.family == "dense" and cfg.frontend == "none" and not cfg.attn_every and not any(
         cfg.layer_is_moe(i) for i in range(cfg.num_layers))
 
 
-def serving_layout(cfg: ArchConfig, perf: PerfConfig, mesh, long_context: bool = False) -> Layout:
+def serving_layout(cfg: ArchConfig, perf: PerfConfig, mesh, replicated_batch: bool = False) -> Layout:
     """The ``Layout`` a serving step on a mesh of ranks runs on (module
-    docstring); raises for what waits for a later slice (ROADMAP Queue A)."""
-    if not dense_decoder(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: prefill and decode on a mesh of ranks take the dense decoder family; the "
-            "MoE, Mamba-2, hybrid and frontend families wait for mesh serving of the other "
-            "families (ROADMAP Queue A)")
-    if perf.shard_cache_seq_over_model or perf.shard_long_cache_over_model or long_context:
-        raise NotImplementedError(
-            "a KV cache split over its sequence (shard_cache_seq_over_model, "
-            "shard_long_cache_over_model, the long-context placement) needs the flash kernel's "
-            "log-sum-exp combined across ranks, which waits for a later slice (ROADMAP Queue A)")
-    return Layout(mesh, dict(current_rules()), paths(param_pspecs(cfg, mesh)),
-                  gathered=perf.gather_weights_once)
+    docstring): the installed rule table with the two cache flags applied
+    (``shard_cache_seq_over_model`` puts ``cache_seq`` on ``model``,
+    ``shard_long_cache_over_model`` puts ``long_cache_seq`` there, as
+    ``launch.dryrun_lib.perf_rules`` does), ``replicated_batch`` for a batch
+    every rank holds whole (one that does not divide over (pod, data))."""
+    rules = dict(current_rules())
+    if perf.shard_cache_seq_over_model:
+        rules["cache_seq"] = "model"
+    if perf.shard_long_cache_over_model:
+        rules["long_cache_seq"] = "model"
+    return Layout(mesh, rules, paths(param_pspecs(cfg, mesh)), gathered=perf.gather_weights_once,
+                  replicated_batch=replicated_batch)
 
 
 def loss_fn(
@@ -163,10 +165,10 @@ def loss_fn(
     return decoder.lm_loss(params, batch, cfg, perf, layout=layout)
 
 
-def _mesh_layout(cfg, perf, mesh, long_context: bool):
+def _mesh_layout(cfg, perf, mesh, replicated_batch: bool):
     if mesh is None or mesh.size == 1:
         return None
-    return serving_layout(cfg, perf, mesh, long_context)
+    return serving_layout(cfg, perf, mesh, replicated_batch)
 
 
 def prefill_fn(
@@ -177,10 +179,11 @@ def prefill_fn(
     perf: PerfConfig = BASELINE,
     long_context: bool = False,
     mesh=None,
+    replicated_batch: bool = False,
 ):
     """(last-position logits (B, V), decode state); on a ``mesh`` of ranks
     this rank's rows from its parameter blocks (module docstring)."""
-    layout = _mesh_layout(cfg, perf, mesh, long_context)
+    layout = _mesh_layout(cfg, perf, mesh, replicated_batch)
     return decoder.prefill(params, batch, cfg, max_len, perf, long_context, layout)
 
 
@@ -192,16 +195,17 @@ def decode_fn(
     perf: PerfConfig = BASELINE,
     long_context: bool = False,
     mesh=None,
+    replicated_batch: bool = False,
 ):
     """One decode step → (logits (B, V), state); on a ``mesh`` of ranks
     this rank's rows (module docstring)."""
-    layout = _mesh_layout(cfg, perf, mesh, long_context)
+    layout = _mesh_layout(cfg, perf, mesh, replicated_batch)
     return decoder.decode_step(params, state, token, cfg, perf, long_context, layout)
 
 
-def encode_fn(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+def encode_fn(params: dict, batch: dict, cfg: ArchConfig, perf: PerfConfig = BASELINE, mesh=None,
+              replicated_batch: bool = False) -> torch.Tensor:
     """Encoder-only forward → per-position logits (B, S, V) fp32 (hubert's
-    serving path)."""
-    x = decoder.embed_inputs(params, batch, cfg)
-    hidden, _ = decoder.forward_hidden(params, x, cfg)
-    return decoder.logits_at(params, hidden, cfg)
+    serving path); on a ``mesh`` of ranks this rank's rows (module
+    docstring)."""
+    return decoder.encode(params, batch, cfg, perf, _mesh_layout(cfg, perf, mesh, replicated_batch))

@@ -62,14 +62,22 @@ def uses_ep(cfg: ArchConfig) -> bool:
 
 
 def moe_specs(cfg: ArchConfig) -> dict:
-    """The reference's leaves and shapes: router (d, E), expert stacks
-    (E, d, f) and (E, f, d)."""
+    """The reference's leaves, shapes and storage: router (d, E), expert
+    stacks (E, d, f) and (E, f, d), E over ``model`` where the experts go
+    expert-parallel (:func:`uses_ep`), else ``d_ff`` over it."""
     d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    if uses_ep(cfg):
+        return {
+            "router": Spec((d, e), ("embed", None), scale=0.02),
+            "w_gate": Spec((e, d, f), ("expert", "expert_in", None)),
+            "w_up": Spec((e, d, f), ("expert", "expert_in", None)),
+            "w_down": Spec((e, f, d), ("expert", None, "expert_in")),
+        }
     return {
         "router": Spec((d, e), ("embed", None), scale=0.02),
-        "w_gate": Spec((e, d, f), ("expert", "expert_in", "mlp")),
-        "w_up": Spec((e, d, f), ("expert", "expert_in", "mlp")),
-        "w_down": Spec((e, f, d), ("expert", "mlp", "expert_in")),
+        "w_gate": Spec((e, d, f), (None, "expert_in", "mlp")),
+        "w_up": Spec((e, d, f), (None, "expert_in", "mlp")),
+        "w_down": Spec((e, f, d), (None, "mlp", "expert_in")),
     }
 
 
@@ -198,6 +206,7 @@ def moe_block(
     x: torch.Tensor,
     cfg: ArchConfig,
     capacity_factor: Optional[float] = None,
+    layout=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The MoE FFN.  x (B, S, d) → (y, aux).
 
@@ -210,7 +219,17 @@ def moe_block(
     On a mesh of ranks (installed by ``use_sharding``): the EP or f-TP body
     with GShard capacity ``capacity_factor`` (default the config's), every
     rank passing its blocks of ``x`` and ``params`` as :func:`moe_pspecs`
-    lays them out and getting its block of ``y``."""
+    lays them out and getting its block of ``y``.
+
+    With a serving ``layout`` (``models/decoder.py``): the same bodies on
+    the expert weights as the layout fetched them (gathered over their
+    FSDP axes already, so the bodies gather nothing), ``x`` this rank's
+    rows (whole over ``model``; the EP body takes its block of the
+    sequence where ``model`` divides it, as :func:`moe_pspecs` places it,
+    and the blocks of ``y`` are gathered back over ``model``); the aux
+    loss is this rank's own (serving discards it)."""
+    if layout is not None:
+        return _moe_serving(params, x, cfg, capacity_factor, layout)
     mesh = shd.current_mesh()
     if mesh is not None and mesh.size > 1:
         cf = capacity_factor if capacity_factor is not None else cfg.capacity_factor
@@ -239,11 +258,35 @@ def moe_block(
     return y.reshape(b, s, d).to(x.dtype), aux
 
 
+def _moe_serving(params, x, cfg: ArchConfig, capacity_factor, layout):
+    """:func:`moe_block` on a serving ``layout``."""
+    mesh = layout.mesh
+    cf = capacity_factor if capacity_factor is not None else cfg.capacity_factor
+    tp = _tp_axis(mesh)
+    n = mesh.shape[tp] if tp else 1
+    e, f = cfg.num_experts, cfg.d_ff
+    wg, wu, wd = params["w_gate"], params["w_up"], params["w_down"]
+    args = dict(cfg=cfg, cf=cf, dp=(), tp=tp, mesh=mesh, reduce_aux=False)
+    if _branch(cfg, mesh) == "ep":
+        if wg.shape[0] * n != e or wg.shape[2] != f:
+            raise ValueError(f"{cfg.name}: the expert-parallel body takes E / {n} whole experts a rank, got a "
+                             f"{tuple(wg.shape)} block")
+        s = x.shape[1]
+        if s % n:
+            return _moe_ep_body(x, params["router"], wg, wu, wd, **args)
+        y, aux = _moe_ep_body(x.chunk(n, 1)[mesh.index(tp)], params["router"], wg, wu, wd, **args)
+        return ranks.all_gather(y, tp, 1, mesh, tag="expert parallel"), aux
+    if wg.shape[0] != e or wg.shape[2] * n != f:
+        raise ValueError(f"{cfg.name}: the f-sharded body takes every expert with d_ff / {n} a rank, got a "
+                         f"{tuple(wg.shape)} block")
+    return _moe_ftp_body(x, params["router"], wg, wu, wd, **args)
+
+
 def _gather_fsdp(w: torch.Tensor, dp: tuple, dim: int, mesh) -> torch.Tensor:
     return ranks.all_gather(w, dp, dim, mesh) if dp else w
 
 
-def _moe_ep_body(x, router, wg, wu, wd, *, cfg, cf, dp, tp, mesh):
+def _moe_ep_body(x, router, wg, wu, wd, *, cfg, cf, dp, tp, mesh, reduce_aux=True):
     """Expert-parallel body (E % tp == 0).  Local shapes:
     x (B_l, S_l, d); wg/wu (E_l, d_l, f); wd (E_l, f, d_l)."""
     bl, sl, d = x.shape
@@ -261,11 +304,12 @@ def _moe_ep_body(x, router, wg, wu, wd, *, cfg, cf, dp, tp, mesh):
     # return slots to their source columns (the inverse exchange)
     yb = ranks.all_to_all(ye, tp, 1, 0, mesh)                          # (E, cap, d)
     y = _combine(yb, w, flat, slot, keep, t, k, x.dtype)
-    aux = ranks.pmean(aux, (tp,) + dp, mesh)
+    if reduce_aux:
+        aux = ranks.pmean(aux, (tp,) + dp, mesh)
     return y.reshape(bl, sl, d), aux
 
 
-def _moe_ftp_body(x, router, wg, wu, wd, *, cfg, cf, dp, tp, mesh):
+def _moe_ftp_body(x, router, wg, wu, wd, *, cfg, cf, dp, tp, mesh, reduce_aux=True):
     """f-sharded tensor-parallel body (E < tp; experts replicated on model,
     d_ff sharded, summed over model).  Local: x (B_l, S, d) — tokens are
     not sharded over model here; wg/wu (E, d_l, f_l); wd (E, f_l, d_l)."""
@@ -280,7 +324,8 @@ def _moe_ftp_body(x, router, wg, wu, wd, *, cfg, cf, dp, tp, mesh):
                      _gather_fsdp(wd, dp, 2, mesh))                    # partial over f
     ye = ranks.psum(ye, tp, mesh)
     y = _combine(ye, w, flat, slot, keep, t, k, x.dtype)
-    aux = ranks.pmean(aux, dp, mesh) if dp else aux
+    if reduce_aux and dp:
+        aux = ranks.pmean(aux, dp, mesh)
     return y.reshape(bl, sl, d), aux
 
 

@@ -147,8 +147,8 @@ def _mesh_train_step(cfg: ArchConfig, perf: PerfConfig, opt: AdamW, mesh) -> Tra
     if not zoo.dense_decoder(cfg):
         raise NotImplementedError(
             f"{cfg.name}: a train step on a mesh of ranks takes the dense decoder family; the MoE, "
-            "Mamba-2, hybrid and frontend families wait for mesh training of the other families "
-            "(ROADMAP Queue A)")
+            "Mamba-2, hybrid and frontend families wait for the training half of mesh training and "
+            "serving of the other families (ROADMAP Queue A; their serving runs on a mesh)")
     compress = perf.grad_compress_pod and "pod" in mesh.axis_names
     pspecs = zoo.param_pspecs(cfg, mesh)
     flat_specs = paths(pspecs)

@@ -4,9 +4,9 @@ and ``launch/dryrun.py``'s CLI) on the CPU.
 Every one of the 80 cells (10 archs × 4 shapes × the 16×16 and 2×16×16
 meshes) gets its status and reason: each cell at a cut depth (one period:
 the status and the reason do not depend on the depth), the skipped ones
-with the reference's reason word for word, the dense decoders' train,
-prefill and decode cells ``ok``, every other cell an ``error`` that names
-its ROADMAP item.  ``run_cells`` keeps its cache as the reference does,
+with the reference's reason word for word, every prefill and decode cell
+and the dense decoders' train cells ``ok``, the other families' train
+cells an ``error`` that names its ROADMAP item.  ``run_cells`` keeps its cache as the reference does,
 and the CLI writes no file unless given ``--out``.
 """
 import dataclasses
@@ -51,14 +51,14 @@ def test_every_cell_has_its_status_and_reason(cells, jconfigs):
         assert res.mesh == ("multi(2x16x16)" if multi else "single(16x16)")
         if not ok:
             assert (res.status, res.reason) == ("skipped", reason)
-        elif arch in DENSE:
+        elif arch in DENSE or shape != "train_4k":
             assert res.status == "ok", (arch, shape, multi, res.reason)
             assert res.reason == "" and res.roofline["chips"] == (512 if multi else 256)
         else:
             assert res.status == "error", (arch, shape, multi)
             assert res.reason.startswith("NotImplementedError: ") and "ROADMAP" in res.reason, res.reason
     counts = {st: sum(r.status == st for r in cells.values()) for st in ("ok", "skipped", "error")}
-    assert counts["ok"] == 24 and sum(counts.values()) == 80
+    assert counts == {"ok": 52, "skipped": 16, "error": 12}
 
 
 def test_a_cell_result_keeps_the_reference_fields(cells):
@@ -118,3 +118,33 @@ def test_cli_all_prints_every_cell_and_exits_one_on_an_error(tmp_path, monkeypat
     assert list(tmp_path.iterdir()) == []
     with pytest.raises(SystemExit):
         dryrun.main(["--arch", "yi-6b"])
+
+
+@pytest.mark.parametrize("multi", (False, True), ids=("single", "multi"))
+def test_dense_decode_cells_split_the_cache_over_model_under_the_flag(multi):
+    """``--perf '{"shard_cache_seq_over_model": true}'``: every dense
+    decoder's decode cell is ``ok``, and a rank's KV block holds its share
+    of the sequence (every KV head), as the reference's
+    ``P(None, batch, "model", None, None)`` places it."""
+    from repro_torch.configs import SHAPES_BY_NAME
+    from repro_torch.configs.perf import PerfConfig
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import model_zoo as zoo
+
+    perf = PerfConfig(shard_cache_seq_over_model=True)
+    shape = SHAPES_BY_NAME["decode_32k"]
+    mesh = make_production_mesh(multi_pod=multi)
+    for arch in DENSE:
+        cfg = get_config(arch)
+        cut = dataclasses.replace(cfg, num_layers=decoder.period_len(cfg))
+        res = dryrun_lib.lower_cell(arch, shape.name, multi_pod=multi, perf=perf, cfg=cut)
+        assert res.status == "ok", (arch, res.reason)
+        spec = dryrun_lib.batch_pspecs(cfg, shape, mesh, perf)["state"].caches["pos0"].k
+        assert spec[2] == "model", spec
+        rows = shape.global_batch // (32 if multi else 16)          # over (pod, data)
+        with shd.use_sharding(mesh, dryrun_lib.perf_rules(perf)):
+            layout = zoo.serving_layout(cut, perf, dryrun_lib.dry_mesh(mesh))
+            state = decoder.init_decode_state(cut, rows, shape.seq_len, device="meta", layout=layout)
+        assert tuple(state.caches[0]["pos0"].k.shape) == (rows, shape.seq_len // 16, cfg.num_kv_heads,
+                                                          cfg.head_dim), arch

@@ -1,9 +1,11 @@
 """The multi-rank runtime on the card, at a reduced size: four ranks on one
 card (gloo, collectives staged through host memory) for the sharded
 acceptance scan, the sharded ensemble, the MoE's expert-parallel and
-f-sharded bodies, ``compress_psum`` and a train step of the reduced qwen3
-on (data 2, model 2), each held to its single-device version on the card
-(and ``compress_psum`` to the CPU's ranks bit for bit).
+f-sharded bodies, ``compress_psum``, a train step of the reduced qwen3
+on (data 2, model 2), its sharded prefill and decode, and the reduced
+mamba2's and jamba's with the SSD kernel on each rank's heads, each held
+to its single-device version on the card (and ``compress_psum`` to the
+CPU's ranks bit for bit).
 
 These need a CUDA card and skip where there is none.  They import neither
 jax nor the JAX package, so they run on a card machine without them:
@@ -279,6 +281,60 @@ def _serve_ranks() -> list:
             outs.append(logits)
         launches = (pre, fa.launches - pre)
         ref_logits, ref_state = zoo.prefill_fn(whole, {"tokens": tokens}, cfg, 40)
+        ref = [ref_logits]
+        for _ in range(4):
+            ref_logits, ref_state = zoo.decode_fn(whole, ref_state, torch.argmax(ref_logits, -1).to(torch.int32), cfg)
+            ref.append(ref_logits)
+    lo = mesh.index("data") * rows.shape[0]
+    mine = [r[lo:lo + rows.shape[0]] for r in ref]
+    rec = {"err": max(float((a - w).abs().max()) / float(w.abs().max()) for a, w in zip(outs, mine)),
+           "same_tokens": all(bool(torch.equal(a.argmax(-1), w.argmax(-1))) for a, w in zip(outs, mine)),
+           "launches": launches}
+    everyone = [None] * ranks.world_size()
+    dist.all_gather_object(everyone, rec)
+    return everyone
+
+
+@pytest.mark.parametrize("arch", ("mamba2-370m", "jamba-1.5-large-398b"))
+def test_sharded_ssd_prefill_on_local_heads_equals_one_card(cuda, arch):
+    """The reduced Mamba-2 and hybrid served on (data 2, model 2) by four
+    ranks on the card, prompt 160 (two SSD chunks, the second ragged): the
+    SSD kernel on each rank's heads (a launch a Mamba-2 layer in the
+    prefill, none in decode), each rank's logits against one card's run."""
+    got = ranks.spawn(4, _ssd_serve_ranks, arch, device="cuda", timeout_s=300)
+    cfg = get_config(arch, reduced=True)
+    n_ssm = sum(cfg.layer_kind(i) == "ssm" for i in range(cfg.num_layers))
+    for rank in got:
+        assert rank["err"] <= 1e-5 and rank["same_tokens"], rank
+        assert rank["launches"] == (n_ssm, 0)
+
+
+def _ssd_serve_ranks(arch: str) -> list:
+    import torch.distributed as dist
+
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    dev = ranks.device()
+    cfg = get_config(arch, reduced=True)
+    perf = PerfConfig(moe_capacity_factor=cfg.num_experts / cfg.experts_per_token if cfg.num_experts else None)
+    mesh = make_rank_mesh((2, 2))
+    whole = zoo.init_params(cfg, torch.Generator(dev).manual_seed(5), torch.float32)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 160), generator=torch.Generator(dev).manual_seed(6), device=dev,
+                           dtype=torch.int32)
+    rows = ranks.shard(tokens, shd.P("data"), mesh)
+    with shd.use_sharding(mesh), torch.no_grad():
+        blocks = zoo.shard_params(whole, cfg, mesh)
+        ssd_ops.launches = 0
+        logits, state = zoo.prefill_fn(blocks, {"tokens": rows}, cfg, 164, perf, mesh=mesh)
+        pre = ssd_ops.launches
+        outs = [logits]
+        for _ in range(4):
+            logits, state = zoo.decode_fn(blocks, state, torch.argmax(logits, -1).to(torch.int32), cfg, perf,
+                                          mesh=mesh)
+            outs.append(logits)
+        launches = (pre, ssd_ops.launches - pre)
+    with torch.no_grad():                       # one card: no mesh installed, the MoE's own dispatch
+        ref_logits, ref_state = zoo.prefill_fn(whole, {"tokens": tokens}, cfg, 164)
         ref = [ref_logits]
         for _ in range(4):
             ref_logits, ref_state = zoo.decode_fn(whole, ref_state, torch.argmax(ref_logits, -1).to(torch.int32), cfg)

@@ -205,33 +205,47 @@ def test_gather_weights_once_serves_the_same_numbers(multi_rank):
     assert on["dry"]["weight gather"][0] < off["dry"]["weight gather"][0]
 
 
+FLAGS = ({}, {"shard_cache_seq_over_model": True}, {"shard_long_cache_over_model": True},
+         {"shard_cache_seq_over_model": True, "shard_long_cache_over_model": True})
+
+
 def test_decode_batch_pspecs_equal_the_reference(jref):
-    perf, jperf = PerfConfig(), jref["perf"].PerfConfig()
-    for multi_pod in (False, True):
-        mesh = make_production_mesh(multi_pod=multi_pod)
-        jmesh = jref["compat"].abstract_mesh(mesh.axis_sizes, mesh.axis_names)
-        for arch in list_archs():
-            cfg, jcfg = get_config(arch), jref["configs"].get_config(arch)
-            for shape in ("decode_32k", "long_500k"):
-                ours = dryrun_lib.batch_pspecs(cfg, SHAPES_BY_NAME[shape], mesh, perf)
-                theirs = jref["dryrun"].batch_pspecs(jcfg, jref["configs"].SHAPES_BY_NAME[shape], jmesh, jperf)
-                assert tuple(ours["token"]) == tuple(theirs["token"]), (arch, shape)
-                assert ours["state"].caches.keys() == theirs["state"].caches.keys()
-                for pos, spec in ours["state"].caches.items():
-                    want = theirs["state"].caches[pos]
-                    assert type(spec).__name__ == type(want).__name__
-                    for field in spec._fields:
-                        assert tuple(getattr(spec, field)) == tuple(getattr(want, field)), (arch, shape, pos, field)
-    for flag in ("shard_cache_seq_over_model", "shard_long_cache_over_model"):
-        with pytest.raises(NotImplementedError, match="log-sum-exp"):
-            dryrun_lib.batch_pspecs(get_config("qwen3-32b"), SHAPES_BY_NAME["decode_32k"], mesh,
-                                    PerfConfig(**{flag: True}))
+    seen_model = False
+    for flags in FLAGS:
+        perf, jperf = PerfConfig(**flags), jref["perf"].PerfConfig(**flags)
+        for multi_pod in (False, True):
+            mesh = make_production_mesh(multi_pod=multi_pod)
+            jmesh = jref["compat"].abstract_mesh(mesh.axis_sizes, mesh.axis_names)
+            for arch in list_archs():
+                cfg, jcfg = get_config(arch), jref["configs"].get_config(arch)
+                for shape in ("decode_32k", "long_500k"):
+                    ours = dryrun_lib.batch_pspecs(cfg, SHAPES_BY_NAME[shape], mesh, perf)
+                    theirs = jref["dryrun"].batch_pspecs(jcfg, jref["configs"].SHAPES_BY_NAME[shape], jmesh, jperf)
+                    assert tuple(ours["token"]) == tuple(theirs["token"]), (arch, shape)
+                    assert ours["state"].caches.keys() == theirs["state"].caches.keys()
+                    for pos, spec in ours["state"].caches.items():
+                        want = theirs["state"].caches[pos]
+                        assert type(spec).__name__ == type(want).__name__
+                        for field in spec._fields:
+                            got = tuple(getattr(spec, field))
+                            assert got == tuple(getattr(want, field)), (flags, arch, shape, pos, field)
+                            seen_model |= field == "k" and len(got) > 2 and got[2] == "model"
+    assert seen_model                           # the flag put some cache's sequence on model
 
 
-def test_serving_on_a_mesh_raises_for_the_other_families():
+OTHER_FAMILIES = ("mixtral-8x7b", "qwen3-moe-235b-a22b", "mamba2-370m", "jamba-1.5-large-398b",
+                  "llava-next-mistral-7b", "hubert-xlarge")
+
+
+@pytest.mark.parametrize("arch", OTHER_FAMILIES)
+def test_serving_on_a_mesh_raises_for_the_other_families(arch):
+    """Serving takes every family on a mesh; their mesh train step still
+    raises, naming the ROADMAP item."""
+    from repro_torch.training.train_loop import make_train_step
+
     mesh = make_production_mesh()
-    for arch in ("mixtral-8x7b", "mamba2-370m", "jamba-1.5-large-398b", "llava-next-mistral-7b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            zoo.serving_layout(get_config(arch), PerfConfig(), mesh)
-    with pytest.raises(NotImplementedError, match="log-sum-exp"):
-        zoo.serving_layout(get_config("qwen3-1.7b"), PerfConfig(), mesh, long_context=True)
+    cfg = get_config(arch)
+    layout = zoo.serving_layout(cfg, PerfConfig(shard_cache_seq_over_model=True), mesh)
+    assert layout.rules["cache_seq"] == "model" and layout.rules["long_cache_seq"] == "data"
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
+        make_train_step(cfg, PerfConfig(), mesh=mesh)

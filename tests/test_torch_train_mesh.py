@@ -389,8 +389,8 @@ def test_perf_rules_and_batch_pspecs_equal_the_reference(jref):
                     assert ours.keys() == theirs.keys()
                     for k in ours:
                         assert tuple(ours[k]) == tuple(theirs[k]), (multi_pod, compress, arch, shape, k)
-    # a decode cell's cache split over its sequence waits for a later slice
-    # (test_torch_serve_mesh.py holds the decode cells' specs otherwise)
-    with pytest.raises(NotImplementedError, match="log-sum-exp"):
-        dryrun_lib.batch_pspecs(get_config("qwen3-1.7b"), SHAPES_BY_NAME["decode_32k"], mesh,
-                                PerfConfig(shard_cache_seq_over_model=True))
+    # a decode cell's cache splits its sequence over model under the flag
+    # (test_torch_serve_mesh.py holds every decode cell's specs to the reference's)
+    state = dryrun_lib.batch_pspecs(get_config("qwen3-1.7b"), SHAPES_BY_NAME["decode_32k"], mesh,
+                                    PerfConfig(shard_cache_seq_over_model=True))["state"]
+    assert tuple(state.caches["pos0"].k) == (None, ("pod", "data"), "model", None, None)
