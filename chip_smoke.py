@@ -3197,7 +3197,8 @@ PLAN_BUDGET_SCALE = 0.05                    # and its budget: N × 4147 J × 0.0
 POLICY_STREAMS = 1 << 20                    # streams of the big rollout
 POLICY_GAPS = 512                           # MMPP gaps a stream
 POLICY_CPU_STRIDE = POLICY_STREAMS // 64    # the CPU reruns 64 of them
-POLICY_TIMED_STEPS = 10                     # BP and ES steps timed at TrainSettings()'s sizes
+POLICY_TIMED_STEPS = 5                      # BP and ES steps timed at TrainSettings()'s sizes (10 until
+                                            # the mesh phase's (j) needed the time)
 POLICY_DEFAULT_LIMIT_S = 120.0              # train at the default sizes only below this estimate
 
 
@@ -4275,7 +4276,8 @@ MESH_ELASTIC_LIMIT = 1e-4                   # the losses across the re-mesh (the
 MESH_ELASTIC_DIR = ROOT / "build" / "chip_smoke_elastic"
 MESH_SERVE_TOKENS = (4, 128)                # B, prompt of the sharded prefill (qwen3-1.7b at MESH_TRAIN_LAYERS
                                             # layers, fp32, on MESH_TRAIN_SHAPE)
-MESH_SERVE_NEW = 4                          # greedy decode steps after it (8 until phase (i) joined the spawn)
+MESH_SERVE_NEW = 2                          # greedy decode steps after it (8 until phase (i) joined the spawn, 4
+                                            # until (j) did)
 MESH_SERVE_LIMIT = 1e-4                     # each rank's logits against one card's, of the largest logit
 MESH_SERVE_SEED = 23
 
@@ -4724,11 +4726,12 @@ DROPLESS = "dropless"                       # a case's capacity factor E / k: an
 #: (i) case → (arch, reduced config only, (data, model), PerfConfig fields, config changes, B, prompt,
 #: greedy decode steps, long_context); at full width unless named reduced (all reduced in a CPU
 #: rehearsal); the qwen3 case takes (h)'s weights.  Every FSDP gather goes through the host
-#: (0.5-0.7 GB/s a rank), so the full-width cases run 2 / 1 / 2 decode steps, not 4 / 2 / 4,
+#: (0.5-0.7 GB/s a rank), so the full-width cases run 1 / 1 / 2 decode steps, not 4 / 2 / 4,
 #: to keep the script inside its 1,200 s on slower hosts (with 4 / 2 / 4 and 8 steps in (h) it
-#: took 1023.2 s of phases on an NVIDIA H100 80GB HBM3 host whose CPU ran 1.2x slower than others)
+#: took 1023.2 s of phases on an NVIDIA H100 80GB HBM3 host whose CPU ran 1.2x slower than others;
+#: 2 / 1 / 2 until (j) joined the spawn); the split cache's 128 + 2 positions must divide over model
 MESH_FAMILY_CASES = {
-    "mamba2-370m": (MAMBA, False, (2, 2), dict(gather_weights_once=True), {}, 4, MAMBA_PROMPT, 2, False),
+    "mamba2-370m": (MAMBA, False, (2, 2), dict(gather_weights_once=True), {}, 4, MAMBA_PROMPT, 1, False),
     "mixtral-8x7b, 1 layer": ("mixtral-8x7b", False, (2, 2), dict(moe_capacity_factor=DROPLESS),
                               dict(num_layers=1), 4, 128, 1, False),
     "qwen3-1.7b, cache split over model": (ARCH, False, (2, 2), dict(shard_cache_seq_over_model=True),
@@ -4752,9 +4755,14 @@ def _family_cfg(name: str, reduced: bool):
 
 def _family_perf(name: str, cfg):
     """The case's ``PerfConfig``, ``DROPLESS`` resolved for ``cfg``."""
+    return _resolved_perf(MESH_FAMILY_CASES[name][3], cfg)
+
+
+def _resolved_perf(fields: dict, cfg):
+    """``PerfConfig(**fields)`` with ``DROPLESS`` resolved for ``cfg``."""
     from repro_torch.configs.perf import PerfConfig
 
-    kw = dict(MESH_FAMILY_CASES[name][3])
+    kw = dict(fields)
     if kw.get("moe_capacity_factor") == DROPLESS:
         kw["moe_capacity_factor"] = cfg.num_experts / cfg.experts_per_token
     return PerfConfig(**kw)
@@ -4969,19 +4977,328 @@ def _mesh_families_report(card: str, got: dict, runtime: dict) -> tuple[int, int
     return n_fa, n_ssd
 
 
-def _mesh_train_ranks(reduced: bool, compress_inputs: tuple) -> dict:
+MESH_FAMILY_TRAIN_LIMIT = {"loss": 1e-6, "grad_norm": 1e-5, "grad": 1e-5, "aux": 1e-5}
+#: (j) case → (arch, reduced config only, (data, model), PerfConfig fields, config changes, B, S): one
+#: train step, fp32, on the ranks; at full width unless named reduced (all reduced in a CPU rehearsal).
+#: Depth is cut for time only: mamba2-370m to 4 of its 48 layers, mixtral-8x7b to 1 of 32 (its
+#: once-gathered experts and their gradient's reduce stage ~12 GB a rank through the host a step)
+MESH_FAMILY_TRAIN = {
+    "mamba2-370m, 4 layers": (MAMBA, False, (2, 2), dict(gather_weights_once=True), dict(num_layers=4), 8, 128),
+    "mixtral-8x7b, 1 layer": ("mixtral-8x7b", False, (2, 2),
+                              dict(moe_capacity_factor=DROPLESS, gather_weights_once=True), dict(num_layers=1),
+                              4, 128),
+    "jamba (reduced)": (JAMBA, True, (2, 2), dict(moe_capacity_factor=DROPLESS), {}, 4, 64),
+    "llava (reduced)": (LLAVA, True, (2, 2), {}, {}, 4, 32),
+    "hubert (reduced)": (HUBERT, True, (2, 2), {}, {}, 4, 32),
+    "qwen3-moe, 16 experts (reduced)": ("qwen3-moe-235b-a22b", True, (1, 4), dict(moe_capacity_factor=DROPLESS),
+                                        dict(num_experts=16, experts_per_token=2), 4, 32),
+}
+
+
+def _family_train_cfg(name: str, reduced: bool):
+    from repro_torch.configs import get_config
+
+    arch, small, _, _, changes, _, _ = MESH_FAMILY_TRAIN[name]
+    return dataclasses.replace(get_config(arch, reduced=reduced or small), **changes)
+
+
+def _family_train_batch(cfg, b: int, s: int) -> dict:
+    """One train batch as numpy from the case's seed, in the reference's
+    layout (``batch_for_arch``: a frontend's inputs, labels over every
+    position)."""
+    from repro_torch.data.pipeline import SyntheticLMStream, batch_for_arch
+
+    return batch_for_arch(cfg, SyntheticLMStream(max(cfg.vocab_size, 2), b, s, seed=MESH_FAMILY_SEED).next_batch())
+
+
+@contextlib.contextmanager
+def _capacity_moe(mesh_shape: dict):
+    """``moe_block`` on one device as the sharded bodies compute it on a
+    mesh of ``mesh_shape``: ``moe_capacity_reference`` (each token block's
+    routing, drops and aux, the aux their mean)."""
+    from repro_torch.models import moe as moe_mod
+
+    def moe_block(params, x, cfg, capacity_factor=None, layout=None):
+        cf = capacity_factor if capacity_factor is not None else cfg.capacity_factor
+        y, aux, _ = moe_mod.moe_capacity_reference(params, x, cfg, cf, mesh_shape)
+        return y, aux
+
+    with mock.patch.object(moe_mod, "moe_block", moe_block):
+        yield
+
+
+@contextlib.contextmanager
+def _aux_recorded(box: list):
+    """``decoder.forward_hidden`` appending each call's aux loss to ``box``."""
+    from repro_torch.models import decoder
+
+    real = decoder.forward_hidden
+
+    def forward_hidden(*args, **kw):
+        hidden, aux = real(*args, **kw)
+        box.append(aux.detach())
+        return hidden, aux
+
+    with mock.patch.object(decoder, "forward_hidden", forward_hidden):
+        yield
+
+
+def _card_peak(dev) -> float:
+    import torch
+
+    return torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else 0.0
+
+
+def _mesh_family_train_case(name: str, reduced: bool) -> dict:
+    """One case of (j) on every rank: one train step on the mesh, timed, its
+    flash and SSD launches and staged bytes by tag; the same step on
+    ``meta`` at this rank's coordinate (its staged bytes must equal those);
+    the MoE's aux (the ranks' terms summed over the batch axes); then each
+    rank in turn, its mesh state freed, holds its blocks to one card's step
+    (``_mesh_family_train_reference``)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.distributed import ranks
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.launch import dryrun_lib, roofline
+    from repro_torch.launch.mesh import make_rank_mesh
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.training.train_loop import make_train_step
+    from repro_torch.tree import paths
+
+    _, _, shape, fields, _, b, s = MESH_FAMILY_TRAIN[name]
+    dev = ranks.device()
+    cfg = _family_train_cfg(name, reduced)
+    perf = _resolved_perf(fields, cfg)
+    mesh = make_rank_mesh(shape)
+    raw = _family_train_batch(cfg, b, s)
+    moe = any(cfg.layer_is_moe(i) for i in range(cfg.num_layers))
+    _empty_rank_cache()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    with shd.use_sharding(mesh):
+        fns = make_train_step(cfg, perf, mesh=mesh)
+        state = fns.init_state(zoo.init_params(cfg, torch.Generator(dev).manual_seed(MESH_FAMILY_SEED), torch.float32))
+        specs = paths(fns.param_pspecs)
+        batch = shard_batch(raw, mesh)
+        ranks.barrier(mesh)
+        auxes: list = []
+        fa.launches = ssd_ops.launches = 0
+        ranks.stats = {}
+        _sync_rank()
+        t0 = time.perf_counter()
+        with _aux_recorded(auxes):
+            loss, grads = fns.loss_and_grads(state.params, batch)
+        _sync_rank()
+        t1 = time.perf_counter()
+        kept = {"grads": {k: g.clone() for k, g in grads.items()}}
+        state, m = fns.apply_grads(state, loss, grads, MESH_TRAIN_LR)
+        _sync_rank()
+        t2 = time.perf_counter()
+        stats, ranks.stats = ranks.stats, None
+        launches = {"flash": fa.launches, "ssd": ssd_ops.launches}
+        batch_axes = tuple(a for a in ("pod", "data") if mesh.shape.get(a, 1) > 1)
+        aux = float(ranks.psum(sum(auxes), batch_axes, mesh)) if moe else None
+        kept["params"] = {k: t.detach() for k, t in paths(state.params).items()}
+        kept["v"] = dict(paths(state.opt.v))
+        # on the host while the ranks take the card in turn (mixtral's one-card step peaks at 55 GB)
+        kept = {part: {k: t.cpu() for k, t in leaves.items()} for part, leaves in kept.items()}
+        got = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "aux": aux}
+        del state, grads, fns, batch
+        mesh_peak = _card_peak(dev)
+        # the same step on meta, on the descriptor mesh at this rank's coordinate
+        dry = dryrun_lib.dry_mesh(shd.Mesh(mesh.axis_sizes, mesh.axis_names), mesh.coordinate)
+    with shd.use_sharding(dry):
+        dry_fns = make_train_step(cfg, perf, mesh=dry)
+        dry_state = dry_fns.init_state(zoo.param_shapes(cfg, torch.float32))
+        meta = {k: torch.empty(tuple(v.shape), dtype=v.dtype, device="meta") for k, v in shard_batch(raw, mesh).items()}
+        _, cost = roofline.count(dry_fns.train_step, dry_state, meta, MESH_TRAIN_LR)
+    del dry_state
+    _empty_rank_cache()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t3 = time.perf_counter()
+    check_ = None
+    for r in range(ranks.world_size()):         # one rank at a time: each holds one card's model meanwhile
+        if r == ranks.rank():
+            check_ = _mesh_family_train_reference(cfg, perf, raw, got, kept, specs, mesh)
+            _empty_rank_cache()                 # the next rank takes the card
+        ranks.barrier(mesh)
+    ref_peak = _card_peak(dev)
+    del kept
+    _empty_rank_cache()
+    rec = {"launches": launches, "step_s": t2 - t0, "loss_and_grads_s": t1 - t0, "AdamW_s": t2 - t1,
+           "live": _tagged(stats), "seconds": _stats_sum(stats, "s"), "dry": _tagged(cost.staged),
+           "check": check_, "peaks": (mesh_peak, ref_peak), "reference_s": time.perf_counter() - t3}
+    everyone = [None] * ranks.world_size()
+    dist.all_gather_object(everyone, rec)
+    return {"ranks": everyone}
+
+
+def _mesh_family_train_reference(cfg, perf, raw, got, kept, specs, mesh) -> dict:
+    """This rank, alone on the card: one card's step on the same weights
+    and batch (through the kernels; each MoE layer through
+    ``moe_capacity_reference`` at the mesh's shape, so that its aux and
+    drops are the bodies'), and its gradients on the plain path in float64;
+    this rank's blocks (``kept``, on the host) held to the same blocks of
+    one card's, each gradient within ``MESH_FAMILY_TRAIN_LIMIT["grad"]`` of
+    its leaf's largest entry or twice one card's own distance from the
+    float64 run (the SSD kernel's fp32 rounds ~1e-4 of its output, PERF.md
+    §6, more than the plain path does), which runs only where a leaf is
+    past the first limit (its distance 0 otherwise)."""
+    import torch
+
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.distributed import ranks
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.training.train_loop import make_train_step
+    from repro_torch.tree import paths, tree_map
+
+    dev = ranks.device()
+    block = lambda k, t: ranks.shard(t, specs[k], mesh)  # noqa: E731
+    batch = shard_batch(raw, make_host_mesh(dev))
+
+    def params():
+        return zoo.init_params(cfg, torch.Generator(dev).manual_seed(MESH_FAMILY_SEED), torch.float32)
+
+    moe_shape = dict(zip(mesh.axis_names, mesh.axis_sizes))
+    t0 = time.perf_counter()
+    with _capacity_moe(moe_shape):
+        fns = make_train_step(cfg, perf)
+        state = fns.init_state(params())
+        auxes: list = []
+        with _aux_recorded(auxes):
+            loss, grads = fns.loss_and_grads(state.params, batch)
+        scale = {k: float(g.abs().max()) for k, g in grads.items()}
+        ref_grads = {k: block(k, g).clone() for k, g in grads.items()}
+        state, m = fns.apply_grads(state, loss, grads, MESH_TRAIN_LR)
+        del grads
+        ref = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+               "aux": float(sum(auxes)) if auxes and got["aux"] is not None else None}
+        ref_params = {k: block(k, t.detach()).clone() for k, t in paths(state.params).items()}
+        p_scale = {k: float(t.detach().abs().max()) for k, t in paths(state.params).items()}
+        del state, fns
+        _empty_rank_cache()
+        diffs = {k: float((kept["grads"][k].to(dev) - g).abs().max()) for k, g in ref_grads.items()}
+        dist64 = dict.fromkeys(ref_grads, 0.0)
+        if any(diffs[k] > MESH_FAMILY_TRAIN_LIMIT["grad"] * scale[k] for k in diffs):    # float64 decides
+            wide = tree_map(lambda t: t.double(), params())
+            with plain_path():
+                _, g64 = make_train_step(cfg, perf).loss_and_grads(wide, batch)
+            dist64 = {k: float((g.double() - block(k, g64[k])).abs().max()) / scale[k] for k, g in ref_grads.items()}
+            del wide, g64
+            _empty_rank_cache()
+    leaves = {}
+    for k, g in ref_grads.items():
+        decided = _decided(kept["v"][k].to(dev), diffs[k])
+        err = (kept["params"][k].to(dev) - ref_params[k]).abs()
+        leaves[k] = {"grad": diffs[k] / scale[k], "bound": max(MESH_FAMILY_TRAIN_LIMIT["grad"], 2 * dist64[k]),
+                     "dist64": dist64[k], "decided": float(torch.where(decided, err, 0).max()) / p_scale[k],
+                     "other": float(torch.where(decided, 0, err).max())}
+    rel = {key: abs(got[key] - ref[key]) / abs(ref[key]) for key in ("loss", "grad_norm")}
+    if ref["aux"] is not None:
+        rel["aux"] = abs(got["aux"] - ref["aux"]) / abs(ref["aux"])
+    return {"got": got, "ref": ref, "rel": rel, "leaves": leaves, "s": time.perf_counter() - t0}
+
+
+def _mesh_families_train(reduced: bool) -> dict:
+    """(j) every case of ``MESH_FAMILY_TRAIN`` in turn, with its seconds."""
+    out = {}
+    for name in MESH_FAMILY_TRAIN:
+        t0 = time.perf_counter()
+        out[name] = _mesh_family_train_case(name, reduced)
+        out[name]["s"] = time.perf_counter() - t0
+    return out
+
+
+def _mesh_families_train_report(card: str, got: dict, runtime: dict) -> tuple[int, int]:
+    """(j) each case's ranks against one card and against the dry mode's
+    count, launches exact → (its flash launches, its SSD launches, all
+    ranks)."""
+    n_fa = n_ssd = 0
+    lim = MESH_FAMILY_TRAIN_LIMIT
+    print(f"  (j) the train step on (data, model) meshes of the MoE, Mamba-2, hybrid and frontend families, fp32, "
+          f"one step, remat full, {runtime['ranks']} ranks on one card, each rank held to one card's step [{card}; "
+          f"one card: the runtime, not scale-out]")
+    for name, case in got.items():
+        _, _, shape, fields, _, b, s = MESH_FAMILY_TRAIN[name]
+        cfg = _family_train_cfg(name, MOE_MESH_REDUCED)
+        n_attn, n_ssm = _family_layers(cfg)
+        on_card = DEV == "cuda"
+        want = {"flash": 2 * n_attn if on_card else 0, "ssd": 2 * n_ssm if on_card else 0}
+        changed = {k: v for k, v in dataclasses.asdict(_resolved_perf(fields, cfg)).items() if k in fields}
+        print(f"    {name}: {cfg.name}, {cfg.num_layers} layers, (data {shape[0]}, model {shape[1]}), B {b}, S {s}, "
+              f"{changed or 'baseline'}; {case['s']:.1f} s")
+        for r, rank in enumerate(case["ranks"]):
+            live, dry, chk = rank["live"], rank["dry"], rank["check"]
+            staged = sum(v[1] for v in live.values())
+            rate = staged / rank["seconds"] / 1e9 if rank["seconds"] else 0.0
+            leaves = chk["leaves"]
+            worst_k = max(leaves, key=lambda k: leaves[k]["grad"] / leaves[k]["bound"])
+            worst = leaves[worst_k]
+            decided = max(v["decided"] for v in leaves.values())
+            other = max(v["other"] for v in leaves.values())
+            aux = (f"; aux {chk['got']['aux']:.8g} against moe_capacity_reference's mean of the blocks "
+                   f"{chk['ref']['aux']:.8g} ({chk['rel']['aux']:.3g}, limit {lim['aux']})"
+                   if "aux" in chk["rel"] else "")
+            print(f"      rank {r}: step {rank['step_s']:.3f} s (loss and gradients {rank['loss_and_grads_s']:.3f}, "
+                  f"AdamW {rank['AdamW_s']:.3f}); staged {staged / 1e9:.4g} GB through the host in "
+                  f"{rank['seconds']:.3f} s ({rate:.2f} GB/s; {live}); the dry mode's count equal: {dry == live}; "
+                  f"launches {rank['launches']} (expected {want}); card memory peak {rank['peaks'][0]:.2f} GB in the "
+                  f"mesh step, {rank['peaks'][1]:.2f} GB in the one-card references; one card's step "
+                  f"{chk['s']:.1f} s")
+            print(f"        loss {chk['got']['loss']:.8g} against one card {chk['ref']['loss']:.8g} "
+                  f"({chk['rel']['loss']:.3g}, limit {lim['loss']}), grad norm {chk['rel']['grad_norm']:.3g} (limit "
+                  f"{lim['grad_norm']}){aux}; worst gradient {worst_k} {worst['grad']:.3g} of its largest entry "
+                  f"(limit {worst['bound']:.3g} = max({lim['grad']}, twice one card's distance from the plain path "
+                  f"in float64 {worst['dist64']:.3g}, 0 where not run)); parameters after the step {decided:.3g} "
+                  f"of a leaf's largest entry where decided (limit {MESH_UPDATE_REL}), {other:.3g} elsewhere (limit "
+                  f"{2 * MESH_TRAIN_LR:g})")
+            check(all(math.isfinite(chk["got"][k]) for k in ("loss", "grad_norm"))
+                  and chk["rel"]["loss"] <= lim["loss"] and chk["rel"]["grad_norm"] <= lim["grad_norm"]
+                  and chk["rel"].get("aux", 0.0) <= lim["aux"],
+                  f"(j) {name}, rank {r}: the mesh step departs from one card's ({chk['rel']})")
+            check(all(v["grad"] <= v["bound"] for v in leaves.values()),
+                  f"(j) {name}, rank {r}: the gradient of {worst_k} is {worst['grad']:.3g} from one card's")
+            check(decided <= MESH_UPDATE_REL and other <= 2 * MESH_TRAIN_LR,
+                  f"(j) {name}, rank {r}: the parameters after the step: {decided:.3g}, {other:.3g}")
+            check(rank["launches"] == want, f"(j) {name}, rank {r}: launches {rank['launches']}, not {want}")
+            check(dry == live, f"(j) {name}, rank {r}: the dry mode counts {dry}, the run staged {live}")
+            n_fa += rank["launches"]["flash"]
+            n_ssd += rank["launches"]["ssd"]
+    return n_fa, n_ssd
+
+
+def _mesh_train_ranks(reduced: bool, compress_inputs: tuple, timeline: dict | None = None,
+                      t0: float | None = None) -> dict:
     """The train step's share of the phase's spawn: (e), (f), (g), with
-    the flash launches a rank of each; then the sharded serving step (h)
-    and the other families' (i)."""
+    the flash launches a rank of each; then the sharded serving step (h),
+    the other families' (i) and their train step (j); ``timeline`` takes
+    each one's end, in seconds from ``t0`` (this call's start by
+    default)."""
     from repro_torch.kernels.flash_attention import ops as fa
 
+    timeline = {} if timeline is None else timeline
+    t0 = time.perf_counter() if t0 is None else t0
     out = {"train": _mesh_train_case(reduced)}
+    timeline["(e)"] = time.perf_counter() - t0
     fa.launches = 0
     out["compress_train"] = _mesh_compress_train(*compress_inputs)
     out["elastic"] = _mesh_elastic()
     out["other_launches"] = fa.launches
+    timeline["(f), (g)"] = time.perf_counter() - t0
     out["serve"] = _mesh_serve_case(reduced)
+    timeline["(h)"] = time.perf_counter() - t0
     out["families"] = _mesh_families(reduced)
+    timeline["(i)"] = time.perf_counter() - t0
+    out["family_train"] = _mesh_families_train(reduced)
+    timeline["(j)"] = time.perf_counter() - t0
+    out["timeline"] = {k: round(v, 1) for k, v in timeline.items()}
     return out
 
 
@@ -4997,7 +5314,9 @@ def _mesh_ranks(ens_args: tuple, archs, reduced: bool, train_reduced: bool, comp
     from repro_torch.distributed import ranks
 
     dev = ranks.device()
+    t0 = time.perf_counter()
     out = {"ensemble": _ensemble_case(*ens_args), "runtime": ranks.info()}
+    out["timeline"] = {"ensemble": time.perf_counter() - t0}
     if dev.type == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -5007,7 +5326,8 @@ def _mesh_ranks(ens_args: tuple, archs, reduced: bool, train_reduced: bool, comp
                                    torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else 0.0))
     out["moe"]["peaks"] = peaks
     out["compress"] = _compress_case()
-    out.update(_mesh_train_ranks(train_reduced, compress_inputs))
+    out["timeline"]["MoE layers, compress_psum"] = time.perf_counter() - t0
+    out.update(_mesh_train_ranks(train_reduced, compress_inputs, out["timeline"], t0))
     return out
 
 
@@ -5301,7 +5621,7 @@ def _mesh_serve_report(card: str, got: dict, runtime: dict) -> tuple[int, dict]:
     return sum(sum(rank["launches"]) for rank in per), {"ranks": per, "cfg": cfg}
 
 
-def mesh_phase(card: str, meanwhile: tuple = ()) -> tuple[int, int, int, dict, Any]:
+def mesh_phase(card: str, meanwhile: tuple = ()) -> tuple[int, int, int, int, dict, list]:
     """The multi-rank runtime on one card: the sharded acceptance scan
     through ``launch.fleet``; then one spawn of four ranks for the sharded
     ensemble, the MoE's two sharded bodies at full width,
@@ -5310,11 +5630,13 @@ def mesh_phase(card: str, meanwhile: tuple = ()) -> tuple[int, int, int, dict, A
     computes the MoE layers' single-card references and runs
     ``compress_psum`` and the cross-pod step on CPU ranks; each sharded
     result held to its single-device version; then the sharded prefill
-    and decode (h) and the other families' serving (i).  Beside them a
-    process of its own calls ``meanwhile`` (``(fn, *args)``: the roofline
-    phase's counts on ``meta``, no card) → (the train step's flash
-    launches, the serving steps', their SSD launches, what the roofline
-    phase needs of the sharded prefill, what ``meanwhile`` returned)."""
+    and decode (h), the other families' serving (i) and their train step
+    (j).  Beside them a process a task calls each of ``meanwhile``
+    (``(fn, *args)`` each: the roofline phase's counts on ``meta``, no
+    card) → (the train steps' flash launches, the serving steps', the
+    serving steps' SSD launches, the train step's, what the roofline phase
+    needs of the sharded prefill, what each task of ``meanwhile``
+    returned)."""
     import threading
     from concurrent.futures import ProcessPoolExecutor
 
@@ -5334,27 +5656,30 @@ def mesh_phase(card: str, meanwhile: tuple = ()) -> tuple[int, int, int, dict, A
                                      MOE_MESH_ARCHS, MOE_MESH_REDUCED, MOE_MESH_REDUCED, compress_inputs, device=DEV)
         except BaseException as e:              # re-raised below, once this process's share is done
             box["error"] = e
+        box["s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     thread = threading.Thread(target=run_ranks)
     thread.start()
-    with ProcessPoolExecutor(1, mp_context=ranks.process_context()) as pool:
-        counting = pool.submit(_clocked, *meanwhile) if meanwhile else None
+    with ProcessPoolExecutor(max(1, len(meanwhile)), mp_context=ranks.process_context()) as pool:
+        counting = [pool.submit(_clocked, *task) for task in meanwhile]
         refs = _moe_references()
         cpu_compress = ranks.spawn(2, _compress_case, device="cpu")
         cpu_crosspod = ranks.spawn(math.prod(MESH_COMPRESS_SHAPE), _mesh_compress_train, *compress_inputs,
                                    device="cpu")
         s_here = time.perf_counter() - t0
-        extra, s_extra = counting.result() if counting else (None, 0.0)
+        extras = [c.result() for c in counting]
     thread.join()
     if "error" in box:
         raise box["error"]
     got = box["got"]
     rt = got["runtime"]
     print(f"  the phase's ranks: {rt['ranks']} ({rt['ranks_per_card']} a card, {rt['backend']} staged on the "
-          f"{rt['staged']}), spawned in {rt['spawn_s']:.2f} s, done in {time.perf_counter() - t0:.1f} s; "
-          f"meanwhile here the single-card MoE references and the CPU's compress_psum and cross-pod step "
-          f"({s_here:.1f} s), and in a process beside them the roofline phase's counts on meta ({s_extra:.1f} s)")
+          f"{rt['staged']}), spawned in {rt['spawn_s']:.2f} s, done in {box['s']:.1f} s (rank 0's parts, s from "
+          f"the spawn: {got['timeline']}); meanwhile here the single-card MoE references and the CPU's "
+          f"compress_psum and cross-pod step ({s_here:.1f} s), and in {len(extras)} processes beside them the "
+          f"roofline phase's counts on meta ({[round(s, 1) for _, s in extras]} s); the phase's spawn and counts "
+          f"done in {time.perf_counter() - t0:.1f} s")
     _mesh_ensemble(card, got["ensemble"], rt)
     _mesh_moe(card, got["moe"], rt, refs)
     _mesh_compress(card, got["compress"], cpu_compress)
@@ -5364,22 +5689,32 @@ def mesh_phase(card: str, meanwhile: tuple = ()) -> tuple[int, int, int, dict, A
     print(f"  flash launches of the compressed and elastic runs, rank 0: {got['other_launches']}")
     serve_launches, serve = _mesh_serve_report(card, got, rt)
     family_fa, family_ssd = _mesh_families_report(card, got["families"], rt)
-    return launches, serve_launches + family_fa, family_ssd, serve, extra
+    train_fa, train_ssd = _mesh_families_train_report(card, got["family_train"], rt)
+    return launches + train_fa, serve_launches + family_fa, family_ssd, train_ssd, serve, [r for r, _ in extras]
 
 
 DENSE_DECODERS = ("qwen3-1.7b", "yi-6b", "internlm2-20b", "qwen3-32b")
-DRYRUN_OUT = ROOT / "build" / "chip_smoke_dryrun.json"
+DRYRUN_OUT = ROOT / "build" / "chip_smoke_dryrun_{}.json"
 
 
-def _dryrun_cli() -> dict:
-    """``python -m repro_torch.launch.dryrun --all --mesh both`` in this
+def _dryrun_cli(mesh: str) -> dict:
+    """``python -m repro_torch.launch.dryrun --all --mesh <mesh>`` in this
     process, on ``meta`` → its cells, seconds and exit code."""
     from repro_torch.launch import dryrun
 
-    DRYRUN_OUT.unlink(missing_ok=True)
+    out = Path(str(DRYRUN_OUT).format(mesh))
+    out.unlink(missing_ok=True)
     t0 = time.perf_counter()
-    rc = dryrun.main(["--all", "--mesh", "both", "--out", str(DRYRUN_OUT)])
-    return {"got": json.loads(DRYRUN_OUT.read_text()), "s": time.perf_counter() - t0, "rc": rc}
+    rc = dryrun.main(["--all", "--mesh", mesh, "--out", str(out)])
+    return {"got": json.loads(out.read_text()), "s": time.perf_counter() - t0, "rc": rc}
+
+
+def _dryrun_merged(parts) -> dict:
+    """The dry run's halves (``_dryrun_cli``'s, run side by side) as one
+    ``--mesh both`` run: every cell, the longer half's seconds, the worse
+    exit code."""
+    return {"got": {k: v for part in parts for k, v in part["got"].items()},
+            "s": max(part["s"] for part in parts), "rc": max(part["rc"] for part in parts)}
 
 
 def _roofline_line(label: str, terms, measured_s: float, card: str) -> float:
@@ -5411,8 +5746,9 @@ def roofline_counts(train_step_s: dict, served: dict) -> dict:
     of its own while its ranks work: (b)'s cells at a 1×1 mesh
     (``dryrun_lib.lower_cell``; ``train_step_s``: ``launch.train``'s step
     by arch) and (c) ``python -m repro_torch.launch.dryrun --all --mesh
-    both`` → each cell's (label, roofline, measured seconds, counting
-    seconds) and the dry run."""
+    single`` (``--mesh multi`` counts in another process beside it) → each
+    cell's (label, roofline, measured seconds, counting seconds) and the
+    dry run's half."""
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.distributed.sharding import Mesh
     from repro_torch.launch import dryrun_lib
@@ -5434,7 +5770,7 @@ def roofline_counts(train_step_s: dict, served: dict) -> dict:
         res = dryrun_lib.lower_cell(arch, shape.name, mesh=one, shape=shape)
         check(res.status == "ok", f"{label}: {res.status} {res.reason}")
         counted.append((label, res.roofline, measured, time.perf_counter() - t0))
-    return {"cells": counted, "dryrun": _dryrun_cli()}
+    return {"cells": counted, "dryrun": _dryrun_cli("single")}
 
 
 def roofline_phase(card: str, counted: dict, mesh_serve: dict) -> dict:
@@ -5448,9 +5784,8 @@ def roofline_phase(card: str, counted: dict, mesh_serve: dict) -> dict:
     the ranks sharing the card, its collectives at the gloo rate that rank
     measured): bound / time at most 1 on the card's own ceilings; (c)
     ``python -m repro_torch.launch.dryrun --all --mesh both``: every
-    prefill and decode cell and the dense decoders' train cells ``ok`` on
-    both meshes, the other families' train cells failing as data that
-    names its ROADMAP item, the rest skipped → the ratios."""
+    prefill and decode cell and every family's train cells ``ok`` on both
+    meshes, the rest skipped → the ratios."""
     from repro_torch.launch import roofline as rf
 
     ratios = {}
@@ -5481,9 +5816,8 @@ def roofline_phase(card: str, counted: dict, mesh_serve: dict) -> dict:
     trains = [k for k in got if k.split("|")[1] == "train_4k" and k.split("|")[0] not in DENSE_DECODERS]
     errors = [v["reason"] for v in got.values() if v["status"] == "error"]
     print(f"  launch.dryrun --all --mesh both: {len(got)} cells, {count['ok']} ok, {count['skipped']} skipped, "
-          f"{count['error']} error (each naming its ROADMAP item), {secs:.1f} s on meta during the mesh phase "
-          f"(exit {rc})")
-    for k in dense + [k for k in served if k not in dense]:
+          f"{count['error']} error, {secs:.1f} s on meta during the mesh phase (exit {rc})")
+    for k in dense + trains + [k for k in served if k not in dense]:
         v = got[k]
         if v["status"] == "ok":
             r = v["roofline"]
@@ -5495,10 +5829,10 @@ def roofline_phase(card: str, counted: dict, mesh_serve: dict) -> dict:
           f"dense cells not ok: {[k for k in dense if status[k] != 'ok']}")
     check(len(served) == 44 and all(status[k] == "ok" for k in served),
           f"prefill and decode cells not ok: {[k for k in served if status[k] != 'ok']}")
-    check(count == {"ok": 52, "skipped": 16, "error": 12} and all(status[k] == "error" for k in trains),
-          f"the dry run's statuses {count}: the errors must be the other families' train cells")
-    check(all("ROADMAP" in reason for reason in errors), "a dry-run error names no ROADMAP item")
-    check(rc == (1 if errors else 0), f"launch.dryrun exited {rc}")
+    check(len(trains) == 12 and all(status[k] == "ok" for k in trains),
+          f"the other families' train cells not ok: {[k for k in trains if status[k] != 'ok']}")
+    check(count == {"ok": 64, "skipped": 16, "error": 0}, f"the dry run's statuses {count}, errors {errors}")
+    check(rc == 0, f"launch.dryrun exited {rc}")
     return ratios
 
 
@@ -5649,15 +5983,20 @@ def main() -> None:
 
     with timed_phase("mesh", seconds):
         train_step_s = {arch: sum(train_report[arch]["step_split_s"].values()) for arch in (ARCH, MAMBA)}
-        n_fa, n_serve, n_ssd, mesh_serve, counted = mesh_phase(card, (roofline_counts, train_step_s, served))
+        # the dry run's two meshes count side by side (one process each), the (b) cells beside the first
+        n_fa, n_serve, n_ssd, n_ssd_train, mesh_serve, (counted, multi) = mesh_phase(
+            card, ((roofline_counts, train_step_s, served), (_dryrun_cli, "multi")))
+        counted["dryrun"] = _dryrun_merged([counted["dryrun"], multi])
         fa_entry["launches"] += n_fa + n_serve
         fa_entry["mesh_train_launches"] = n_fa
         fa_entry["mesh_serve_launches"] = n_serve
-        ssd_entry["launches"] += n_ssd
+        ssd_entry["launches"] += n_ssd + n_ssd_train
         ssd_entry["mesh_serve_launches"] = n_ssd
+        ssd_entry["mesh_train_launches"] = n_ssd_train
         check(n_fa > 0, "the flash kernel was never launched on the mesh train step's path")
         check(n_serve > 0, "the flash kernel was never launched on the sharded prefill's path")
         check(n_ssd > 0, "the SSD kernel was never launched on the sharded Mamba-2 prefill's path")
+        check(n_ssd_train > 0, "the SSD kernel was never launched on the sharded Mamba-2 train step's path")
 
     with timed_phase("roofline", seconds):
         roofline_phase(card, counted, mesh_serve)

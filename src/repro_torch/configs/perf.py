@@ -4,10 +4,13 @@ Defaults are the reference's baseline.  The training levers act here:
 ``num_microbatches``, ``remat`` (``full | dots | none``),
 ``optimizer_moment_dtype``, ``loss_chunk`` and ``ssd_chunk`` (also read by
 the single-device prefill of the Mamba-2 layers).  The train step on a mesh
-of ranks (``training/train_loop.py``) reads ``gather_weights_once``
-(gather the FSDP blocks once a step, not at each use) and
-``grad_compress_pod`` (the compressed cross-pod branch, with
-``launch.dryrun_lib.perf_rules``); on one device both do nothing.  The
+of ranks (``training/train_loop.py``, every family) reads
+``gather_weights_once`` (gather the FSDP blocks once a step, not at each
+use), ``grad_compress_pod`` (the compressed cross-pod branch, with
+``launch.dryrun_lib.perf_rules``) and ``moe_capacity_factor`` (the MoE's
+sharded bodies, as the reference's ``forward_block`` passes it to
+``moe_block``; the config's factor when unset); on one device the first
+two do nothing and the dropless dispatch reads no capacity.  The
 serving step on a mesh of ranks (``model_zoo.prefill_fn`` / ``decode_fn``
 / ``encode_fn`` with ``mesh=``, every family) reads
 ``gather_weights_once`` (every block gathered once a call),

@@ -14,15 +14,17 @@ mesh axis (or several, major to minor), and :func:`psum_scatter` is
 ``lax.psum_scatter``.
 
 **Autograd.**  The collectives above move values only.  A train step on
-local blocks needs three that autograd differentiates, each the transpose
+local blocks needs four that autograd differentiates, each the transpose
 of the other's forward: :func:`grad_psum` (identity forward, ``psum`` of
 the gradient backward: where a replicated tensor enters a region whose
 ranks each add a part of its gradient), :func:`value_psum` (``psum``
 forward, identity backward: where the ranks' parts of a value are summed
-into one that every rank then uses alike) and :func:`gather` (an
+into one that every rank then uses alike), :func:`gather` (an
 all-gather forward, :func:`psum_scatter` of the gradient backward: FSDP's
-weight gather).  Under ``torch.utils.checkpoint`` the recomputed forward
-runs them again, in the same order on every rank.
+weight gather) and :func:`exchange` (an all-to-all forward, the inverse
+all-to-all of the gradient backward: the MoE's expert-parallel
+dispatch).  Under ``torch.utils.checkpoint`` the recomputed forward runs
+them again, in the same order on every rank.
 
 **Backend.**  Gloo, with a ``FileStore`` rendezvous in a fresh temporary
 directory (never a fixed port, so two spawns at once do not collide) and a
@@ -87,6 +89,7 @@ __all__ = [
     "all_to_all",
     "barrier",
     "device",
+    "exchange",
     "gather",
     "grad_psum",
     "info",
@@ -582,6 +585,18 @@ class _Gather(torch.autograd.Function):
         return g, None, None, None, None, None
 
 
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, split_dim, concat_dim, mesh, tag):
+        ctx.args = axis, split_dim, concat_dim, mesh, tag
+        return all_to_all(x, axis, split_dim, concat_dim, mesh, tag=tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, split_dim, concat_dim, mesh, tag = ctx.args
+        return all_to_all(g, axis, concat_dim, split_dim, mesh, tag=tag), None, None, None, None, None
+
+
 def _live(axes: Axes, mesh) -> tuple:
     return tuple(a for a in _axes(axes) if mesh.shape[a] > 1)
 
@@ -612,6 +627,17 @@ def gather(x: torch.Tensor, axes: Axes, dim: int = 0, mesh=None, *,
     mesh = _mesh(mesh)
     axes = _live(axes, mesh)
     return _Gather.apply(x, axes, dim, mesh, tuple(tags), reduce) if axes else x
+
+
+def exchange(x: torch.Tensor, axis: str, split_dim: int, concat_dim: int, mesh=None, *,
+             tag: str = "all_to_all") -> torch.Tensor:
+    """:func:`all_to_all` forward; backward, the inverse exchange of the
+    gradient (``split_dim`` and ``concat_dim`` swapped, the same axis and
+    tag): each block's gradient goes back to the member that sent it."""
+    mesh = _mesh(mesh)
+    if mesh.shape[axis] == 1:
+        return x
+    return _Exchange.apply(x, axis, split_dim, concat_dim, mesh, tag)
 
 
 # ---------------------------------------------------------------------------

@@ -332,13 +332,17 @@ class Layout:
     Each rank's loss is its rows' share of the global mean, so the step's
     gradient is the sum of the ranks' over ``batch_axes`` (the axes the
     batch rows are split over): every leaf's gradient is summed over those
-    axes, inside :meth:`fetch`'s backward or in :meth:`reduce_all`."""
+    axes, inside :meth:`fetch`'s backward or in :meth:`reduce_all`.  A
+    train step's layout says so (``training``), for the one term whose
+    share a serving step does not need: the MoE's aux loss
+    (``models/moe.py``)."""
 
     mesh: Mesh
     rules: Rules
     pspecs: dict                 # {tree path: PartitionSpec of the stored block}
     gathered: bool = False
     replicated_batch: bool = False   # every rank holds the whole batch (a serving step's)
+    training: bool = False           # a train step's: the MoE's aux loss is this rank's share of the blocks' mean
 
     def __post_init__(self):
         for path, spec in self.pspecs.items():

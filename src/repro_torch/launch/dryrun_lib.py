@@ -8,9 +8,10 @@ blocks the rank at coordinate 0 of the production mesh would hold, the
 batch and the decode state its rows (the whole batch where it does not
 divide over (pod, data), as long_500k's one row), the collectives the dry mode of
 ``distributed/ranks.py``, and ``launch/roofline.py`` counts its FLOPs, HBM
-bytes and collective bytes.  A cell the port cannot place yet fails as
-data (status ``error``, its message naming the ROADMAP item), as the
-reference records a failed lowering.
+bytes and collective bytes.  A cell whose step fails to run there fails
+as data (status ``error`` and the exception's message), as the reference
+records a failed lowering; every cell of every family is ``ok`` or, where
+its config does not support the shape, ``skipped``.
 
 :func:`perf_rules` is the rule table a ``PerfConfig`` asks for, and
 :func:`batch_pspecs` the input tree's PartitionSpecs of one cell; both are

@@ -22,18 +22,22 @@ the counterpart of ``checkpoint_dots_with_no_batch_dims``), ``none`` keeps
 everything.  A rematerialized period runs its forward again in the
 backward pass, kernels included.
 
-On a mesh of ranks the train step passes a ``Layout``
-(``distributed/sharding.py``) to :func:`lm_loss`, which runs the dense
-decoder on local blocks: each period's weights are fetched (gathered over
-their FSDP axes) inside its rematerialized forward, so a replay gathers
-them again; attention and the MLP run their tensor-parallel bodies; the
-token embedding is vocab-parallel (rows outside this rank's block give 0,
-then a sum over ``model``), and so are the tied or untied head's logits,
-whose log-sum-exp and label pick take the max and the sums over
-``model``.  Each rank's loss is its rows' negative log-likelihood over the
-count of every rank's labels (a sum over the batch axes), so the ranks'
-losses and gradients add up to the global mean's.  The reference's
-``constrain`` calls have their counterparts here as
+On a mesh of ranks the train step passes a train ``Layout``
+(``distributed/sharding.py``) to :func:`lm_loss`, which runs every family
+on local blocks: each period's weights are fetched (gathered over their
+FSDP axes) inside its rematerialized forward, so a replay gathers them
+again; attention, the MLP, Mamba-2 (local heads) and the MoE (its EP or
+f-TP body) run their tensor-parallel bodies, one period's positions in
+their order; the input is :func:`embed_inputs`' (the token embedding
+vocab-parallel: rows outside this rank's block give 0, then a sum over
+``model``; hubert's frames and llava's patches through ``frontend_proj``),
+and so are the tied or untied head's logits, whose log-sum-exp and label
+pick take the max and the sums over ``model`` (hubert's frame labels
+alike, unshifted).  Each rank's loss is its rows' negative
+log-likelihood over the count of every rank's labels (a sum over the
+batch axes), plus its share of the MoE's aux (``models/moe.py``), so the
+ranks' losses and gradients add up to the global mean's.  The
+reference's ``constrain`` calls have their counterparts here as
 ``Layout.check``.
 
 The serving step takes the same kind of ``Layout`` (built by
@@ -312,7 +316,7 @@ def lm_loss(
     else:
         params = {**layout.fetch({k: v for k, v in params.items() if k != "periods"}, ""),
                   "periods": params["periods"]}
-        x = _embed_sharded(params["embed"], batch["tokens"], cfg, layout)
+        x = embed_inputs(params, batch, cfg, layout)
         rows = x.shape[0] * layout.batch_size
         x = layout.check(x, ("batch", "act_seq", None), (rows, x.shape[1], cfg.d_model))
     hidden, aux = forward_hidden(params, x, cfg, perf, layout)

@@ -7,13 +7,13 @@ gated RMSNorm; output projection.  The prefill's scan goes through the SSD
 kernel's wrapper (``kernels/ssd/ops.py``); decode's one-token state update
 and the conv are plain PyTorch, as in the reference.
 
-**Serving on a mesh of ranks** (``layout``: a ``sharding.Layout`` of the
-serving step, ``models/decoder.py``).  As in the reference, the heads go
-over ``model`` (``ssm_inner``) and ``w_b`` / ``w_c`` are replicated: each
-rank projects z, x and dt on its heads, B and C on the groups its heads
-read (all of them for one group), runs the conv on those channels, the
-SSD kernel on its heads, and ``w_out`` on its rows, the parts summed over
-``model``.  Three places differ from one device:
+**On a mesh of ranks** (``layout``: a ``sharding.Layout`` of the serving
+or the train step, ``models/decoder.py``).  As in the reference, the
+heads go over ``model`` (``ssm_inner``) and ``w_b`` / ``w_c`` are
+replicated: each rank projects z, x and dt on its heads, B and C on the
+groups its heads read (all of them for one group), runs the conv on
+those channels, the SSD kernel on its heads, and ``w_out`` on its rows,
+the parts summed over ``model``.  Three places differ from one device:
 
 * ``conv_w`` / ``conv_b`` are split over ``model`` along the concatenated
   [x; B; C] channels, in blocks that do not line up with a rank's heads
@@ -33,6 +33,16 @@ SSD kernel on its heads, and ``w_out`` on its rows, the parts summed over
 
 Where the heads do not divide over ``model``, every leaf split over it is
 gathered and every head runs on every rank.
+
+Every collective there is one autograd differentiates
+(``distributed/ranks.py``), so the train step runs the same code: ``x``
+enters the local heads' region by ``grad_psum`` (each rank's projections
+give a part of its gradient), as do ``w_b`` / ``w_c`` and ``out_norm``,
+replicated leaves of which each rank reads its groups' or channels' part;
+the conv's gathered gradient is summed back into each rank's block
+(``ranks.gather``); the norm's sum of squares is summed over ``model``
+both ways, forward and in the gradient, since every rank's channels read
+it; ``w_out``'s parts are summed by ``Layout.exit``.
 """
 from __future__ import annotations
 
@@ -137,25 +147,27 @@ def _local_params(params: dict, cfg: ArchConfig, layout) -> dict:
     and picked, ``w_b`` / ``w_c`` and ``out_norm`` cut to its groups and
     channels; where the heads do not divide, every split leaf gathered."""
     h0, hl, g0, gl = local_sizes(cfg, layout)
-    if hl == cfg.ssm_num_heads:
-        return {k: ranks.all_gather(w, layout.tp, 0 if k == "w_out" else w.dim() - 1, layout.mesh,
-                                    tag="tensor parallel")
+    if hl == cfg.ssm_num_heads:        # every rank runs every head alike: its gradient is the whole's
+        return {k: ranks.gather(w, layout.tp, 0 if k == "w_out" else w.dim() - 1, layout.mesh,
+                                tags=("tensor parallel",) * 2, reduce=False)
                 if _whole(k, cfg) is not None and w.shape[0 if k == "w_out" else -1] != _whole(k, cfg) else w
                 for k, w in params.items()}
     p, n, di = cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_d_inner
     out = dict(params)
     conv_w, conv_b = params["conv_w"], params["conv_b"]
     if conv_b.shape[0] != _whole("conv_b", cfg):
-        conv_w = ranks.all_gather(conv_w, layout.tp, 1, layout.mesh, tag="conv gather")
-        conv_b = ranks.all_gather(conv_b, layout.tp, 0, layout.mesh, tag="conv gather")
+        # each rank's gradient of the whole conv lies in its own channels: summed, each keeps its block
+        conv_w = ranks.gather(conv_w, layout.tp, 1, layout.mesh, tags=("conv gather",) * 2)
+        conv_b = ranks.gather(conv_b, layout.tp, 0, layout.mesh, tags=("conv gather",) * 2)
     gn, bc = cfg.ssm_num_groups * n, slice(g0 * n, (g0 + gl) * n)
     dev = conv_w.device
     cols = torch.cat([torch.arange(h0 * p, (h0 + hl) * p, device=dev),
                       torch.arange(di + bc.start, di + bc.stop, device=dev),
                       torch.arange(di + gn + bc.start, di + gn + bc.stop, device=dev)])
     out["conv_w"], out["conv_b"] = conv_w.index_select(1, cols), conv_b.index_select(0, cols)
-    out["w_b"], out["w_c"] = params["w_b"][:, bc], params["w_c"][:, bc]
-    out["out_norm"] = params["out_norm"][h0 * p:(h0 + hl) * p]
+    # replicated over model, each rank's gradient a part (its heads' or its channels'): entered
+    out["w_b"], out["w_c"] = layout.enter(params["w_b"])[:, bc], layout.enter(params["w_c"])[:, bc]
+    out["out_norm"] = layout.enter(params["out_norm"])[h0 * p:(h0 + hl) * p]
     return out
 
 
@@ -165,7 +177,10 @@ def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, cfg: Arch
     if layout is None or y.shape[-1] == cfg.ssm_d_inner:
         return rms_norm(y, scale, cfg.norm_eps) * F.silu(z)
     yf = y.float()
-    sq = ranks.psum(torch.sum(torch.square(yf), dim=-1, keepdim=True), layout.tp, layout.mesh, tag="norm sum")
+    # summed both ways: every rank's channels read the sum, so its gradient is a part too
+    sq = torch.sum(torch.square(yf), dim=-1, keepdim=True)
+    sq = ranks.grad_psum(ranks.value_psum(sq, layout.tp, layout.mesh, tag="norm sum"), layout.tp, layout.mesh,
+                         tag="norm sum")
     return (yf * torch.rsqrt(sq / cfg.ssm_d_inner + cfg.norm_eps) * scale.float()).to(y.dtype) * F.silu(z)
 
 
@@ -190,6 +205,8 @@ def mamba2_block(
     this rank's rows and heads (module docstring)."""
     if layout is not None:
         params = _local_params(params, cfg, layout)
+        if params["w_dt"].shape[-1] != cfg.ssm_num_heads:     # local heads: x enters their region
+            x = layout.enter(x)
     b, s, _ = x.shape
     n, p = cfg.ssm_state, cfg.ssm_head_dim
     h, g = params["w_dt"].shape[-1], params["w_b"].shape[-1] // n

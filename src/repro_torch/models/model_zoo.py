@@ -16,8 +16,8 @@ not divide over (pod, data), as long_500k's one row), under the rule table
 ``use_sharding`` installs (the defaults otherwise) with the two cache
 flags applied; the step runs on a :func:`serving_layout`
 (``models/decoder.py``) and its decode state is the rank's blocks
-(``decoder.init_decode_state``).  Training on a mesh still takes the
-dense decoders only (:func:`dense_decoder`).
+(``decoder.init_decode_state``).  The train step on a mesh
+(``training/train_loop.py``) holds the same blocks, every family too.
 """
 from __future__ import annotations
 
@@ -132,13 +132,6 @@ def batch_spec(cfg: ArchConfig, shape: ShapeSpec) -> dict:
         return {"token": torch.empty((b,), dtype=torch.int32, device=meta),
                 "state": decoder.init_decode_state(cfg, b, s, device=meta)}
     raise ValueError(shape.kind)
-
-
-def dense_decoder(cfg: ArchConfig) -> bool:
-    """Whether ``cfg`` is of the dense decoder family, the one a mesh of
-    ranks trains (mesh serving takes every family)."""
-    return cfg.family == "dense" and cfg.frontend == "none" and not cfg.attn_every and not any(
-        cfg.layer_is_moe(i) for i in range(cfg.num_layers))
 
 
 def serving_layout(cfg: ArchConfig, perf: PerfConfig, mesh, replicated_batch: bool = False) -> Layout:

@@ -27,6 +27,11 @@ paths:
     the partial products summed over model; tokens stay sharded over
     (pod, data).
 
+  Every collective of both bodies is one autograd differentiates
+  (``distributed/ranks.py``: ``exchange``, ``value_psum``, ``grad_psum``,
+  ``gather``), so the train step runs them too (:func:`_moe_local`), with
+  the aux loss each rank's share of the blocks' mean (:func:`_aux_share`).
+
   Both keep GShard's capacity: :func:`_capacity` slots an expert a rank,
   :func:`_dispatch_indices` ranks each slot by a stable sort, so earlier
   tokens win, and a slot past the capacity is dropped (its share of the
@@ -219,23 +224,30 @@ def moe_block(
     On a mesh of ranks (installed by ``use_sharding``): the EP or f-TP body
     with GShard capacity ``capacity_factor`` (default the config's), every
     rank passing its blocks of ``x`` and ``params`` as :func:`moe_pspecs`
-    lays them out and getting its block of ``y``.
+    lays them out and getting its block of ``y``; the aux loss is the mean
+    of the token blocks' over the mesh, as the reference's bodies take it.
 
-    With a serving ``layout`` (``models/decoder.py``): the same bodies on
-    the expert weights as the layout fetched them (gathered over their
-    FSDP axes already, so the bodies gather nothing), ``x`` this rank's
-    rows (whole over ``model``; the EP body takes its block of the
-    sequence where ``model`` divides it, as :func:`moe_pspecs` places it,
-    and the blocks of ``y`` are gathered back over ``model``); the aux
-    loss is this rank's own (serving discards it)."""
+    With a ``layout`` (``models/decoder.py``; a serving or a train step's):
+    the same bodies on the expert weights as the layout fetched them
+    (gathered over their FSDP axes already, so the bodies gather nothing),
+    ``x`` this rank's rows (whole over ``model``; the EP body takes its
+    block of the sequence where ``model`` divides it, as :func:`moe_pspecs`
+    places it, and the blocks of ``y`` are gathered back over ``model``),
+    differentiable (:func:`_moe_local`).  A serving step's aux loss is this
+    rank's block's own (serving discards it); a train step's is this
+    rank's share of the mean of the blocks' (:func:`_aux_share`)."""
     if layout is not None:
-        return _moe_serving(params, x, cfg, capacity_factor, layout)
+        return _moe_local(params, x, cfg, capacity_factor, layout)
     mesh = shd.current_mesh()
     if mesh is not None and mesh.size > 1:
         cf = capacity_factor if capacity_factor is not None else cfg.capacity_factor
-        body = _moe_ep_body if _branch(cfg, mesh) == "ep" else _moe_ftp_body
-        return body(x, params["router"], params["w_gate"], params["w_up"], params["w_down"],
-                    cfg=cfg, cf=cf, dp=_dp_axes(mesh), tp=_tp_axis(mesh), mesh=mesh)
+        dp, tp = _dp_axes(mesh), _tp_axis(mesh)
+        ep = _branch(cfg, mesh) == "ep"
+        body = _moe_ep_body if ep else _moe_ftp_body
+        y, aux = body(x, params["router"], params["w_gate"], params["w_up"], params["w_down"],
+                      cfg=cfg, cf=cf, dp=dp, tp=tp, mesh=mesh)
+        axes = ((tp,) if ep else ()) + dp
+        return y, ranks.pmean(aux, axes, mesh) if axes else aux
     b, s, d = x.shape
     k = cfg.experts_per_token
     xt = x.reshape(-1, d)
@@ -258,37 +270,66 @@ def moe_block(
     return y.reshape(b, s, d).to(x.dtype), aux
 
 
-def _moe_serving(params, x, cfg: ArchConfig, capacity_factor, layout):
-    """:func:`moe_block` on a serving ``layout``."""
+def _moe_local(params, x, cfg: ArchConfig, capacity_factor, layout):
+    """:func:`moe_block` on a ``layout``, every collective one autograd
+    differentiates.  EP: ``x`` (replicated over ``model``) enters through
+    ``grad_psum`` before each rank takes its block of the sequence, and so
+    does the router, whose blocks of tokens differ by rank; the slots go
+    to the experts' owners and back by ``ranks.exchange``; ``y``'s blocks
+    are gathered over ``model`` (each rank's gradient of the whole ``y`` is
+    the same, so the backward keeps its block unsummed).  f-TP: the
+    routing runs alike on every rank of ``model``, the expert products on
+    its columns of ``d_ff``, their parts summed by ``value_psum`` and the
+    dispatched tokens entered through ``grad_psum`` (Megatron's pair)."""
     mesh = layout.mesh
     cf = capacity_factor if capacity_factor is not None else cfg.capacity_factor
     tp = _tp_axis(mesh)
     n = mesh.shape[tp] if tp else 1
     e, f = cfg.num_experts, cfg.d_ff
-    wg, wu, wd = params["w_gate"], params["w_up"], params["w_down"]
-    args = dict(cfg=cfg, cf=cf, dp=(), tp=tp, mesh=mesh, reduce_aux=False)
+    router, wg, wu, wd = params["router"], params["w_gate"], params["w_up"], params["w_down"]
+    args = dict(cfg=cfg, cf=cf, dp=(), tp=tp, mesh=mesh)
     if _branch(cfg, mesh) == "ep":
         if wg.shape[0] * n != e or wg.shape[2] != f:
             raise ValueError(f"{cfg.name}: the expert-parallel body takes E / {n} whole experts a rank, got a "
                              f"{tuple(wg.shape)} block")
         s = x.shape[1]
         if s % n:
-            return _moe_ep_body(x, params["router"], wg, wu, wd, **args)
-        y, aux = _moe_ep_body(x.chunk(n, 1)[mesh.index(tp)], params["router"], wg, wu, wd, **args)
-        return ranks.all_gather(y, tp, 1, mesh, tag="expert parallel"), aux
+            if layout.training:
+                raise ValueError(f"{cfg.name}: the expert-parallel body trains on its block of the sequence; "
+                                 f"{s} positions do not split over model {n}")
+            return _moe_ep_body(x, router, wg, wu, wd, **args)
+        xs = layout.enter(x).chunk(n, 1)[mesh.index(tp)]
+        y, aux = _moe_ep_body(xs, layout.enter(router), wg, wu, wd, **args)
+        y = ranks.gather(y, tp, 1, mesh, tags=("expert parallel",) * 2, reduce=False)
+        return y, _aux_share(aux, (tp,), layout.batch_size * n, layout)
     if wg.shape[0] != e or wg.shape[2] * n != f:
         raise ValueError(f"{cfg.name}: the f-sharded body takes every expert with d_ff / {n} a rank, got a "
                          f"{tuple(wg.shape)} block")
-    return _moe_ftp_body(x, params["router"], wg, wu, wd, **args)
+    y, aux = _moe_ftp_body(x, router, wg, wu, wd, **args)
+    return y, _aux_share(aux, (), layout.batch_size, layout)
+
+
+def _aux_share(aux: torch.Tensor, split: tuple, blocks: int, layout) -> torch.Tensor:
+    """A train step's aux term of this rank: the sum of its token blocks'
+    aux over the axes of ``split`` (the ranks of one row block that route
+    blocks of its tokens) over the mesh's count of ``blocks``, so that the
+    ranks' terms add up over the batch axes to the mean of the blocks' aux
+    (the reference's ``pmean`` over (model, pod, data) of each block's
+    aux, ``src/repro/models/moe.py:240-243``), and each block's gradient is
+    its aux's over ``blocks``.  A serving step's is its block's own aux."""
+    if not layout.training:
+        return aux
+    return ranks.value_psum(aux, split, layout.mesh, tag="expert parallel") / blocks if split else aux / blocks
 
 
 def _gather_fsdp(w: torch.Tensor, dp: tuple, dim: int, mesh) -> torch.Tensor:
-    return ranks.all_gather(w, dp, dim, mesh) if dp else w
+    return ranks.gather(w, dp, dim, mesh, tags=("all_gather", "psum_scatter")) if dp else w
 
 
-def _moe_ep_body(x, router, wg, wu, wd, *, cfg, cf, dp, tp, mesh, reduce_aux=True):
+def _moe_ep_body(x, router, wg, wu, wd, *, cfg, cf, dp, tp, mesh):
     """Expert-parallel body (E % tp == 0).  Local shapes:
-    x (B_l, S_l, d); wg/wu (E_l, d_l, f); wd (E_l, f, d_l)."""
+    x (B_l, S_l, d); wg/wu (E_l, d_l, f); wd (E_l, f, d_l).  → (this
+    rank's block of y, its block's aux)."""
     bl, sl, d = x.shape
     k, e = cfg.experts_per_token, cfg.num_experts
     t = bl * sl
@@ -298,34 +339,32 @@ def _moe_ep_body(x, router, wg, wu, wd, *, cfg, cf, dp, tp, mesh, reduce_aux=Tru
     xbuf, flat, slot, keep = _dispatch(xt, ids, e, cap)
     # route slots to expert owners over the model axis: split the expert dim
     # (tp blocks of E_l), receive tp slot-blocks concatenated on the slot dim
-    xe = ranks.all_to_all(xbuf, tp, 0, 1, mesh)                        # (E_l, tp·cap, d)
+    xe = ranks.exchange(xbuf, tp, 0, 1, mesh)                          # (E_l, tp·cap, d)
     ye = _expert_ffn(xe, _gather_fsdp(wg, dp, 1, mesh), _gather_fsdp(wu, dp, 1, mesh),
                      _gather_fsdp(wd, dp, 2, mesh))
     # return slots to their source columns (the inverse exchange)
-    yb = ranks.all_to_all(ye, tp, 1, 0, mesh)                          # (E, cap, d)
+    yb = ranks.exchange(ye, tp, 1, 0, mesh)                            # (E, cap, d)
     y = _combine(yb, w, flat, slot, keep, t, k, x.dtype)
-    if reduce_aux:
-        aux = ranks.pmean(aux, (tp,) + dp, mesh)
     return y.reshape(bl, sl, d), aux
 
 
-def _moe_ftp_body(x, router, wg, wu, wd, *, cfg, cf, dp, tp, mesh, reduce_aux=True):
+def _moe_ftp_body(x, router, wg, wu, wd, *, cfg, cf, dp, tp, mesh):
     """f-sharded tensor-parallel body (E < tp; experts replicated on model,
     d_ff sharded, summed over model).  Local: x (B_l, S, d) — tokens are
-    not sharded over model here; wg/wu (E, d_l, f_l); wd (E, f_l, d_l)."""
+    not sharded over model here; wg/wu (E, d_l, f_l); wd (E, f_l, d_l).
+    → (this rank's block of y, its block's aux)."""
     bl, sl, d = x.shape
     k, e = cfg.experts_per_token, cfg.num_experts
     t = bl * sl
     xt = x.reshape(t, d)
     w, ids, aux = route(xt, router, k)
     cap = _capacity(t, e, k, cf)
-    xbuf, flat, slot, keep = _dispatch(xt, ids, e, cap)
+    # the routing is alike on every rank of model; the products' input enters the f-split region
+    xbuf, flat, slot, keep = _dispatch(ranks.grad_psum(xt, tp, mesh, tag="tensor parallel"), ids, e, cap)
     ye = _expert_ffn(xbuf, _gather_fsdp(wg, dp, 1, mesh), _gather_fsdp(wu, dp, 1, mesh),
                      _gather_fsdp(wd, dp, 2, mesh))                    # partial over f
-    ye = ranks.psum(ye, tp, mesh)
+    ye = ranks.value_psum(ye, tp, mesh)
     y = _combine(ye, w, flat, slot, keep, t, k, x.dtype)
-    if reduce_aux and dp:
-        aux = ranks.pmean(aux, dp, mesh)
     return y.reshape(bl, sl, d), aux
 
 
@@ -337,26 +376,27 @@ def moe_capacity_reference(
     mesh of ``mesh_shape`` (axis → size, e.g. ``{"data": 2, "model": 2}``),
     each block routed, given :func:`_capacity` slots an expert and dropped
     by :func:`_dispatch_indices`, its kept slots run through every expert's
-    whole FFN and combined.  Returns (y, aux, dropped slots).  Tests and
-    ``chip_smoke.py`` hold the bodies to it; nothing on the model's path
-    calls it."""
+    whole FFN and combined.  Returns (y, aux: the mean of the blocks',
+    dropped slots), differentiable.  Tests and ``chip_smoke.py`` hold the
+    bodies to it; nothing on the model's path calls it."""
     mesh = shd.Mesh(tuple(mesh_shape.values()), tuple(mesh_shape))
     spec = moe_pspecs(cfg, mesh, x.shape)["x"]
     b, s, d = x.shape
     k, e = cfg.experts_per_token, cfg.num_experts
     nb = math.prod(mesh.shape[a] for a in spec[0]) if spec[0] else 1
     ns = mesh.shape[spec[1]] if spec[1] else 1
-    y = torch.empty_like(x)
-    auxes, dropped = [], 0
-    for xb, yb in zip(x.chunk(nb, 0), y.chunk(nb, 0)):
-        for xs, ys in zip(xb.chunk(ns, 1), yb.chunk(ns, 1)):
+    rows, auxes, dropped = [], [], 0
+    for xb in x.chunk(nb, 0):
+        cols = []
+        for xs in xb.chunk(ns, 1):
             t = xs.shape[0] * xs.shape[1]
             xt = xs.reshape(t, d)
             w, ids, aux = route(xt, params["router"], k)
             cap = _capacity(t, e, k, capacity_factor)
             xbuf, flat, slot, keep = _dispatch(xt, ids, e, cap)
             ybuf = _expert_ffn(xbuf, params["w_gate"], params["w_up"], params["w_down"])
-            ys.copy_(_combine(ybuf, w, flat, slot, keep, t, k, x.dtype).reshape(xs.shape))
+            cols.append(_combine(ybuf, w, flat, slot, keep, t, k, x.dtype).reshape(xs.shape))
             auxes.append(aux)
             dropped += int((~keep).sum())
-    return y, torch.stack(auxes).mean(), dropped
+        rows.append(torch.cat(cols, 1))
+    return torch.cat(rows, 0), torch.stack(auxes).mean(), dropped

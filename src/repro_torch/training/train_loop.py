@@ -11,19 +11,23 @@ On one device ``gather_weights_once`` has no FSDP axes to gather and
 ``grad_compress_pod`` no pod axis to reduce over: both do nothing.
 
 **On a mesh of ranks** (``launch.mesh.make_rank_mesh``, inside
-``distributed.ranks.spawn``; the dense decoder family) the step is the
-reference's GSPMD program written out on local blocks, with the rule table
-installed by ``use_sharding``.  ``init_state`` takes the whole parameters,
+``distributed.ranks.spawn``; every family) the step is the reference's
+GSPMD program written out on local blocks, with the rule table installed
+by ``use_sharding``.  ``init_state`` takes the whole parameters,
 as on one device, and keeps this rank's block of each under
 ``model_zoo.param_pspecs`` (``TrainStepFns.param_pspecs``), with AdamW's
 moments as blocks.  ``train_step`` takes this rank's rows of the batch
 (``data.pipeline.shard_batch``) and returns blocks, with ``loss`` and
 ``grad_norm`` global.  The forward runs on local blocks
-(``sharding.Layout``, ``models/decoder.py``): weights gathered over their
-FSDP axes where they are used (per microbatch and per remat replay), or
-once a step with ``gather_weights_once``, the gradients summed back into
-the blocks; AdamW's global norm sums each leaf's squares over the axes it
-is split across.  The compressed cross-pod branch (``grad_compress_pod``
+(a train ``sharding.Layout``, ``models/decoder.py``): weights gathered
+over their FSDP axes where they are used (per microbatch and per remat
+replay), or once a step with ``gather_weights_once``, the gradients
+summed back into the blocks; attention, the MLP, Mamba-2's local heads and
+the MoE's EP / f-TP bodies (at ``perf.moe_capacity_factor``) differentiated
+through the autograd collectives of ``distributed/ranks.py``; the MoE's
+aux loss each rank's share of the mean of its token blocks' aux, as the
+reference's bodies ``pmean`` it; AdamW's global norm sums each leaf's
+squares over the axes it is split across.  The compressed cross-pod branch (``grad_compress_pod``
 with a ``pod`` axis, under ``launch.dryrun_lib.perf_rules``, which drop
 ``pod`` from the rules) is hierarchical ZeRO: parameters replicated across
 pods and split over data × model inside one, the batch split over pods
@@ -144,11 +148,6 @@ def make_train_step(
 
 def _mesh_train_step(cfg: ArchConfig, perf: PerfConfig, opt: AdamW, mesh) -> TrainStepFns:
     """The step on a mesh of ranks (module docstring)."""
-    if not zoo.dense_decoder(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: a train step on a mesh of ranks takes the dense decoder family; the MoE, "
-            "Mamba-2, hybrid and frontend families wait for the training half of mesh training and "
-            "serving of the other families (ROADMAP Queue A; their serving runs on a mesh)")
     compress = perf.grad_compress_pod and "pod" in mesh.axis_names
     pspecs = zoo.param_pspecs(cfg, mesh)
     flat_specs = paths(pspecs)
@@ -156,7 +155,7 @@ def _mesh_train_step(cfg: ArchConfig, perf: PerfConfig, opt: AdamW, mesh) -> Tra
                         for spec in flat_specs.values() for e in spec):
         raise ValueError("the compressed cross-pod step replicates parameters across pods: install "
                          "launch.dryrun_lib.perf_rules(perf) with use_sharding")
-    layout = Layout(mesh, dict(current_rules()), flat_specs, gathered=perf.gather_weights_once)
+    layout = Layout(mesh, dict(current_rules()), flat_specs, gathered=perf.gather_weights_once, training=True)
     split_over = {k: layout.sharded_axes(k) for k in flat_specs}
     loss_fn = lambda p, b: zoo.loss_fn(p, b, cfg, perf, layout)
 

@@ -7,6 +7,7 @@ inputs are rounded from the same fp32 values on both sides."""
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax.numpy as jnp
 
@@ -124,53 +125,58 @@ def emulate_bf16_kernel(q, k, v, *, causal, window, q_offset, bq=64, bk=64):
     ``bk`` from its first to its last unmasked tile, S in fp32 from bf16
     inputs, the online softmax in fp32 in base 2, P in two bf16 parts (its
     rounding and the rounding of the rest) for P·V, the denominator summed
-    over the two parts, fp32 sums, and l == 0 giving 0.  q, k, v are bf16
-    tensors; returns bf16."""
+    over the two parts, fp32 sums, and l == 0 giving 0.  The row blocks of
+    one kv head go together: at each key tile, every block whose range
+    holds it (each row's tiles in the same order as the kernel's).  q, k,
+    v are bf16 tensors; returns bf16."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     group = h // kvh
     rows = sq * group
+    nb = -(-rows // bq)
     scale_log2 = d ** -0.5 * 1.4426950408889634
+    qpos = torch.arange(nb * bq).reshape(nb, bq) // group + q_offset
+    r0 = torch.arange(nb) * bq
+    pos_first, pos_last = r0 // group, (torch.clamp(r0 + bq, max=rows) - 1) // group
+    k_hi = torch.clamp(pos_last + q_offset + 1, max=sk) if causal else torch.full((nb,), sk)
+    k_lo = torch.clamp(pos_first + q_offset - window + 1, min=0) if window else torch.zeros(nb, dtype=torch.long)
+    t_lo = torch.div(k_lo, bk, rounding_mode="floor")
+    t_end = torch.where(k_hi > k_lo, -torch.div(-k_hi, bk, rounding_mode="floor"), t_lo)
     out = torch.zeros((b, sq, h, d), dtype=torch.float32)
+    pr = torch.arange(rows)
     for bi in range(b):
         for g in range(kvh):
             qp = q[bi, :, g * group:(g + 1) * group].float().reshape(rows, d)
+            qb = F.pad(qp, (0, 0, 0, nb * bq - rows)).reshape(nb, bq, d)
             kg, vg = k[bi, :, g].float(), v[bi, :, g].float()
-            for r0 in range(0, rows, bq):
-                qt = qp[r0:r0 + bq]
-                n = qt.shape[0]
-                qpos = torch.arange(r0, r0 + n) // group + q_offset
-                pos_first, pos_last = r0 // group, (min(r0 + bq, rows) - 1) // group
-                k_hi = min(sk, pos_last + q_offset + 1) if causal else sk
-                k_lo = max(0, pos_first + q_offset - window + 1) if window else 0
-                t_end = -(-k_hi // bk) if k_hi > k_lo else k_lo // bk
-                m = torch.full((n,), float("-inf"))
-                l = torch.zeros(n)
-                acc = torch.zeros((n, d))
-                for t in range(k_lo // bk, t_end):
-                    kj = torch.arange(t * bk, (t + 1) * bk)
-                    valid = kj < sk
-                    kt = torch.where(valid[:, None], kg[kj.clamp(max=sk - 1)], 0.0)
-                    vt = torch.where(valid[:, None], vg[kj.clamp(max=sk - 1)], 0.0)
-                    s = (qt @ kt.T) * scale_log2
-                    ok = valid[None, :].expand(n, bk)
-                    if causal:
-                        ok = ok & (kj[None, :] <= qpos[:, None])
-                    if window:
-                        ok = ok & (kj[None, :] > qpos[:, None] - window)
-                    s = torch.where(ok, s, float("-inf"))
-                    mx = torch.maximum(m, s.max(dim=1).values)
-                    mu = torch.where(mx == float("-inf"), 0.0, mx)
-                    alpha = torch.exp2(m - mu)
-                    p = torch.exp2(s - mu[:, None])
-                    hi = p.to(torch.bfloat16).float()
-                    lo = (p - hi).to(torch.bfloat16).float()
-                    l = l * alpha + (hi + lo).sum(dim=1)
-                    acc = acc * alpha[:, None] + lo @ vt + hi @ vt
-                    m = mx
-                o = acc * torch.where(l == 0, 0.0, 1.0 / l)[:, None]
-                pr = torch.arange(r0, r0 + n)
-                out[bi, pr // group, g * group + pr % group] = o
+            m = torch.full((nb, bq), float("-inf"))
+            l = torch.zeros((nb, bq))
+            acc = torch.zeros((nb, bq, d))
+            for t in range(int(t_lo.min()), int(t_end.max())):
+                blk = torch.nonzero((t >= t_lo) & (t < t_end))[:, 0]     # the blocks that read tile t
+                kj = torch.arange(t * bk, (t + 1) * bk)
+                valid = kj < sk
+                kt = torch.where(valid[:, None], kg[kj.clamp(max=sk - 1)], 0.0)
+                vt = torch.where(valid[:, None], vg[kj.clamp(max=sk - 1)], 0.0)
+                s = (qb[blk] @ kt.T) * scale_log2
+                ok = valid.expand(len(blk), bq, bk)
+                if causal:
+                    ok = ok & (kj <= qpos[blk, :, None])
+                if window:
+                    ok = ok & (kj > qpos[blk, :, None] - window)
+                s = torch.where(ok, s, float("-inf"))
+                mb = m[blk]
+                mx = torch.maximum(mb, s.max(dim=-1).values)
+                mu = torch.where(mx == float("-inf"), 0.0, mx)
+                alpha = torch.exp2(mb - mu)
+                p = torch.exp2(s - mu[..., None])
+                hi = p.to(torch.bfloat16).float()
+                lo = (p - hi).to(torch.bfloat16).float()
+                l[blk] = l[blk] * alpha + (hi + lo).sum(dim=-1)
+                acc[blk] = acc[blk] * alpha[..., None] + lo @ vt + hi @ vt
+                m[blk] = mx
+            o = (acc * torch.where(l == 0, 0.0, 1.0 / l)[..., None]).reshape(nb * bq, d)[:rows]
+            out[bi, pr // group, g * group + pr % group] = o
     return out.to(torch.bfloat16)
 
 

@@ -2,8 +2,9 @@
 card (gloo, collectives staged through host memory) for the sharded
 acceptance scan, the sharded ensemble, the MoE's expert-parallel and
 f-sharded bodies, ``compress_psum``, a train step of the reduced qwen3
-on (data 2, model 2), its sharded prefill and decode, and the reduced
-mamba2's and jamba's with the SSD kernel on each rank's heads, each held
+on (data 2, model 2), its sharded prefill and decode, the reduced
+mamba2's and jamba's with the SSD kernel on each rank's heads, and a
+train step of the reduced MoE, Mamba-2, hybrid and frontend models, each held
 to its single-device version on the card (and ``compress_psum`` to the
 CPU's ranks bit for bit).
 
@@ -347,3 +348,91 @@ def _ssd_serve_ranks(arch: str) -> list:
     everyone = [None] * ranks.world_size()
     dist.all_gather_object(everyone, rec)
     return everyone
+
+
+#: the train step of the other families: case → (arch, (data, model), config changes, S)
+TRAIN_FAMILIES = {
+    "mamba2": ("mamba2-370m", (2, 2), {}, 160),
+    "jamba": ("jamba-1.5-large-398b", (2, 2), {}, 160),
+    "mixtral": ("mixtral-8x7b", (2, 2), {}, 64),
+    "qwen3-moe EP": ("qwen3-moe-235b-a22b", (1, 4), dict(num_experts=16, experts_per_token=2), 64),
+    "llava": ("llava-next-mistral-7b", (2, 2), {}, 32),
+    "hubert": ("hubert-xlarge", (2, 2), {}, 32),
+}
+
+
+def _family_inputs(name):
+    """A case's reduced config, its PerfConfig (E / k for a MoE: nothing
+    drops), fp32 weights drawn on the CPU and one (4, S) batch."""
+    from repro_torch.data.pipeline import batch_for_arch
+
+    arch, _, changes, s = TRAIN_FAMILIES[name]
+    cfg = dataclasses.replace(get_config(arch, reduced=True), **changes)
+    perf = PerfConfig(moe_capacity_factor=cfg.num_experts / cfg.experts_per_token if cfg.num_experts else None)
+    params = zoo.init_params(cfg, torch.Generator().manual_seed(0), torch.float32)
+    return cfg, perf, params, batch_for_arch(cfg, SyntheticLMStream(cfg.vocab_size, 4, s, seed=2).next_batch())
+
+
+def _train_families_ranks() -> dict:
+    """Every case of ``TRAIN_FAMILIES``: one train step on its mesh → the
+    loss, the gradient norm, the gathered gradients and every rank's flash
+    and SSD launches."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    out = {}
+    for name, (_, shape, _, _) in TRAIN_FAMILIES.items():
+        cfg, perf, params, raw = _family_inputs(name)
+        mesh = make_rank_mesh(shape)
+        with shd.use_sharding(mesh):
+            fns = make_train_step(cfg, perf, mesh=mesh)
+            state = fns.init_state(_to(params, ranks.device()))
+            fa.launches = ssd_ops.launches = 0
+            loss, grads = fns.loss_and_grads(state.params, shard_batch(raw, mesh))
+            launches = [None] * ranks.world_size()
+            dist.all_gather_object(launches, (fa.launches, ssd_ops.launches))
+            specs = paths(fns.param_pspecs)
+            whole = {k: ranks.unshard(g, specs[k], mesh).cpu() for k, g in grads.items()}
+            _, m = fns.apply_grads(state, loss, grads, 1e-3)
+        out[name] = {"loss": float(loss), "grad_norm": float(m["grad_norm"]), "grads": whole, "launches": launches}
+    return out
+
+
+@pytest.fixture(scope="module")
+def families_on_card(cuda):
+    return ranks.spawn(4, _train_families_ranks, device="cuda", timeout_s=600)
+
+
+@pytest.mark.parametrize("name", TRAIN_FAMILIES)
+def test_train_step_of_the_other_families_on_a_mesh_equals_one_card(families_on_card, cuda, name):
+    """The reduced MoE, Mamba-2, hybrid and frontend models' train step on
+    their meshes, four ranks on the card, against the single-card step with
+    each MoE layer through ``moe_capacity_reference`` at the mesh's shape
+    (its aux the mean of the token blocks', as the mesh takes it): loss and
+    gradient norm within 1e-5 relative, each gathered gradient within 1e-4
+    of its leaf's largest entry (chip_smoke's MESH_TRAIN_LIMIT, as the
+    dense decoders' above), and on each rank two flash launches an
+    attention layer and two SSD launches a Mamba-2 layer (forward and remat
+    replay on its heads; none in the backward)."""
+    from unittest import mock
+
+    cfg, perf, params, raw = _family_inputs(name)
+    shape = dict(zip(("data", "model"), TRAIN_FAMILIES[name][1]))
+
+    def capacity(p, x, cfg_, capacity_factor=None, layout=None):
+        y, aux, _ = moe.moe_capacity_reference(p, x, cfg_, capacity_factor, shape)
+        return y, aux
+
+    fns = make_train_step(cfg, perf)
+    state = fns.init_state(_to(params, cuda))
+    with mock.patch.object(moe, "moe_block", capacity):
+        loss, grads = fns.loss_and_grads(state.params, shard_batch(raw, make_host_mesh()))
+    _, m = fns.apply_grads(state, loss, {k: g.clone() for k, g in grads.items()}, 1e-3)
+    got = families_on_card[name]
+    assert got["loss"] == pytest.approx(float(loss), rel=1e-5)
+    assert got["grad_norm"] == pytest.approx(float(m["grad_norm"]), rel=1e-5)
+    for k, g in grads.items():
+        assert float((got["grads"][k].to(cuda) - g).abs().max()) <= 1e-4 * float(g.abs().max()), k
+    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.num_layers))
+    assert got["launches"] == [(2 * n_attn, 2 * (cfg.num_layers - n_attn))] * 4

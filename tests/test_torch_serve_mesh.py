@@ -34,6 +34,7 @@ from repro_torch.launch import dryrun_lib, roofline
 from repro_torch.launch.mesh import make_production_mesh, make_rank_mesh
 from repro_torch.models import attention as attn
 from repro_torch.models import model_zoo as zoo
+from repro_torch.tree import paths
 
 B, S, STEPS = 4, 16, 4
 MAX_LEN = S + STEPS
@@ -239,13 +240,15 @@ OTHER_FAMILIES = ("mixtral-8x7b", "qwen3-moe-235b-a22b", "mamba2-370m", "jamba-1
 
 @pytest.mark.parametrize("arch", OTHER_FAMILIES)
 def test_serving_on_a_mesh_raises_for_the_other_families(arch):
-    """Serving takes every family on a mesh; their mesh train step still
-    raises, naming the ROADMAP item."""
+    """Serving takes every family on a mesh, and since the mesh train step
+    took them too it no longer raises for any: both hold the parameters
+    as the same blocks (``tests/test_torch_train_mesh_families.py`` runs
+    the step)."""
     from repro_torch.training.train_loop import make_train_step
 
     mesh = make_production_mesh()
     cfg = get_config(arch)
     layout = zoo.serving_layout(cfg, PerfConfig(shard_cache_seq_over_model=True), mesh)
     assert layout.rules["cache_seq"] == "model" and layout.rules["long_cache_seq"] == "data"
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
-        make_train_step(cfg, PerfConfig(), mesh=mesh)
+    fns = make_train_step(cfg, PerfConfig(), mesh=mesh)
+    assert paths(fns.param_pspecs) == layout.pspecs
